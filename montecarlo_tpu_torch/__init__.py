@@ -1,0 +1,37 @@
+"""montecarlo_tpu_torch — the PyTorch/CUDA port of ``montecarlo_tpu``.
+
+The same move/policy protocol, Metropolis–Hastings engine over many
+independent chains and schedulable recorders as the JAX package, written in
+PyTorch, with the JAX package's hot-path Pallas kernel rewritten by hand in
+CUDA C++ for NVIDIA Hopper (``csrc/``).  Importing it needs neither ``jax``
+nor ``nvcc``: the kernel is compiled at its first launch.
+
+The public names are the ported subset of ``montecarlo_tpu``'s.
+"""
+
+from .core.moves import Move, MoveDef, Policy, generic_apply, tree_select
+from .core.system import SystemDef, stack_chains
+from .core.metropolis import (Metropolis, StoreParameters, callback_acceptance,
+                              mc_step, mc_sweep)
+from .core.algorithms import (Algorithm, DeviceAlgorithm, HostAlgorithm,
+                              ObservableRecorder, SimView, Format, TXT, DAT,
+                              BIN, StoreCallbacks, StoreTrajectories,
+                              load_chain_major_trajectories, PrintTimeSteps)
+from .core.simulation import Simulation, build_schedule, run
+from .utils.observability import Throughput
+from . import interop
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Move", "MoveDef", "Policy", "generic_apply", "tree_select",
+    "SystemDef", "stack_chains",
+    "Metropolis", "StoreParameters", "callback_acceptance",
+    "mc_step", "mc_sweep",
+    "Algorithm", "DeviceAlgorithm", "HostAlgorithm", "ObservableRecorder",
+    "SimView", "Format", "TXT", "DAT", "BIN",
+    "StoreCallbacks", "StoreTrajectories", "load_chain_major_trajectories",
+    "PrintTimeSteps",
+    "Simulation", "build_schedule", "run",
+    "Throughput", "interop",
+]

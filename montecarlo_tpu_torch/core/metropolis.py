@@ -1,0 +1,419 @@
+"""Metropolis–Hastings step and the Metropolis algorithm.
+
+Port of ``montecarlo_tpu/core/metropolis.py`` (ref
+``src/metropolis.jl:176-309``).  One step of every chain is a handful of
+tensor operations over the chain axis (:func:`mc_step`), a sweep is a
+Python loop of steps (:func:`mc_sweep`), and rejection is a ``torch.where``
+select.
+
+Randomness: the generic path draws from one ``torch.Generator`` per
+:class:`Metropolis`, on the state's device, seeded with ``seed``.  Its
+stream is not the JAX package's threefry stream, so the generic path is
+held to the reference by statistics.  The fused path draws from the
+reference's counter-hash stream and reproduces its interpret-mode results
+(``ops/fused_sweep.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..utils.tree import tree_leaves, tree_map
+from .algorithms import DeviceAlgorithm, ObservableRecorder, SimView
+from .moves import Move, MoveDef, tree_select
+
+__all__ = [
+    "mc_step",
+    "mc_sweep",
+    "grouped_mc_step",
+    "build_move_groups",
+    "Metropolis",
+    "callback_acceptance",
+    "StoreParameters",
+]
+
+
+def build_move_groups(pool):
+    """Group pool moves with identical structure (same ``kind``, aux payload,
+    policy class, and flat parameter size) so each group's proposal runs
+    once per step.  Returns ``(groups, group_of, within_of)`` with groups a
+    tuple of ``(movedef, member_ids)`` and the two lookup arrays mapping
+    global move id → (group index, index within group)."""
+    keys = []
+    for m in pool:
+        md = m.move
+        size = sum(int(np.asarray(leaf).size) for leaf in tree_leaves(m.params))
+        if md.kind:
+            keys.append((md.kind, id(md.aux), type(md.policy), size))
+        else:
+            keys.append(("unique", id(md), id(m)))
+    order, members = [], {}
+    for k in keys:
+        if k not in members:
+            members[k] = []
+            order.append(k)
+    for i, k in enumerate(keys):
+        members[k].append(i)
+    groups = tuple((pool[members[k][0]].move, tuple(members[k]))
+                   for k in order)
+    group_of = np.zeros(len(pool), np.int32)
+    within_of = np.zeros(len(pool), np.int32)
+    for gi, k in enumerate(order):
+        for wi, mid in enumerate(members[k]):
+            group_of[mid] = gi
+            within_of[mid] = wi
+    return groups, group_of, within_of
+
+
+def _n_chains(state) -> int:
+    return int(tree_leaves(state)[0].shape[0])
+
+
+def _pick_moves(log_weights, n_moves, m, generator, device):
+    """Per-chain categorical move choice (all zeros for a one-move pool)."""
+    if n_moves == 1:
+        return torch.zeros(m, dtype=torch.int64, device=device)
+    probs = torch.softmax(log_weights.to(device), 0).expand(m, n_moves)
+    return torch.multinomial(probs, 1, generator=generator).squeeze(1)
+
+
+def _propose(md, p, state, generator):
+    """Stages 1-7 of ``mc_step!`` for all chains: sample, forward logq,
+    apply, invert, backward logq, accept test.  Returns the selected state
+    and the (M,) accept mask."""
+    action = md.policy.sample(p, generator, state)
+    logq_f = md.policy.log_density(p, action, state)
+    new_st, dlogp = md.apply(state, action)
+    inv = md.invert(action, new_st)
+    logq_b = md.policy.log_density(p, inv, new_st)
+    log_ratio = dlogp + logq_b - logq_f
+    u = torch.rand(log_ratio.shape, generator=generator,
+                   dtype=log_ratio.dtype, device=log_ratio.device)
+    accept = torch.log(u) < log_ratio
+    return tree_select(accept, new_st, state), accept
+
+
+def _count(counters, move_id, accept, n_moves):
+    onehot = torch.nn.functional.one_hot(move_id, n_moves).to(counters.dtype)
+    inc = torch.stack([onehot * accept.to(counters.dtype)[:, None], onehot],
+                      dim=-1)
+    return counters + inc
+
+
+def mc_step(movedefs: Sequence[MoveDef], params: Sequence, log_weights,
+            state, counters, generator):
+    """One Metropolis–Hastings step on every chain.
+
+    The 8-stage recipe of ``mc_step!`` + the categorical move selection of
+    ``mc_sweep!`` (``src/metropolis.jl:176-212``): each chain picks a move,
+    every move's proposal runs over all chains, and each chain keeps the
+    result of its own pick.
+
+    Args:
+      movedefs: tuple of :class:`MoveDef` (the pool).
+      params: tuple of parameter trees, one per move.
+      log_weights: ``log(weight)`` tensor, shape ``(K,)``.
+      state: chain-batched system state.
+      counters: ``(M, K, 2)`` int32 tensor of (accepted, total) per move.
+      generator: ``torch.Generator`` on the state's device.
+
+    Returns:
+      ``(new_state, new_counters)``.
+    """
+    n_moves = len(movedefs)
+    m = _n_chains(state)
+    move_id = _pick_moves(log_weights, n_moves, m, generator,
+                          counters.device)
+    new_state, accept = _propose(movedefs[0], params[0], state, generator)
+    for k in range(1, n_moves):
+        st_k, acc_k = _propose(movedefs[k], params[k], state, generator)
+        mine = move_id == k
+        new_state = tree_select(mine, st_k, new_state)
+        accept = torch.where(mine, acc_k, accept)
+    return new_state, _count(counters, move_id, accept, n_moves)
+
+
+def grouped_mc_step(groups, group_of, within_of, params, log_weights,
+                    n_moves, state, counters, generator):
+    """Like :func:`mc_step`, but moves with identical structure are grouped:
+    a group's proposal runs once, with each chain's parameters gathered from
+    the members' stacked parameters, instead of once per move.  Selection,
+    per-move counters and the acceptance rule are those of :func:`mc_step`.
+
+    Args:
+      groups: tuple of ``(movedef, member_move_ids)``.
+      group_of / within_of: int arrays mapping global move id to (group
+        index, index within the group's stacked params).
+    """
+    m = _n_chains(state)
+    device = counters.device
+    move_id = _pick_moves(log_weights, n_moves, m, generator, device)
+    w = torch.as_tensor(within_of, device=device).long()[move_id]
+    g = torch.as_tensor(group_of, device=device).long()[move_id]
+    new_state = accept = None
+    for gi, (md, members) in enumerate(groups):
+        if len(members) == 1:
+            p = params[members[0]]
+        else:
+            p = tree_map(lambda *xs: torch.stack(xs)[w],
+                         *[params[lid] for lid in members])
+        st_g, acc_g = _propose(md, p, state, generator)
+        if new_state is None:
+            new_state, accept = st_g, acc_g
+        else:
+            mine = g == gi
+            new_state = tree_select(mine, st_g, new_state)
+            accept = torch.where(mine, acc_g, accept)
+    return new_state, _count(counters, move_id, accept, n_moves)
+
+
+def mc_sweep(movedefs, params, log_weights, state, counters, generator,
+             mc_steps: int = 1, step_fn=None):
+    """``mc_steps`` MH steps on every chain (ref ``mc_sweep!``,
+    ``src/metropolis.jl:203-212``)."""
+    if step_fn is None:
+        step_fn = lambda st, cnt, gen: mc_step(
+            movedefs, params, log_weights, st, cnt, gen)
+    for _ in range(mc_steps):
+        state, counters = step_fn(state, counters, generator)
+    return state, counters
+
+
+class Metropolis(DeviceAlgorithm):
+    """Metropolis sampler over all chains (ref ``Metropolis``,
+    ``src/metropolis.jl:232-309``).
+
+    Owns the move pool; move parameters are stored once in device state
+    (``dstate['params']``) and shared by every chain.
+
+    ``fused`` selects the path:
+
+    - ``'auto'``: the CUDA sweep kernel when the chains are on a CUDA
+      device and the pool is fusable (:attr:`supports_fused`), else the
+      generic path;
+    - ``'off'``: always the generic path;
+    - ``'interpret'``: the fused path through the kernel's plain torch
+      version, on any device (CPU tests);
+    - ``'cell'``: the checkerboard cell-MC path, not yet ported.
+    """
+
+    state_key = "metropolis"
+    #: device-state slot holding this instance's move parameters; the
+    #: orchestrator reassigns it (``params_<state_key>``) for a second
+    #: params-owning algorithm in the same simulation
+    params_key = "params"
+
+    _FUSED_KINDS = ("gaussian_displacement_1d",)
+
+    def __init__(self, sim, pool: Sequence[Move] = (), sweepstep: int = 1,
+                 seed: int = 1, fused: str = "auto", dependencies=(), **_):
+        if not pool:
+            raise ValueError("Metropolis requires a non-empty move pool")
+        if fused not in ("auto", "off", "interpret", "cell"):
+            raise ValueError(
+                "fused must be 'auto' (CUDA kernel on a CUDA device when the "
+                "pool is fusable), 'off' (always the generic path), "
+                "'interpret' (force the fused path through the kernel's "
+                "plain torch version — CPU testing), or 'cell'")
+        if fused == "cell":
+            raise NotImplementedError(
+                "fused='cell' (checkerboard cell MC) is not yet ported")
+        self.fused = fused
+        self.pool = tuple(pool)
+        self.movedefs = tuple(m.move for m in self.pool)
+        self.weights = np.asarray([m.weight for m in self.pool], np.float32)
+        if not np.all(self.weights > 0):
+            raise ValueError("move weights must be positive")
+        self.log_weights = torch.as_tensor(
+            np.log(self.weights / self.weights.sum()))
+        self.sweepstep = int(sweepstep)
+        self.seed = int(seed)
+        self.n_chains = sim.n_chains
+        self.n_moves = len(self.pool)
+        self.device = sim.device
+        self.groups, self.group_of, self.within_of = build_move_groups(
+            self.pool)
+
+    def init_state(self, sim):
+        counters = torch.zeros((self.n_chains, self.n_moves, 2),
+                               dtype=torch.int32, device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        return {"counters": counters, "generator": gen}
+
+    def init_params(self):
+        """Initial shared move parameters (tuple, one tree per move)."""
+        return tuple(
+            tree_map(lambda x: torch.as_tensor(x).to(self.device), m.params)
+            for m in self.pool)
+
+    # -- generic step --------------------------------------------------------
+    def step(self, dstate, t):
+        slc = dstate[self.state_key]
+        params = dstate[self.params_key]
+
+        def step_fn(st, cnt, gen):
+            return grouped_mc_step(self.groups, self.group_of, self.within_of,
+                                   params, self.log_weights, self.n_moves,
+                                   st, cnt, gen)
+
+        sys, counters = mc_sweep(self.movedefs, params, self.log_weights,
+                                 dstate["sys"], slc["counters"],
+                                 slc["generator"], self.sweepstep,
+                                 step_fn=step_fn)
+        return {**dstate, "sys": sys,
+                self.state_key: {**slc, "counters": counters}}
+
+    # -- fused fast path -----------------------------------------------------
+    @property
+    def supports_fused(self) -> bool:
+        """True when the fused path runs this pool: one Gaussian
+        displacement move of a 1-D particle, on a CUDA device with a
+        potential the kernel knows (``'auto'``), or with any elementwise
+        potential under ``'interpret'``.  Any other pool takes the generic
+        path."""
+        if self.fused == "off":
+            return False
+        if self.n_moves != 1 or self.pool[0].move.kind not in self._FUSED_KINDS:
+            return False
+        if self.fused == "interpret":
+            return True
+        from ..ops.fused_sweep import kernel_potential
+        return (self.device.type == "cuda"
+                and kernel_potential(self.pool[0].move.aux) is not None)
+
+    def fused_advance(self, dstate, n_steps: int):
+        """Advance all chains ``n_steps * sweepstep`` MH steps in one sweep
+        call; counters and cached energies as :meth:`step` keeps them."""
+        from ..ops.fused_sweep import fused_gaussian_sweep
+        slc = dstate[self.state_key]
+        sys = dstate["sys"]
+        params = dstate[self.params_key]
+        t0 = dstate["t"]
+        total = int(n_steps) * self.sweepstep
+        # seeding off the absolute micro-step keeps results invariant to how
+        # recorder schedules cut the run into segments
+        micro_t0 = t0 * self.sweepstep
+        sigma = tree_leaves(params[0])[0]
+        x, e, acc = fused_gaussian_sweep(
+            sys.x, sys.beta, sigma, self.seed, micro_t0, total,
+            potential=self.pool[0].move.aux,
+            interpret=self.fused == "interpret")
+        counters = slc["counters"] + torch.stack(
+            [acc, torch.full_like(acc, total)], dim=-1)[:, None, :]
+        return {**dstate, "sys": dataclasses.replace(sys, x=x, e=e),
+                "t": t0 + int(n_steps),
+                self.state_key: {**slc, "counters": counters}}
+
+    # -- summary -------------------------------------------------------------
+    def write_summary(self, io, scheduler):
+        from .algorithms import _n_calls
+        n_dev = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        io.write("\tMetropolis\n")
+        io.write(f"\t\tCalls: {_n_calls(scheduler)}\n")
+        io.write(f"\t\tMC steps per simulation step: {self.sweepstep}\n")
+        io.write(f"\t\tSeed: {self.seed}\n")
+        io.write(f"\t\tParallel: {n_dev > 1}\n")
+        io.write(f"\t\tDevices: {n_dev}\n")
+        io.write("\t\tMoves:\n")
+        for k, move in enumerate(self.pool):
+            io.write(f"\t\t\tMove {k + 1}:\n")
+            io.write(f"\t\t\t\tAction: {move.move.name}\n")
+            io.write(f"\t\t\t\tPolicy: {type(move.move.policy).__name__}\n")
+            io.write(f"\t\t\t\tParameters: {_fmt_params(move.params)}\n")
+            io.write(f"\t\t\t\tWeight: {move.weight}\n")
+
+
+def _fmt_params(params) -> str:
+    flat = np.concatenate(
+        [np.ravel(torch.as_tensor(x).detach().cpu().numpy())
+         for x in tree_leaves(params)])
+    return "[" + ", ".join(repr(float(v)) for v in flat) + "]"
+
+
+def callback_acceptance(view: SimView):
+    """Mean acceptance rate over chains and moves of EVERY Metropolis
+    instance (ref ``callback_acceptance``, ``src/metropolis.jl:319-321``).
+    Entries with zero attempts (e.g. the t=0 ``store_first`` row) are
+    excluded from the mean instead of producing 0/0 = nan."""
+    num = den = None
+    for key in view.state:
+        if not key.startswith("metropolis"):
+            continue
+        slc = view.state[key]
+        if not isinstance(slc, dict) or "counters" not in slc:
+            continue
+        counters = slc["counters"]                       # (M, K, 2)
+        acc = counters[..., 0].to(torch.float32)
+        tot = counters[..., 1].to(torch.float32)
+        valid = tot > 0
+        n = torch.sum(torch.where(valid, acc / torch.clamp(tot, min=1.0),
+                                  0.0))
+        d = torch.sum(valid.to(torch.float32))
+        num = n if num is None else num + n
+        den = d if den is None else den + d
+    if num is None:
+        return torch.zeros((), dtype=torch.float32)
+    return num / torch.clamp(den, min=1.0)
+
+
+class StoreParameters(ObservableRecorder):
+    """Snapshot shared move parameters to ``parameters/<k>/parameters.dat``
+    (ref ``StoreParameters``, ``src/metropolis.jl:380-450``)."""
+
+    def __init__(self, sim, dependencies=(), ids=None, store_first: bool = True,
+                 store_last: bool = False, **_):
+        deps = [d for d in dependencies if isinstance(d, Metropolis)]
+        if len(deps) != 1:
+            raise ValueError(
+                "StoreParameters requires a single Metropolis dependency "
+                "(with two samplers, disambiguate with an index: "
+                "dependencies=(0,))")
+        self.metropolis = deps[0]
+        n_moves = self.metropolis.n_moves
+        self.ids = list(range(n_moves)) if ids is None else list(ids)
+        self.store_first = store_first
+        self.store_last = store_last
+        self._root = sim.path
+        self.dirs = []
+        self.paths = []
+        self.files = []
+
+    def _resolve_paths(self):
+        # the primary sampler keeps the reference layout
+        # parameters/<k>/parameters.dat; further samplers are namespaced by
+        # their state key.  Deferred to initialise: state keys are final
+        # only after Simulation construction.
+        base = os.path.join(self._root, "parameters")
+        if self.metropolis.params_key != "params":
+            base = os.path.join(base, self.metropolis.state_key)
+        self.dirs = [os.path.join(base, str(k + 1)) for k in self.ids]
+        self.paths = [os.path.join(d, "parameters.dat") for d in self.dirs]
+
+    def initialise(self, sim):
+        self._resolve_paths()
+        if sim.verbose:
+            print("Opening parameter files...")
+        for d in self.dirs:
+            os.makedirs(d, exist_ok=True)
+        self.files = [open(p, "w") for p in self.paths]
+
+    def observable(self, view: SimView):
+        params = view.state[self.metropolis.params_key]
+        return tuple(params[k] for k in self.ids)
+
+    def write(self, sim, t, value):
+        for f, p in zip(self.files, value):
+            f.write(f"{t} {_fmt_params(p)}\n")
+            f.flush()
+
+    def finalise(self, sim):
+        if sim.verbose:
+            print("Closing parameter files...")
+        for f in self.files:
+            f.close()
+        self.files = []

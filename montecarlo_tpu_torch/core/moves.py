@@ -1,0 +1,104 @@
+"""Move / Policy protocol — the user-extension surface of the framework.
+
+Port of ``montecarlo_tpu/core/moves.py``.  A move is a bundle of plain
+functions on chain-batched state: every state leaf carries a leading chain
+axis, and ``apply``/``log_density``/``sample`` work on all chains at once.
+Rejection is a ``torch.where`` select over the state rather than a
+mutate-then-revert, and the cached energy rides inside the state so
+delta-energies never recompute the full target density.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from ..utils.tree import tree_map
+
+__all__ = [
+    "Policy",
+    "MoveDef",
+    "Move",
+    "tree_select",
+    "generic_apply",
+]
+
+
+def tree_select(pred, on_true, on_false):
+    """Elementwise select over two states of the same structure; ``pred`` is
+    a (M,) bool tensor over chains, broadcast over each leaf's trailing
+    axes."""
+
+    def select(a, b):
+        p = pred.reshape(pred.shape + (1,) * (a.dim() - pred.dim()))
+        return torch.where(p, a, b)
+
+    return tree_map(select, on_true, on_false)
+
+
+class Policy:
+    """Proposal distribution over actions (ref ``Policy``).
+
+    Concrete policies implement two functions over all chains at once:
+
+    - ``sample(params, generator, state) -> action``: draw one action per
+      chain from ``generator`` (a ``torch.Generator`` on the state's device).
+    - ``log_density(params, action, state) -> (M,) tensor``: log proposal
+      density per chain.
+
+    ``params`` is a dict (or other tree) of tensors shared by every chain,
+    or, when a grouped pool gathers per-chain parameters, carrying a leading
+    chain axis.
+    """
+
+    def sample(self, params, generator, state):
+        raise NotImplementedError(
+            f"No sample is defined for {type(self).__name__}")
+
+    def log_density(self, params, action, state):
+        raise NotImplementedError(
+            f"No log_density is defined for {type(self).__name__}")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoveDef:
+    """Static definition of a Monte Carlo move type.
+
+    - ``apply(state, action) -> (new_state, delta_log_target)``.
+    - ``invert(action, new_state) -> action``.
+    - ``reward(action, new_state) -> tensor``: PGMC reward hook (optional).
+    - ``kind``: structural tag (e.g. ``"gaussian_displacement_1d"``) that
+      lets the engine pick a fused kernel for recognised move shapes.
+    - ``aux``: static payload for fused kernels (e.g. the potential).
+    """
+
+    name: str
+    policy: Policy
+    apply: Callable[[Any, Any], tuple]
+    invert: Callable[[Any, Any], Any]
+    reward: Optional[Callable[[Any, Any], Any]] = None
+    kind: str = ""
+    aux: Any = None
+
+
+@dataclasses.dataclass
+class Move:
+    """A move in a pool: definition + parameters + selection weight.  The
+    acceptance counters live in device state (``core/metropolis.py``)."""
+
+    move: MoveDef
+    params: Any
+    weight: float
+
+
+def generic_apply(perform: Callable, log_target: Callable) -> Callable:
+    """Build a ``MoveDef.apply`` from a plain state transform and a target
+    density: ``delta = log_target(new) - log_target(old)``."""
+
+    def apply(state, action):
+        new_state = perform(state, action)
+        return new_state, log_target(new_state) - log_target(state)
+
+    return apply
