@@ -1,36 +1,52 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives ``montecarlo_tpu_torch`` through its main path on the card and holds
-its hand-written CUDA kernel to the kernel's plain PyTorch version:
+Drives ``montecarlo_tpu_torch`` through its main paths on the card and
+holds each hand-written CUDA kernel to its plain PyTorch version:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit (``nvidia-smi``);
-2. build: compiles ``csrc/fused_sweep.cu`` with nvcc;
-3. kernel vs plain version, harmonic and double well, at M = 10^4 (one
-   block) and 10^6 (four blocks), odd t0 and n_steps;
-4. segmentation invariance: one launch of n steps equals three launches
-   summing to n, bit for bit;
-5. the main path, ``Simulation.run`` on CUDA: config 1 (the README
-   example, 10 chains, per-chain DAT files) and config 2 (10^4 chains,
-   energy + acceptance callbacks, chain-major BIN trajectories), with
-   physics checks;
-6. times of the kernel and the plain version, and config 2's end-to-end
-   rate, each printed beside the card's name and power limit.
+2. build: compiles ``csrc/fused_sweep.cu`` and ``csrc/lj_sweep.cu`` with
+   one nvcc each, started together;
+3. the Gaussian sweep kernel vs its plain version, harmonic and double
+   well, at M = 10^4 (one block) and 10^6 (four blocks), odd t0 and
+   n_steps; segmentation invariance (one launch of n steps equals three
+   launches summing to n, bit for bit);
+4. both LJ kernels vs their plain versions at config 4's shape (256 chains
+   x N 256), the config-5 pool's (64 x N 1024), a gridded case (M 300 over
+   blocks of 256, M 20 over blocks of 8) and mono-species chains; after
+   each run the kernel's cached energies against an O(N^2) recompute,
+   positions in [0, box) and the species composition; segmentation
+   invariance of both;
+5. the main paths, ``Simulation.run`` on CUDA, each with every launch count
+   set to 0 just before and read just after: config 1 (the README example,
+   10 chains, per-chain DAT files), config 2 (10^4 chains, energy +
+   acceptance callbacks, chain-major BIN trajectories), config 4 (2-D LJ,
+   256 chains x N 256, displacement, energy per particle + acceptance) and
+   the config-5 pool of ``examples/lj_2d.py`` without PGMC (64 chains x
+   N 1024, displacement + swap, callbacks and ``StoreLastFrames``), with
+   physics and cache checks;
+6. times of each kernel and its plain version at its main path's shape,
+   and config 2's end-to-end rate, each printed beside the card's name and
+   power limit.
 
 Prints its findings on lines before the last, a ``{"kernels": [...]}``
-line, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
+line (``ms`` per launch at the main path's segment of ``steps`` steps,
+``plain_ms`` per call of ``plain_steps`` steps), and as the last line
+``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero without the last line.
 
 Usage: python3 chip_smoke.py
 """
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -46,6 +62,12 @@ MAX_FLIP_FRACTION = 1e-4         # chains allowed an ulp-level accept flip
 CONFIG2_CHAINS = 10 ** 4
 CONFIG2_STRIDE = 10 ** 4
 CONFIG2_STEPS = 2 * 10 ** 7
+LJ_SIGMA, LJ_T0, LJ_STEPS = 0.1, 7, 301      # odd start, a few hundred steps
+LJ_ATOL = 1e-5                   # pos and energy of chains without a flip
+LJ_CACHE = dict(rtol=3e-4, atol=5e-2)   # the reference's own cache bounds
+CONFIG4 = dict(chains=256, n=256, sweeps=200, stride=10)
+POOL5 = dict(chains=64, n=1024, sweeps=50, w_disp=0.8)
+LJ_TIME_STEPS = 256              # steps per timed call, kernel and plain
 
 
 def check(ok, what):
@@ -218,6 +240,229 @@ def config2(tmc, p1d, device, path, m, steps, stride):
     return wall
 
 
+def lj_inputs(m, n, device, seed, frac_b=0.2):
+    import torch
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    st = lj.init_chains(m, n, rho=0.7, beta=1.0, frac_b=frac_b, seed=seed,
+                        device=device)
+    rng = np.random.default_rng(seed)
+    beta = torch.as_tensor(rng.uniform(0.8, 1.5, m).astype(np.float32),
+                           device=device)
+    return dataclasses.replace(st, beta=beta)
+
+
+def lj_call(st, n_steps, mixed, t0=LJ_T0, interpret=False, block_chains=256,
+            w_disp=POOL5["w_disp"]):
+    """One LJ sweep call; returns (pos, species, energy, acc, tot) for both
+    kernels (species, tot are the inputs' and None for the displacement
+    kernel)."""
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.ops.lj_sweep import (fused_lj_mixed_sweep,
+                                                   fused_lj_sweep)
+    box = float(st.box[0])
+    args = (st.pos, st.species, st.beta, st.energy, box, LJ_SIGMA)
+    kw = dict(params=lj.LJParams(), interpret=interpret,
+              block_chains=block_chains)
+    if mixed:
+        return fused_lj_mixed_sweep(*args, w_disp, SEED, t0, n_steps, **kw)
+    pos, e, acc = fused_lj_sweep(*args, SEED, t0, n_steps, **kw)
+    return pos, st.species, e, acc, None
+
+
+def lj_cache_check(st, out, what):
+    """The kernel's cached energies against an O(N^2) recompute, positions
+    in [0, box), species composition conserved."""
+    import torch
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    pos, spc, e = out[:3]
+    new = dataclasses.replace(st, pos=pos, species=spc, energy=e)
+    full = lj.make_system().refresh(new).energy
+    err = float(((e - full).abs()
+                 - LJ_CACHE["rtol"] * full.abs()).max())
+    box = float(st.box[0])
+    check(torch.isfinite(e).all() and err <= LJ_CACHE["atol"],
+          f"{what}: cached energy off the O(N^2) energy ({err})")
+    check(float(pos.min()) >= 0.0 and float(pos.max()) < box,
+          f"{what}: positions left [0, box)")
+    check(torch.equal(spc.sum(1), st.species.sum(1)),
+          f"{what}: species composition changed")
+    return float((e - full).abs().max())
+
+
+LJ_CASES = (  # (label, M, N, block_chains, frac_b)
+    ("config 4 shape", CONFIG4["chains"], CONFIG4["n"], 256, 0.2),
+    ("config-5 pool shape", POOL5["chains"], POOL5["n"], 256, 0.2),
+    ("gridded, blocks of 256", 300, 128, 256, 0.2),
+    ("gridded, blocks of 8", 20, 128, 8, 0.2),
+    ("mono-species", 32, 128, 256, 0.0),
+)
+
+
+def lj_kernels_vs_plain(device):
+    """Phase 4a.  Returns the largest |kernel - plain| per kernel over
+    chains without an accept flip."""
+    import torch
+    worst = {False: 0.0, True: 0.0}
+    for k, (label, m, n, bc, frac_b) in enumerate(LJ_CASES):
+        st = lj_inputs(m, n, device, SEED + 10 + k, frac_b)
+        for mixed in (False, True):
+            name = "mixed" if mixed else "displacement"
+            ker = lj_call(st, LJ_STEPS, mixed, block_chains=bc)
+            pln = lj_call(st, LJ_STEPS, mixed, block_chains=bc,
+                          interpret=True)
+            pk, sk, ek, ak, tk = ker
+            pp, sp, ep, ap, tp = pln
+            acc_k = ak.reshape(m, -1)
+            acc_p = ap.reshape(m, -1)
+            flip = ((acc_k != acc_p).any(1) | (sk != sp).any(1))
+            dpos = (pk - pp).abs().amax(dim=(1, 2))
+            de = (ek - ep).abs()
+            keep = ~flip
+            err = max(float(dpos[keep].max()), float(de[keep].max())) \
+                if bool(keep.any()) else 0.0
+            same = (pk == pp).all(2).all(1) & (ek == ep) & ~flip
+            tot_equal = tk is None or torch.equal(tk, tp)
+            cache = lj_cache_check(st, ker, f"{name} kernel, {label}")
+            rates = (acc_k.sum(0).double()
+                     / (tk.sum(0).double() if tk is not None
+                        else m * LJ_STEPS)).tolist()
+            print(f"LJ kernel vs plain: {name}, {label} (M={m}, N={n}, "
+                  f"block_chains={bc}, t0={LJ_T0}, n={LJ_STEPS}): "
+                  f"{int(same.sum())}/{m} chains bit-equal, "
+                  f"{int(flip.sum())} with an accept flip, max |diff| "
+                  f"{err!r} on the rest, attempts equal {tot_equal}, "
+                  f"max |E - E(N^2)| {cache!r}, acceptance {rates}")
+            check(tot_equal, f"{name} {label}: attempt counts differ")
+            check(int(flip.sum()) <= MAX_FLIP_FRACTION * m,
+                  f"{name} {label}: {int(flip.sum())} of {m} chains flip")
+            check(err <= LJ_ATOL, f"{name} {label}: kernel vs plain {err}")
+            if frac_b == 0.0 and mixed:
+                check(int(acc_k[:, 1].sum()) == 0
+                      and int(tk[:, 1].sum()) > 0
+                      and torch.equal(sk, st.species),
+                      "mono-species chains accepted a swap")
+            worst[mixed] = max(worst[mixed], err)
+    return worst
+
+
+def lj_segmentation(device):
+    """Phase 4b: one call of n steps == three calls summing to n, both LJ
+    kernels, bit for bit."""
+    import torch
+    for mixed, (m, n) in ((False, (CONFIG4["chains"], CONFIG4["n"])),
+                          (True, (POOL5["chains"], POOL5["n"]))):
+        st = lj_inputs(m, n, device, SEED + 20)
+        one = lj_call(st, LJ_STEPS, mixed)
+        parts = (LJ_STEPS // 3, 1, LJ_STEPS - LJ_STEPS // 3 - 1)
+        cur, t, acc = st, LJ_T0, torch.zeros_like(one[3])
+        for k in parts:
+            pos, spc, e, a, _ = lj_call(cur, k, mixed, t0=t)
+            cur = dataclasses.replace(cur, pos=pos, species=spc, energy=e)
+            acc, t = acc + a, t + k
+        ok = (torch.equal(cur.pos, one[0]) and torch.equal(cur.species,
+                                                           one[1])
+              and torch.equal(cur.energy, one[2]) and torch.equal(acc,
+                                                                  one[3]))
+        print(f"LJ segmentation: {'mixed' if mixed else 'displacement'} "
+              f"M={m} N={n}: one call of {LJ_STEPS} steps vs "
+              f"{'+'.join(map(str, parts))}: bit-equal {ok}")
+        check(ok, "segmented LJ sweep differs from one sweep")
+
+
+def lj_main(tmc, device, path, cfg, mixed):
+    """Config 4 (one displacement move) or the config-5 pool (displacement
+    + swap, with StoreLastFrames) through ``Simulation.run`` on CUDA.
+    Returns (simulation, wall seconds)."""
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    m, n, sweeps = cfg["chains"], cfg["n"], cfg["sweeps"]
+    if mixed:
+        pool = (lj.lj_displacement_move(sigma=LJ_SIGMA,
+                                        weight=cfg["w_disp"]),
+                lj.lj_swap_move(weight=1.0 - cfg["w_disp"]))
+        sched = tmc.build_schedule(sweeps, sweeps // 10, [0, 10])
+    else:
+        pool = (lj.lj_displacement_move(sigma=LJ_SIGMA),)
+        sched = np.arange(cfg["stride"], sweeps + 1, cfg["stride"])
+    algos = [
+        dict(algorithm=tmc.Metropolis, pool=pool, seed=42, sweepstep=n),
+        dict(algorithm=tmc.StoreCallbacks,
+             callbacks=(lj.callback_energy_per_particle,
+                        tmc.callback_acceptance), scheduler=sched)]
+    if mixed:
+        algos.append(dict(algorithm=tmc.StoreLastFrames,
+                          scheduler=np.asarray([sweeps])))
+    sim = tmc.Simulation(
+        lj.make_system(),
+        lj.init_chains(m, n, 0.7, 1.0, frac_b=0.2, seed=42, device=device),
+        algos, sweeps, path=path)
+    check(sim.device_algos[0].supports_fused,
+          "the LJ pool is not fused on CUDA")
+    t0 = time.perf_counter()
+    sim.run()
+    return sim, time.perf_counter() - t0
+
+
+def lj_main_checks(sim, device, path, cfg, mixed, wall):
+    """Checks of one LJ main-path run, made after its launch counts were
+    read: state on the card, acceptance per move, recorder files, and the
+    kernel's energy cache one more segment on from the final state."""
+    label = "config-5 pool" if mixed else "config 4"
+    m, n, sweeps = cfg["chains"], cfg["n"], cfg["sweeps"]
+    st = sim.device_state["sys"]
+    cnt = sim.device_state["metropolis"]["counters"].sum(0).double()
+    rates = (cnt[:, 0] / cnt[:, 1]).tolist()
+    e = np.loadtxt(os.path.join(path, "energy_per_particle.dat"))
+    a = np.loadtxt(os.path.join(path, "acceptance.dat"))
+    moves = m * n * sweeps
+    print(f"{label}: {m} chains x N {n} x {sweeps} sweeps ({moves} moves) "
+          f"in {wall!r} s wall ({moves / wall!r} moves/s with recorders), "
+          f"state on {st.pos.device.type}, acceptance per move {rates}, "
+          f"energy per particle {float(e[0, 1])!r} -> {float(e[-1, 1])!r}, "
+          f"acceptance.dat last {float(a[-1, 1])!r}")
+    check(st.pos.device.type == device.type, f"{label} state left the card")
+    check(all(0.05 < r < 0.98 for r in rates), f"{label} acceptance {rates}")
+    check(np.all(np.isfinite(e[:, 1])) and np.all(e[:, 1] < 0),
+          f"{label} energy per particle")
+    check(int(cnt[:, 1].sum()) == m * n * sweeps, f"{label} attempt count")
+    check(os.path.exists(os.path.join(path, "summary.log")),
+          f"{label} summary.log")
+    if mixed:
+        frames = [os.path.join(path, "trajectories", str(c + 1),
+                               "lastframe.dat") for c in range(m)]
+        check(all(os.path.exists(f) for f in frames),
+              f"{label} lastframe.dat missing")
+        with open(frames[-1]) as f:
+            lines = f.read().splitlines()
+        check(len(lines) == n + 1 and lines[0].split()[:2] == [
+            str(sweeps), str(n)], f"{label} lastframe.dat layout")
+    out = lj_call(st, n * 10, mixed, t0=sweeps * n)
+    err = lj_cache_check(st, out, f"{label} after the run")
+    print(f"{label}: cache after one more segment of {n * 10} steps from "
+          f"the final state: max |E - E(N^2)| {err!r}")
+
+
+def lj_times(device, card):
+    """Phase 6b: each LJ kernel and its plain version at its main path's
+    shape, LJ_TIME_STEPS steps per call; the kernel also at the main path's
+    segment length."""
+    out = {}
+    for mixed, cfg in ((False, CONFIG4), (True, POOL5)):
+        m, n = cfg["chains"], cfg["n"]
+        name = "fused_lj_mixed_sweep" if mixed else "fused_lj_sweep"
+        st = lj_inputs(m, n, device, SEED + 30)
+        for label, interp, steps, reps in (
+                ("kernel", False, LJ_TIME_STEPS, 5),
+                ("kernel", False, 10 * n, 3),
+                ("plain", True, LJ_TIME_STEPS, 1)):
+            ms = cuda_time(lambda: lj_call(st, steps, mixed, t0=0,
+                                           interpret=interp), reps)
+            rate = m * steps / (ms / 1e3)
+            print(f"time: {label} {name} M={m} N={n} n_steps={steps}: "
+                  f"{ms!r} ms per call, {rate!r} moves/s [{card}]")
+            out.setdefault(name, {})[(label, steps)] = ms
+    return out
+
+
 def sweep_times(device, card):
     """Phase 6: kernel and plain-version ms per call and steps/s."""
     from montecarlo_tpu_torch.models import particle1d as p1d
@@ -258,6 +503,8 @@ def main():
     import montecarlo_tpu_torch as tmc
     from montecarlo_tpu_torch.models import particle1d as p1d
     from montecarlo_tpu_torch.ops.fused_sweep import SWEEP_KERNEL
+    from montecarlo_tpu_torch.ops.lj_sweep import LJ_KERNEL, LJ_MIXED_KERNEL
+    kernels = (SWEEP_KERNEL, LJ_KERNEL, LJ_MIXED_KERNEL)
 
     # 1. device
     device = torch.device("cuda", 0)
@@ -267,28 +514,55 @@ def main():
           f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")
 
-    # 2. build
+    # 2. build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    SWEEP_KERNEL.build()
-    print(f"build: {SWEEP_KERNEL.library_path()} ready in "
-          f"{time.perf_counter() - t0!r} s (nvcc {SWEEP_KERNEL.build_seconds!r} s)")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        list(pool.map(lambda k: k.build(), (SWEEP_KERNEL, LJ_KERNEL)))
+    for k in kernels:
+        k.build()
+        print(f"build: {k.symbol} from {k.library_path()} "
+              f"(nvcc wall {k.build_seconds!r} s)")
+    print(f"build: all kernels ready in {time.perf_counter() - t0!r} s")
 
-    # 3-4. the kernel against its plain version
+    # 3. the Gaussian kernel against its plain version
     potentials = (p1d.harmonic, p1d.double_well)
     max_err = kernel_vs_plain(device, potentials)
     segmentation(device, potentials)
 
-    # 5. the main path; only its launches count
+    # 4. the LJ kernels against their plain versions
+    lj_err = lj_kernels_vs_plain(device)
+    lj_segmentation(device)
+
+    # 5. the main paths; each reads only its own launches
+    def zero_counts():
+        for k in kernels:
+            k.launches = 0
+
+    launches = {}
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as tmp:
-        SWEEP_KERNEL.launches = 0
+        zero_counts()
         config1(tmc, p1d, device, os.path.join(tmp, "config1"))
         n1 = SWEEP_KERNEL.launches
+        zero_counts()
         wall2 = config2(tmc, p1d, device, os.path.join(tmp, "config2"),
                         CONFIG2_CHAINS, CONFIG2_STEPS, CONFIG2_STRIDE)
-        launches = SWEEP_KERNEL.launches
-    print(f"main path: {launches} kernel launches ({n1} in config 1, "
-          f"{launches - n1} in config 2)")
-    check(n1 > 0 and launches > n1, "the main path did not launch the kernel")
+        n2 = SWEEP_KERNEL.launches
+        print(f"main path: fused_gaussian_sweep launched {n1} times in "
+              f"config 1, {n2} in config 2")
+        check(n1 > 0 and n2 > 0, "configs 1-2 did not launch the kernel")
+        launches["fused_gaussian_sweep"] = n1 + n2
+        for name, kernel, cfg, mixed in (
+                ("fused_lj_sweep", LJ_KERNEL, CONFIG4, False),
+                ("fused_lj_mixed_sweep", LJ_MIXED_KERNEL, POOL5, True)):
+            path = os.path.join(tmp, name)
+            zero_counts()
+            sim, wall = lj_main(tmc, device, path, cfg, mixed)
+            counts = {k.symbol: k.launches for k in kernels}
+            print(f"main path: {'config-5 pool' if mixed else 'config 4'} "
+                  f"launches {counts}")
+            check(kernel.launches > 0, f"the main path did not launch {name}")
+            launches[name] = kernel.launches
+            lj_main_checks(sim, device, path, cfg, mixed, wall)
     rate2 = CONFIG2_CHAINS * CONFIG2_STEPS / wall2
     print(f"time: config 2 end to end with recorders: {rate2!r} steps/s "
           f"({CONFIG2_CHAINS} chains, stride {CONFIG2_STRIDE}) [{card}]")
@@ -297,20 +571,38 @@ def main():
     times = sweep_times(device, card)
     ms, _, _ = times[("kernel", CONFIG2_CHAINS)]
     plain_ms, _, _ = times[("plain_main", CONFIG2_CHAINS)]
-    n2 = launches - n1
     print(f"time: config 2 breakdown: {n2} kernel launches x {ms!r} ms = "
           f"{n2 * ms / 1e3!r} s of {wall2!r} s wall "
           f"({100 * n2 * ms / 1e3 / wall2!r} % in the kernel) [{card}]")
-    print(json.dumps({"kernels": [{
+    lj_ms = lj_times(device, card)
+    rows = [{
         "name": "fused_gaussian_sweep",
         "route": "cuda",
         "source": "montecarlo_tpu_torch/csrc/fused_sweep.cu",
         "replaces": "montecarlo_tpu/ops/fused_sweep.py:104",
-        "launches": launches,
+        "launches": launches["fused_gaussian_sweep"],
         "max_abs_err": max_err,
         "ms": ms,
+        "steps": CONFIG2_STRIDE,
         "plain_ms": plain_ms,
-    }]}))
+        "plain_steps": CONFIG2_STRIDE,
+    }]
+    for name, mixed, cfg, line in (
+            ("fused_lj_sweep", False, CONFIG4, 122),
+            ("fused_lj_mixed_sweep", True, POOL5, 191)):
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "montecarlo_tpu_torch/csrc/lj_sweep.cu",
+            "replaces": f"montecarlo_tpu/ops/lj_sweep.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": lj_err[mixed],
+            "ms": lj_ms[name][("kernel", 10 * cfg["n"])],
+            "steps": 10 * cfg["n"],
+            "plain_ms": lj_ms[name][("plain", LJ_TIME_STEPS)],
+            "plain_steps": LJ_TIME_STEPS,
+        })
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,9 +2,9 @@
 
 The same move/policy protocol, Metropolis–Hastings engine over many
 independent chains and schedulable recorders as the JAX package, written in
-PyTorch, with the JAX package's hot-path Pallas kernel rewritten by hand in
+PyTorch, with the JAX package's hot-path Pallas kernels rewritten by hand in
 CUDA C++ for NVIDIA Hopper (``csrc/``).  Importing it needs neither ``jax``
-nor ``nvcc``: the kernel is compiled at its first launch.
+nor ``nvcc``: each kernel is compiled at its first launch.
 
 The public names are the ported subset of ``montecarlo_tpu``'s.
 """
@@ -16,7 +16,8 @@ from .core.metropolis import (Metropolis, StoreParameters, callback_acceptance,
 from .core.algorithms import (Algorithm, DeviceAlgorithm, HostAlgorithm,
                               ObservableRecorder, SimView, Format, TXT, DAT,
                               BIN, StoreCallbacks, StoreTrajectories,
-                              load_chain_major_trajectories, PrintTimeSteps)
+                              load_chain_major_trajectories, StoreLastFrames,
+                              PrintTimeSteps)
 from .core.simulation import Simulation, build_schedule, run
 from .utils.observability import Throughput
 from . import interop
@@ -31,7 +32,7 @@ __all__ = [
     "Algorithm", "DeviceAlgorithm", "HostAlgorithm", "ObservableRecorder",
     "SimView", "Format", "TXT", "DAT", "BIN",
     "StoreCallbacks", "StoreTrajectories", "load_chain_major_trajectories",
-    "PrintTimeSteps",
+    "StoreLastFrames", "PrintTimeSteps",
     "Simulation", "build_schedule", "run",
     "Throughput", "interop",
 ]

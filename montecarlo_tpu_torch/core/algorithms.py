@@ -42,6 +42,7 @@ __all__ = [
     "StoreCallbacks",
     "StoreTrajectories",
     "load_chain_major_trajectories",
+    "StoreLastFrames",
     "PrintTimeSteps",
 ]
 
@@ -352,6 +353,32 @@ def _unstack(value):
     """Split a chain-stacked numpy tree into per-chain rows."""
     n = len(tree_leaves_with_path(value)[0][1])
     return [tree_map(lambda lf: lf[c], value) for c in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# StoreLastFrames (ref ``src/algorithms.jl:221-251``)
+# ---------------------------------------------------------------------------
+
+class StoreLastFrames(Algorithm):
+    """At finalise only, write ``trajectories/<c>/lastframe.dat`` per chain,
+    with the line format of the system's ``format_frame``."""
+
+    def __init__(self, sim, fmt: Format = DAT(), dependencies=(), **_):
+        self.fmt = fmt
+        self.system = sim.system
+        self.dirs = [os.path.join(sim.path, "trajectories", str(c + 1))
+                     for c in range(sim.n_chains)]
+
+    def finalise(self, sim):
+        if not sim.device_state:       # the run failed before it started
+            return
+        frames = to_numpy(self.system.frame(sim.device_state["sys"]))
+        t = int(sim.t)
+        for d, row in zip(self.dirs, _unstack(frames)):
+            os.makedirs(d, exist_ok=True)
+            with open(os.path.join(d, "lastframe" + self.fmt.extension),
+                      "w") as f:
+                f.write(self.system.format_frame(t, row) + "\n")
 
 
 # ---------------------------------------------------------------------------

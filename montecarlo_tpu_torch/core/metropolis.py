@@ -193,13 +193,15 @@ class Metropolis(DeviceAlgorithm):
 
     ``fused`` selects the path:
 
-    - ``'auto'``: the CUDA sweep kernel when the chains are on a CUDA
-      device and the pool is fusable (:attr:`supports_fused`), else the
-      generic path;
+    - ``'auto'``: a CUDA sweep kernel when the chains are on a CUDA device
+      and the pool is fusable (:attr:`supports_fused`), else the generic
+      path;
     - ``'off'``: always the generic path;
     - ``'interpret'``: the fused path through the kernel's plain torch
       version, on any device (CPU tests);
-    - ``'cell'``: the checkerboard cell-MC path, not yet ported.
+    - ``'cell'``: the checkerboard cell-MC path, not yet ported.  Where the
+      reference takes it unasked (2-D particle systems at N >= 2048), the
+      port runs the row kernels.
     """
 
     state_key = "metropolis"
@@ -207,8 +209,6 @@ class Metropolis(DeviceAlgorithm):
     #: orchestrator reassigns it (``params_<state_key>``) for a second
     #: params-owning algorithm in the same simulation
     params_key = "params"
-
-    _FUSED_KINDS = ("gaussian_displacement_1d",)
 
     def __init__(self, sim, pool: Sequence[Move] = (), sweepstep: int = 1,
                  seed: int = 1, fused: str = "auto", dependencies=(), **_):
@@ -238,6 +238,33 @@ class Metropolis(DeviceAlgorithm):
         self.device = sim.device
         self.groups, self.group_of, self.within_of = build_move_groups(
             self.pool)
+        # spatial dimension of particle states (None for other systems)
+        pos0 = getattr(sim.chains0, "pos", None)
+        self._pos_dim = None if pos0 is None else int(pos0.shape[-1])
+        self._fused_pool = self._recognise_pool()
+        self._box = None
+        if self._fused_pool in ("lj", "lj_mixed"):
+            # the kernels take one box for all chains, as the reference
+            # passes sys.box[0]; read once here, never per segment
+            self._box = float(sim.chains0.box.reshape(-1)[0])
+            self._n_particles = int(pos0.shape[-2])
+
+    def _recognise_pool(self):
+        """Which fused sweep the pool's structure maps onto: ``'gaussian'``
+        (one Gaussian displacement of a 1-D particle), ``'lj'`` (one 2-D LJ
+        displacement), ``'lj_mixed'`` (2-D LJ displacement + swap sharing
+        one interaction table), or None."""
+        kinds = tuple(m.move.kind for m in self.pool)
+        if kinds == ("gaussian_displacement_1d",):
+            return "gaussian"
+        if self._pos_dim != 2:
+            return None       # the LJ row kernels are 2-D
+        if kinds == ("lj_displacement_2d",):
+            return "lj"
+        if (len(kinds) == 2 and set(kinds) == {"lj_displacement_2d", "lj_swap"}
+                and self.pool[0].move.aux == self.pool[1].move.aux):
+            return "lj_mixed"
+        return None
 
     def init_state(self, sim):
         counters = torch.zeros((self.n_chains, self.n_moves, 2),
@@ -272,24 +299,27 @@ class Metropolis(DeviceAlgorithm):
     @property
     def supports_fused(self) -> bool:
         """True when the fused path runs this pool: one Gaussian
-        displacement move of a 1-D particle, on a CUDA device with a
-        potential the kernel knows (``'auto'``), or with any elementwise
-        potential under ``'interpret'``.  Any other pool takes the generic
-        path."""
-        if self.fused == "off":
-            return False
-        if self.n_moves != 1 or self.pool[0].move.kind not in self._FUSED_KINDS:
+        displacement move of a 1-D particle, one 2-D LJ displacement move,
+        or the 2-D LJ displacement + swap pool.  Under ``'auto'`` the chains
+        must be on a CUDA device, with a potential the Gaussian kernel knows
+        or at most :data:`~montecarlo_tpu_torch.ops.lj_sweep.MAX_PARTICLES`
+        LJ particles; under ``'interpret'`` any device and any elementwise
+        potential.  Any other pool takes the generic path."""
+        if self.fused == "off" or self._fused_pool is None:
             return False
         if self.fused == "interpret":
             return True
-        from ..ops.fused_sweep import kernel_potential
-        return (self.device.type == "cuda"
-                and kernel_potential(self.pool[0].move.aux) is not None)
+        if self.device.type != "cuda":
+            return False
+        if self._fused_pool == "gaussian":
+            from ..ops.fused_sweep import kernel_potential
+            return kernel_potential(self.pool[0].move.aux) is not None
+        from ..ops.lj_sweep import MAX_PARTICLES
+        return self._n_particles <= MAX_PARTICLES
 
     def fused_advance(self, dstate, n_steps: int):
         """Advance all chains ``n_steps * sweepstep`` MH steps in one sweep
         call; counters and cached energies as :meth:`step` keeps them."""
-        from ..ops.fused_sweep import fused_gaussian_sweep
         slc = dstate[self.state_key]
         sys = dstate["sys"]
         params = dstate[self.params_key]
@@ -298,16 +328,44 @@ class Metropolis(DeviceAlgorithm):
         # seeding off the absolute micro-step keeps results invariant to how
         # recorder schedules cut the run into segments
         micro_t0 = t0 * self.sweepstep
-        sigma = tree_leaves(params[0])[0]
-        x, e, acc = fused_gaussian_sweep(
-            sys.x, sys.beta, sigma, self.seed, micro_t0, total,
-            potential=self.pool[0].move.aux,
-            interpret=self.fused == "interpret")
-        counters = slc["counters"] + torch.stack(
-            [acc, torch.full_like(acc, total)], dim=-1)[:, None, :]
-        return {**dstate, "sys": dataclasses.replace(sys, x=x, e=e),
-                "t": t0 + int(n_steps),
-                self.state_key: {**slc, "counters": counters}}
+        interp = self.fused == "interpret"
+        if self._fused_pool == "gaussian":
+            from ..ops.fused_sweep import fused_gaussian_sweep
+            sigma = tree_leaves(params[0])[0]
+            x, e, acc = fused_gaussian_sweep(
+                sys.x, sys.beta, sigma, self.seed, micro_t0, total,
+                potential=self.pool[0].move.aux, interpret=interp)
+            new_sys = dataclasses.replace(sys, x=x, e=e)
+        else:
+            from ..ops.lj_sweep import fused_lj_mixed_sweep, fused_lj_sweep
+            kinds = tuple(m.move.kind for m in self.pool)
+            disp = kinds.index("lj_displacement_2d")
+            sigma = tree_leaves(params[disp])[0]
+            lj_params = self.pool[disp].move.aux
+            args = (sys.pos, sys.species, sys.beta, sys.energy, self._box,
+                    sigma)
+            if self._fused_pool == "lj":
+                pos, energy, acc = fused_lj_sweep(
+                    *args, self.seed, micro_t0, total, params=lj_params,
+                    interpret=interp)
+                new_sys = dataclasses.replace(sys, pos=pos, energy=energy)
+            else:
+                w_disp = float(self.weights[disp] / self.weights.sum())
+                pos, species, energy, acc, tot = fused_lj_mixed_sweep(
+                    *args, w_disp, self.seed, micro_t0, total,
+                    params=lj_params, interpret=interp)
+                new_sys = dataclasses.replace(sys, pos=pos, species=species,
+                                              energy=energy)
+        if self._fused_pool == "lj_mixed":
+            # (M, kind, [accepted, attempted]), kinds in the pool's order
+            inc = torch.stack([acc, tot], dim=-1)
+            if disp == 1:
+                inc = inc.flip(1)
+        else:
+            inc = torch.stack([acc, torch.full_like(acc, total)],
+                              dim=-1)[:, None, :]
+        return {**dstate, "sys": new_sys, "t": t0 + int(n_steps),
+                self.state_key: {**slc, "counters": slc["counters"] + inc}}
 
     # -- summary -------------------------------------------------------------
     def write_summary(self, io, scheduler):
@@ -319,6 +377,9 @@ class Metropolis(DeviceAlgorithm):
         io.write(f"\t\tSeed: {self.seed}\n")
         io.write(f"\t\tParallel: {n_dev > 1}\n")
         io.write(f"\t\tDevices: {n_dev}\n")
+        if self._pos_dim is not None:
+            io.write("\t\tCell MC: unavailable — not ported; the row "
+                     "kernels run at every N\n")
         io.write("\t\tMoves:\n")
         for k, move in enumerate(self.pool):
             io.write(f"\t\t\tMove {k + 1}:\n")

@@ -29,25 +29,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "counter_hash.cuh"
+
 namespace {
 
-__device__ __forceinline__ uint32_t hash32(uint32_t s) {
-  s *= 0x85EBCA6Bu;
-  s ^= s >> 13;
-  s *= 0xC2B2AE35u;
-  s ^= s >> 16;
-  return s;
-}
-
-// software_bits for one lane: h = flat * 0x9E3779B9 + step_seed.
-__device__ __forceinline__ uint32_t draw_bits(uint32_t h, uint32_t draw) {
-  return hash32(hash32(h ^ (draw * 0x3243F6A9u)) + draw);
-}
-
-// uint32 bits -> float32 uniform in (0, 1].
-__device__ __forceinline__ float uniform_from_bits(uint32_t bits) {
-  return __fsub_rn(2.0f, __uint_as_float((bits >> 9) | 0x3F800000u));
-}
+using mc::draw_bits;
+using mc::hash32;
+using mc::uniform_from_bits;
 
 struct Harmonic {
   __device__ __forceinline__ float operator()(float x) const {
@@ -78,7 +66,7 @@ __global__ void sweep_kernel(const float* __restrict__ x_in,
   const int64_t pid64 = i / block_chains;
   const uint32_t pid = static_cast<uint32_t>(pid64);
   const uint32_t flat = static_cast<uint32_t>(i - pid64 * block_chains);
-  const uint32_t lane = flat * 0x9E3779B9u;
+  const uint32_t lane = flat * mc::kGolden;
   const float two_pi = static_cast<float>(6.283185307179586);
   const float sigma = *sigma_in;
   const float beta = beta_in[i];

@@ -4,6 +4,9 @@ The two packages draw initial chains from different generators, so to run
 both from the same state, one's chains are carried over to the other as
 numpy arrays.  Nothing here imports ``jax``: the JAX side converts its
 arrays with ``np.asarray``.
+
+Two families are carried: particle-1d (``x``, ``beta``, ``e``) and 2-D
+Lennard-Jones (``pos``, ``species``, ``beta``, ``energy``, ``box``).
 """
 
 from __future__ import annotations
@@ -13,25 +16,37 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .models.lennard_jones import LJState
 from .models.particle1d import Particle1DState
 
 __all__ = ["chains_from_reference", "chains_to_reference"]
 
-_FIELDS = ("x", "beta", "e")
+_FIELDS = {Particle1DState: ("x", "beta", "e"),
+           LJState: ("pos", "species", "beta", "energy", "box")}
+_INT_FIELDS = ("species",)
 
 
-def chains_from_reference(np_state, device=None) -> Particle1DState:
-    """The JAX package's particle-1d chains, given as a mapping (or an
-    object with attributes) ``x``, ``beta``, ``e`` of (M,) arrays, as this
-    package's :class:`Particle1DState` on ``device`` (default CPU)."""
-    get = np_state.__getitem__ if isinstance(np_state, Mapping) \
-        else lambda k: getattr(np_state, k)
-    return Particle1DState(**{
-        k: torch.as_tensor(np.array(get(k), dtype=np.float32), device=device)
-        for k in _FIELDS})
+def chains_from_reference(np_state, device=None):
+    """The JAX package's chains, given as a mapping (or an object with
+    attributes) of chain-stacked arrays, as this package's state on
+    ``device`` (default CPU): an :class:`LJState` when there is a ``pos``
+    field, else a :class:`Particle1DState`.  Labels stay int32, everything
+    else becomes float32."""
+    if isinstance(np_state, Mapping):
+        get, has_pos = np_state.__getitem__, "pos" in np_state
+    else:
+        get, has_pos = (lambda k: getattr(np_state, k)), hasattr(np_state,
+                                                                 "pos")
+    cls = LJState if has_pos else Particle1DState
+    return cls(**{
+        k: torch.as_tensor(np.array(get(k), dtype=np.int32
+                                    if k in _INT_FIELDS else np.float32),
+                           device=device)
+        for k in _FIELDS[cls]})
 
 
-def chains_to_reference(state: Particle1DState) -> dict:
-    """The inverse: ``{"x", "beta", "e"}`` as float32 numpy arrays, for
-    ``montecarlo_tpu.models.particle1d.Particle1DState(**...)``."""
-    return {k: getattr(state, k).detach().cpu().numpy() for k in _FIELDS}
+def chains_to_reference(state) -> dict:
+    """The inverse: the state's fields as numpy arrays, for the JAX
+    package's ``Particle1DState(**...)`` or ``LJState(**...)``."""
+    return {k: getattr(state, k).detach().cpu().numpy()
+            for k in _FIELDS[type(state)]}

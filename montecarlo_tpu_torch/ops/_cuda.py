@@ -1,16 +1,17 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Each kernel source under ``montecarlo_tpu_torch/csrc/`` exposes a plain C
-entry point.  It is compiled with ``nvcc`` into a shared library at first
-use, keyed by a hash of the source and the flags, into ``_build/`` beside
-the package (listed in ``.gitignore``), and loaded with ``ctypes``.  Importing
-the package never needs ``nvcc``: nothing here runs until a kernel is
-launched on a CUDA tensor.
+Each kernel source under ``montecarlo_tpu_torch/csrc/`` exposes plain C
+entry points.  It is compiled with ``nvcc`` into a shared library at first
+use, keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, into ``_build/`` beside the package (listed in ``.gitignore``),
+and loaded with ``ctypes``.  Importing the package never needs ``nvcc``:
+nothing here runs until a kernel is launched on a CUDA tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -21,6 +22,7 @@ import time
 __all__ = ["CudaKernel"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -43,11 +45,12 @@ class CudaKernel:
     """One C entry point of one ``.cu`` source: lazy build, launch, count.
 
     ``launches`` counts the launches made through :meth:`launch` and nothing
-    else, so a run can show that it went through the kernel.
+    else, so a run can show that it went through the kernel.  Entry points
+    of one source share its library.
     """
 
     def __init__(self, source: str, symbol: str, argtypes):
-        self.source = os.path.join(_PKG, "csrc", source)
+        self.source = os.path.join(_CSRC, source)
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
@@ -55,11 +58,14 @@ class CudaKernel:
         self._fn = None
 
     def library_path(self) -> str:
-        with open(self.source, "rb") as f:
-            src = f.read()
-        key = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()
+        h = hashlib.sha256()
+        for path in [self.source] + sorted(
+                glob.glob(os.path.join(_CSRC, "*.cuh"))):
+            with open(path, "rb") as f:
+                h.update(f.read())
+        h.update("\0".join(NVCC_FLAGS).encode())
         stem = os.path.splitext(os.path.basename(self.source))[0]
-        return os.path.join(_BUILD_DIR, f"{stem}-{key[:16]}.so")
+        return os.path.join(_BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
 
     def build(self):
         """Compile (if no library for this source exists yet) and load."""

@@ -1,14 +1,16 @@
-"""The hand-written CUDA sweep kernel against its plain torch version, on the
+"""The hand-written CUDA kernels against their plain torch versions, on the
 card.  Marked ``cuda``; each test skips when ``torch.cuda.is_available()``
-is false.  Run on a machine with an NVIDIA Hopper GPU and nvcc:
+is false.  Run on a machine with an NVIDIA Hopper GPU and nvcc (and, where
+the machine has no JAX, without the repository's conftest):
 
-    python -m pytest tests/test_torch_cuda.py -m cuda
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
-Tolerance: atol 1e-5 on x and e and equal accept counts (the kernel and the
-plain version use the same CUDA math functions, and agree bit for bit on
-the H100).
+Tolerance: the Gaussian sweep atol 1e-5 on x and e and equal accept counts;
+the LJ sweeps bit for bit.  Each kernel and its plain version use the same
+CUDA math functions and, for the LJ rows, the same summation order.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -16,9 +18,14 @@ import pytest
 import torch
 
 import montecarlo_tpu_torch as tmc
+from montecarlo_tpu_torch.models import lennard_jones as lj
 from montecarlo_tpu_torch.models import particle1d as p1d
 from montecarlo_tpu_torch.ops.fused_sweep import (SWEEP_KERNEL,
                                                   fused_gaussian_sweep)
+from montecarlo_tpu_torch.ops.lj_sweep import (LJ_KERNEL, LJ_MIXED_KERNEL,
+                                               MAX_PARTICLES,
+                                               fused_lj_mixed_sweep,
+                                               fused_lj_sweep)
 
 pytestmark = pytest.mark.cuda
 
@@ -89,3 +96,103 @@ def test_simulation_runs_through_kernel(cuda, tmp_path):
     assert sim.device_state["sys"].x.is_cuda
     e = np.loadtxt(tmp_path / "energy.dat")
     assert abs(e[len(e) // 2:, 1].mean() - 0.25) < 0.01
+
+
+def _lj(m, n, device, frac_b=0.2, seed=0):
+    return lj.init_chains(m, n, 0.7, 1.0, frac_b=frac_b, seed=seed,
+                          device=device)
+
+
+def _lj_sweep(st, n_steps, mixed, t0=5, **kw):
+    args = (st.pos, st.species, st.beta, st.energy, float(st.box[0]), 0.1)
+    if mixed:
+        return fused_lj_mixed_sweep(*args, 0.8, 9, t0, n_steps,
+                                    params=lj.LJParams(), **kw)
+    return fused_lj_sweep(*args, 9, t0, n_steps, params=lj.LJParams(), **kw)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("m,n,block_chains,frac_b", [
+    (64, 256, 256, 0.2), (20, 100, 8, 0.2), (300, 64, 256, 0.2),
+    (8, 40, 256, 0.0)])
+def test_lj_kernel_matches_plain(cuda, mixed, m, n, block_chains, frac_b):
+    st = _lj(m, n, cuda, frac_b)
+    kernel = LJ_MIXED_KERNEL if mixed else LJ_KERNEL
+    before = kernel.launches
+    got = _lj_sweep(st, 201, mixed, block_chains=block_chains)
+    assert kernel.launches == before + 1
+    want = _lj_sweep(st, 201, mixed, block_chains=block_chains,
+                     interpret=True)
+    assert kernel.launches == before + 1
+    assert all(g.is_cuda for g in got)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    energy = got[2] if mixed else got[1]
+    full = lj.total_energy(dataclasses.replace(
+        st, pos=got[0], species=got[1] if mixed else st.species),
+        lj.LJParams())
+    torch.testing.assert_close(energy, full, rtol=3e-4, atol=5e-2)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_lj_kernel_is_segmentation_invariant(cuda, mixed):
+    st = _lj(40, 128, cuda)
+    one = _lj_sweep(st, 150, mixed)
+    cur, t, acc = st, 5, torch.zeros_like(one[-1] if mixed else one[2])
+    for k in (70, 1, 0, 79):
+        out = _lj_sweep(cur, k, mixed, t0=t)
+        if mixed:
+            pos, spc, e, a, _ = out
+        else:
+            (pos, e, a), spc = out, cur.species
+        cur = dataclasses.replace(cur, pos=pos, species=spc, energy=e)
+        acc, t = acc + a, t + k
+    assert torch.equal(cur.pos, one[0]) and torch.equal(acc, one[3 if mixed
+                                                              else 2])
+    assert torch.equal(cur.energy, one[2 if mixed else 1])
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_lj_kernel_raises_instead_of_falling_back(cuda, mixed):
+    st = _lj(16, 32, cuda)
+    bad = (dataclasses.replace(st, pos=st.pos.double()),
+           dataclasses.replace(st, species=st.species.long()),
+           dataclasses.replace(st, pos=st.pos.transpose(0, 1)
+                               .contiguous().transpose(0, 1)),
+           dataclasses.replace(st, beta=st.beta.cpu()))
+    for b, err in zip(bad, (TypeError, TypeError, ValueError, ValueError)):
+        with pytest.raises(err):
+            _lj_sweep(b, 10, mixed)
+    with pytest.raises(ValueError):
+        _lj_sweep(st, 10, mixed, t0=2 ** 31 - 5)
+    n = MAX_PARTICLES + 1
+    big = lj.LJState(pos=torch.zeros((1, n, 2), device=cuda),
+                     species=torch.zeros((1, n), dtype=torch.int32,
+                                         device=cuda),
+                     beta=st.beta[:1], energy=st.energy[:1], box=st.box[:1])
+    with pytest.raises(ValueError):
+        _lj_sweep(big, 1, mixed)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_simulation_runs_through_lj_kernels(cuda, mixed, tmp_path):
+    pool = ((lj.lj_displacement_move(0.1, weight=0.8),
+             lj.lj_swap_move(weight=0.2)) if mixed
+            else (lj.lj_displacement_move(0.1),))
+    sched = np.arange(2, 21, 2)
+    sim = tmc.Simulation(lj.make_system(), _lj(32, 64, cuda), [
+        dict(algorithm=tmc.Metropolis, pool=pool, sweepstep=64, seed=3),
+        dict(algorithm=tmc.StoreCallbacks,
+             callbacks=(lj.callback_energy_per_particle,
+                        tmc.callback_acceptance), scheduler=sched),
+        dict(algorithm=tmc.StoreLastFrames, scheduler=[20]),
+    ], 20, path=str(tmp_path))
+    assert sim.device_algos[0].supports_fused
+    kernel = LJ_MIXED_KERNEL if mixed else LJ_KERNEL
+    before = kernel.launches
+    sim.run()
+    assert kernel.launches - before == len(sched)
+    assert sim.device_state["sys"].pos.is_cuda
+    acc = np.loadtxt(tmp_path / "acceptance.dat")
+    assert 0.05 < acc[-1, 1] < 0.98
+    assert (tmp_path / "trajectories" / "32" / "lastframe.dat").exists()

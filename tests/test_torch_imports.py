@@ -18,6 +18,8 @@ def test_port_imports_without_jax():
         "import montecarlo_tpu_torch\n"
         "import montecarlo_tpu_torch.interop\n"
         "import montecarlo_tpu_torch.ops.fused_sweep\n"
+        "import montecarlo_tpu_torch.ops.lj_sweep\n"
+        "import montecarlo_tpu_torch.models.lennard_jones\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'montecarlo_tpu', 'triton')]\n"
         "assert not bad, bad\n")
@@ -32,6 +34,7 @@ def test_public_names_follow_reference():
     assert ported <= set(mc.__all__), ported - set(mc.__all__)
     for name in ("Simulation", "Metropolis", "StoreCallbacks",
                  "StoreTrajectories", "BIN", "callback_acceptance",
-                 "build_schedule", "load_chain_major_trajectories"):
+                 "build_schedule", "load_chain_major_trajectories",
+                 "StoreLastFrames"):
         assert name in ported
         assert getattr(tmc, name).__name__ == getattr(mc, name).__name__
