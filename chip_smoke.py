@@ -6,8 +6,8 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit (``nvidia-smi``);
-2. build: compiles ``csrc/fused_sweep.cu`` and ``csrc/lj_sweep.cu`` with
-   one nvcc each, started together;
+2. build: compiles ``csrc/fused_sweep.cu``, ``csrc/lj_sweep.cu`` and
+   ``csrc/poly_sweep.cu`` with one nvcc each, started together;
 3. the Gaussian sweep kernel vs its plain version, harmonic and double
    well, at M = 10^4 (one block) and 10^6 (four blocks), odd t0 and
    n_steps; segmentation invariance (one launch of n steps equals three
@@ -18,17 +18,25 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
    each run the kernel's cached energies against an O(N^2) recompute,
    positions in [0, box) and the species composition; segmentation
    invariance of both;
+4b. the polydisperse swap kernel vs its plain version at the main path's
+   shape (64 chains x N 256, w_disp 0.8), 64 x N 1024, a gridded case (M 300
+   over blocks of 256, M 20 over blocks of 8) and N 2: bit for bit, with the
+   cache against an O(N^2) recompute, positions in [0, box) and each
+   chain's diameters conserved; segmentation invariance;
 5. the main paths, ``Simulation.run`` on CUDA, each with every launch count
    set to 0 just before and read just after: config 1 (the README example,
    10 chains, per-chain DAT files), config 2 (10^4 chains, energy +
    acceptance callbacks, chain-major BIN trajectories), config 4 (2-D LJ,
    256 chains x N 256, displacement, energy per particle + acceptance) and
    the config-5 pool of ``examples/lj_2d.py`` without PGMC (64 chains x
-   N 1024, displacement + swap, callbacks and ``StoreLastFrames``), with
-   physics and cache checks;
+   N 1024, displacement + swap, callbacks and ``StoreLastFrames``) and the
+   polydisperse swap-MC path (``tools/bench_lj.py``'s poly configuration:
+   64 chains x N 256, rho 0.9, beta 2, displacement + diameter swap, 100
+   sweeps, with ``examples/swap_mc_glass.py``'s recorders), with physics
+   and cache checks;
 6. times of each kernel and its plain version at its main path's shape,
-   and config 2's end-to-end rate, each printed beside the card's name and
-   power limit.
+   and the end-to-end rates of config 2 and the poly path, each printed
+   beside the card's name and power limit.
 
 Prints its findings on lines before the last, a ``{"kernels": [...]}``
 line (``ms`` per launch at the main path's segment of ``steps`` steps,
@@ -68,6 +76,10 @@ LJ_CACHE = dict(rtol=3e-4, atol=5e-2)   # the reference's own cache bounds
 CONFIG4 = dict(chains=256, n=256, sweeps=200, stride=10)
 POOL5 = dict(chains=64, n=1024, sweeps=50, w_disp=0.8)
 LJ_TIME_STEPS = 256              # steps per timed call, kernel and plain
+POLY = dict(chains=64, n=256, rho=0.9, beta=2.0, sigma=0.1, w_disp=0.8,
+            sweeps=100, stride=10)
+POLY_T0, POLY_STEPS = 7, 301
+POLY_CACHE = dict(rtol=3e-3, atol=8e-2)  # the reference's own poly bounds
 
 
 def check(ok, what):
@@ -346,7 +358,7 @@ def lj_kernels_vs_plain(device):
 
 
 def lj_segmentation(device):
-    """Phase 4b: one call of n steps == three calls summing to n, both LJ
+    """Phase 4a: one call of n steps == three calls summing to n, both LJ
     kernels, bit for bit."""
     import torch
     for mixed, (m, n) in ((False, (CONFIG4["chains"], CONFIG4["n"])),
@@ -463,6 +475,201 @@ def lj_times(device, card):
     return out
 
 
+def poly_inputs(m, n, device, seed):
+    import torch
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    st = poly.init_chains(m, n, rho=POLY["rho"], beta=POLY["beta"],
+                          seed=seed, device=device)
+    rng = np.random.default_rng(seed)
+    beta = torch.as_tensor(rng.uniform(1.5, 2.5, m).astype(np.float32),
+                           device=device)
+    return dataclasses.replace(st, beta=beta)
+
+
+def poly_call(st, n_steps, t0=POLY_T0, interpret=False, block_chains=256):
+    """One poly sweep call: (pos, diam, energy, accepted, attempted)."""
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    from montecarlo_tpu_torch.ops.poly_sweep import fused_poly_mixed_sweep
+    return fused_poly_mixed_sweep(
+        st.pos, st.diam, st.beta, st.energy, float(st.box[0]), POLY["sigma"],
+        POLY["w_disp"], SEED, t0, n_steps, params=poly.PolyParams(),
+        interpret=interpret, block_chains=block_chains)
+
+
+def poly_cache_check(st, out, what):
+    """The kernel's cached energies against an O(N^2) recompute, positions
+    in [0, box), each chain's diameters those it started with."""
+    import torch
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    pos, dia, e = out[:3]
+    new = dataclasses.replace(st, pos=pos, diam=dia, energy=e)
+    full = poly.make_system().refresh(new).energy
+    err = float(((e - full).abs() - POLY_CACHE["rtol"] * full.abs()).max())
+    box = float(st.box[0])
+    check(torch.isfinite(e).all() and err <= POLY_CACHE["atol"],
+          f"{what}: cached energy off the O(N^2) energy ({err})")
+    check(float(pos.min()) >= 0.0 and float(pos.max()) < box,
+          f"{what}: positions left [0, box)")
+    check(torch.equal(dia.sort(1).values, st.diam.sort(1).values),
+          f"{what}: diameters not conserved")
+    return float((e - full).abs().max())
+
+
+POLY_CASES = (  # (label, M, N, block_chains)
+    ("main path shape", POLY["chains"], POLY["n"], 256),
+    ("N 1024", 64, 1024, 256),
+    ("gridded, blocks of 256", 300, 128, 256),
+    ("gridded, blocks of 8", 20, 128, 8),
+    ("N 2", 32, 2, 256),
+)
+
+
+def poly_kernel_vs_plain(device):
+    """Phase 4b.  Returns the largest |kernel - plain| (required 0.0)."""
+    import torch
+    worst = 0.0
+    for k, (label, m, n, bc) in enumerate(POLY_CASES):
+        st = poly_inputs(m, n, device, SEED + 40 + k)
+        pk, dk, ek, ak, tk = ker = poly_call(st, POLY_STEPS, block_chains=bc)
+        pp, dp, ep, ap, tp = poly_call(st, POLY_STEPS, block_chains=bc,
+                                       interpret=True)
+        flip = (ak != ap).any(1) | (dk != dp).any(1)
+        err = max(float((pk - pp).abs().max()), float((ek - ep).abs().max()),
+                  float((dk - dp).abs().max()))
+        same = all(torch.equal(a, b) for a, b in
+                   ((pk, pp), (dk, dp), (ek, ep), (ak, ap), (tk, tp)))
+        cache = poly_cache_check(st, ker, f"poly kernel, {label}")
+        rates = (ak.sum(0).double() / tk.sum(0).clamp(min=1).double()).tolist()
+        print(f"poly kernel vs plain: {label} (M={m}, N={n}, "
+              f"block_chains={bc}, t0={POLY_T0}, n={POLY_STEPS}): "
+              f"bit-equal {same}, {int(flip.sum())} chains with an accept "
+              f"flip, max |diff| {err!r}, attempts equal "
+              f"{torch.equal(tk, tp)}, max |E - E(N^2)| {cache!r}, "
+              f"acceptance {rates}")
+        check(torch.equal(tk, tp), f"poly {label}: attempt counts differ")
+        check(int(flip.sum()) == 0, f"poly {label}: {int(flip.sum())} flips")
+        check(err == 0.0 and same, f"poly {label}: kernel vs plain {err}")
+        check(int(ak[:, 1].sum()) > 0, f"poly {label}: no swap accepted")
+        worst = max(worst, err)
+    return worst
+
+
+def poly_segmentation(device):
+    """Phase 4b: one call of n steps == three calls summing to n."""
+    import torch
+    st = poly_inputs(POLY["chains"], POLY["n"], device, SEED + 50)
+    one = poly_call(st, POLY_STEPS)
+    parts = (POLY_STEPS // 3, 1, POLY_STEPS - POLY_STEPS // 3 - 1)
+    cur, t = st, POLY_T0
+    acc, tot = torch.zeros_like(one[3]), torch.zeros_like(one[4])
+    for k in parts:
+        pos, dia, e, a, n = poly_call(cur, k, t0=t)
+        cur = dataclasses.replace(cur, pos=pos, diam=dia, energy=e)
+        acc, tot, t = acc + a, tot + n, t + k
+    ok = all(torch.equal(a, b) for a, b in (
+        (cur.pos, one[0]), (cur.diam, one[1]), (cur.energy, one[2]),
+        (acc, one[3]), (tot, one[4])))
+    print(f"poly segmentation: M={POLY['chains']} N={POLY['n']}: one call of "
+          f"{POLY_STEPS} steps vs {'+'.join(map(str, parts))}: bit-equal {ok}")
+    check(ok, "segmented poly sweep differs from one sweep")
+
+
+def poly_main(tmc, device, path):
+    """The poly swap-MC path through ``Simulation.run`` on CUDA.  Returns
+    (simulation, initial chains, wall seconds)."""
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    m, n, sweeps = POLY["chains"], POLY["n"], POLY["sweeps"]
+    params = poly.PolyParams()
+    chains = poly.init_chains(m, n, rho=POLY["rho"], beta=POLY["beta"],
+                              seed=42, params=params, device=device)
+    pool = (poly.displacement_move(POLY["sigma"], weight=POLY["w_disp"],
+                                   params=params),
+            poly.swap_move(weight=1.0 - POLY["w_disp"], params=params))
+    sim = tmc.Simulation(poly.make_system(params), chains, [
+        dict(algorithm=tmc.Metropolis, pool=pool, seed=42, sweepstep=n),
+        dict(algorithm=tmc.StoreCallbacks,
+             callbacks=(poly.callback_energy_per_particle,
+                        tmc.callback_acceptance),
+             scheduler=tmc.build_schedule(sweeps, 0, POLY["stride"])),
+        dict(algorithm=tmc.StoreLastFrames, scheduler=np.asarray([sweeps])),
+    ], sweeps, path=path)
+    check(sim.device_algos[0].supports_fused,
+          "the poly pool is not fused on CUDA")
+    t0 = time.perf_counter()
+    sim.run()
+    return sim, chains, time.perf_counter() - t0
+
+
+def poly_main_checks(sim, chains, device, path, wall):
+    """Checks of the poly main-path run, made after its launch counts were
+    read: state on the card, cache, diameters conserved and migrated,
+    acceptance per move, recorder files, and the cache one more segment on."""
+    import torch
+    m, n, sweeps = POLY["chains"], POLY["n"], POLY["sweeps"]
+    st = sim.device_state["sys"]
+    cnt = sim.device_state["metropolis"]["counters"].sum(0).double()
+    rates = (cnt[:, 0] / cnt[:, 1]).tolist()
+    e = np.loadtxt(os.path.join(path, "energy_per_particle.dat"))
+    a = np.loadtxt(os.path.join(path, "acceptance.dat"))
+    moves = m * n * sweeps
+    migrated = int((st.diam != chains.diam).any(1).sum())
+    print(f"poly path: {m} chains x N {n} x {sweeps} sweeps ({moves} moves) "
+          f"in {wall!r} s wall ({moves / wall!r} moves/s with recorders), "
+          f"state on {st.pos.device.type}, acceptance per move {rates}, "
+          f"energy per particle {float(e[0, 1])!r} -> {float(e[-1, 1])!r}, "
+          f"acceptance.dat last {float(a[-1, 1])!r}, {migrated}/{m} chains "
+          f"with swapped diameters")
+    check(st.pos.device.type == device.type, "poly state left the card")
+    check(all(0.01 < r < 0.98 for r in rates), f"poly acceptance {rates}")
+    check(int(cnt[:, 1].sum()) == moves, "poly attempt count")
+    check(np.all(np.isfinite(e[:, 1])) and len(e) == sweeps // POLY["stride"]
+          + 1, "poly energy_per_particle.dat")
+    check(torch.equal(st.diam.sort(1).values, chains.diam.sort(1).values),
+          "poly diameters not conserved")
+    check(migrated == m, f"poly diameters migrated in {migrated}/{m} chains")
+    check(os.path.exists(os.path.join(path, "summary.log")),
+          "poly summary.log")
+    frames = [os.path.join(path, "trajectories", str(c + 1), "lastframe.dat")
+              for c in range(m)]
+    check(all(os.path.exists(f) for f in frames), "poly lastframe.dat missing")
+    for f in frames:
+        with open(f) as fh:
+            lines = fh.read().splitlines()
+        check(len(lines) == n + 1 and lines[0].split()[:2] == [
+            str(sweeps), str(n)], "poly lastframe.dat layout")
+    err = poly_cache_check(chains, (st.pos, st.diam, st.energy),
+                           "poly after the run")
+    out = poly_call(st, n * POLY["stride"], t0=sweeps * n)
+    err2 = poly_cache_check(chains, out, "poly one segment after the run")
+    print(f"poly path: cache after the run: max |E - E(N^2)| {err!r}; after "
+          f"one more segment of {n * POLY['stride']} steps: {err2!r}")
+
+
+def poly_times(device, card):
+    """Phase 6c: the poly kernel per main-path segment and per
+    LJ_TIME_STEPS steps, the plain version per LJ_TIME_STEPS steps."""
+    m, n = POLY["chains"], POLY["n"]
+    st = poly_inputs(m, n, device, SEED + 60)
+    out = {}
+    for label, interp, steps, reps in (
+            ("kernel", False, LJ_TIME_STEPS, 5),
+            ("kernel", False, POLY["stride"] * n, 3),
+            ("plain", True, LJ_TIME_STEPS, 1)):
+        ms = cuda_time(lambda: poly_call(st, steps, t0=0, interpret=interp),
+                       reps)
+        rate = m * steps / (ms / 1e3)
+        print(f"time: {label} fused_poly_mixed_sweep M={m} N={n} "
+              f"n_steps={steps}: {ms!r} ms per call, {rate!r} moves/s "
+              f"[{card}]")
+        out[(label, steps)] = ms
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    refresh = poly.make_system().refresh
+    out["refresh"] = cuda_time(lambda: refresh(st), 5)
+    print(f"time: poly refresh (O(N^2) cache check) M={m} N={n}: "
+          f"{out['refresh']!r} ms per call [{card}]")
+    return out
+
+
 def sweep_times(device, card):
     """Phase 6: kernel and plain-version ms per call and steps/s."""
     from montecarlo_tpu_torch.models import particle1d as p1d
@@ -504,7 +711,8 @@ def main():
     from montecarlo_tpu_torch.models import particle1d as p1d
     from montecarlo_tpu_torch.ops.fused_sweep import SWEEP_KERNEL
     from montecarlo_tpu_torch.ops.lj_sweep import LJ_KERNEL, LJ_MIXED_KERNEL
-    kernels = (SWEEP_KERNEL, LJ_KERNEL, LJ_MIXED_KERNEL)
+    from montecarlo_tpu_torch.ops.poly_sweep import POLY_KERNEL
+    kernels = (SWEEP_KERNEL, LJ_KERNEL, LJ_MIXED_KERNEL, POLY_KERNEL)
 
     # 1. device
     device = torch.device("cuda", 0)
@@ -516,8 +724,9 @@ def main():
 
     # 2. build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        list(pool.map(lambda k: k.build(), (SWEEP_KERNEL, LJ_KERNEL)))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        list(pool.map(lambda k: k.build(),
+                      (SWEEP_KERNEL, LJ_KERNEL, POLY_KERNEL)))
     for k in kernels:
         k.build()
         print(f"build: {k.symbol} from {k.library_path()} "
@@ -532,6 +741,10 @@ def main():
     # 4. the LJ kernels against their plain versions
     lj_err = lj_kernels_vs_plain(device)
     lj_segmentation(device)
+
+    # 4b. the poly kernel against its plain version
+    poly_err = poly_kernel_vs_plain(device)
+    poly_segmentation(device)
 
     # 5. the main paths; each reads only its own launches
     def zero_counts():
@@ -563,6 +776,15 @@ def main():
             check(kernel.launches > 0, f"the main path did not launch {name}")
             launches[name] = kernel.launches
             lj_main_checks(sim, device, path, cfg, mixed, wall)
+        path = os.path.join(tmp, "poly")
+        zero_counts()
+        sim, chains, wall_poly = poly_main(tmc, device, path)
+        counts = {k.symbol: k.launches for k in kernels}
+        print(f"main path: poly launches {counts}")
+        check(POLY_KERNEL.launches > 0,
+              "the main path did not launch fused_poly_mixed_sweep")
+        launches["fused_poly_mixed_sweep"] = POLY_KERNEL.launches
+        poly_main_checks(sim, chains, device, path, wall_poly)
     rate2 = CONFIG2_CHAINS * CONFIG2_STEPS / wall2
     print(f"time: config 2 end to end with recorders: {rate2!r} steps/s "
           f"({CONFIG2_CHAINS} chains, stride {CONFIG2_STRIDE}) [{card}]")
@@ -575,6 +797,16 @@ def main():
           f"{n2 * ms / 1e3!r} s of {wall2!r} s wall "
           f"({100 * n2 * ms / 1e3 / wall2!r} % in the kernel) [{card}]")
     lj_ms = lj_times(device, card)
+    poly_ms = poly_times(device, card)
+    seg = POLY["stride"] * POLY["n"]
+    n_poly = launches["fused_poly_mixed_sweep"]
+    print(f"time: poly path breakdown: {n_poly} kernel launches x "
+          f"{poly_ms[('kernel', seg)]!r} ms = "
+          f"{n_poly * poly_ms[('kernel', seg)] / 1e3!r} s and "
+          f"{n_poly} refreshes x {poly_ms['refresh']!r} ms of "
+          f"{wall_poly!r} s wall, "
+          f"{POLY['chains'] * POLY['n'] * POLY['sweeps'] / wall_poly!r}"
+          f" moves/s with recorders [{card}]")
     rows = [{
         "name": "fused_gaussian_sweep",
         "route": "cuda",
@@ -602,6 +834,18 @@ def main():
             "plain_ms": lj_ms[name][("plain", LJ_TIME_STEPS)],
             "plain_steps": LJ_TIME_STEPS,
         })
+    rows.append({
+        "name": "fused_poly_mixed_sweep",
+        "route": "cuda",
+        "source": "montecarlo_tpu_torch/csrc/poly_sweep.cu",
+        "replaces": "montecarlo_tpu/ops/poly_sweep.py:37",
+        "launches": launches["fused_poly_mixed_sweep"],
+        "max_abs_err": poly_err,
+        "ms": poly_ms[("kernel", seg)],
+        "steps": seg,
+        "plain_ms": poly_ms[("plain", LJ_TIME_STEPS)],
+        "plain_steps": LJ_TIME_STEPS,
+    })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -241,29 +241,37 @@ class Metropolis(DeviceAlgorithm):
         # spatial dimension of particle states (None for other systems)
         pos0 = getattr(sim.chains0, "pos", None)
         self._pos_dim = None if pos0 is None else int(pos0.shape[-1])
+        self._n_particles = None if pos0 is None else int(pos0.shape[-2])
         self._fused_pool = self._recognise_pool()
         self._box = None
-        if self._fused_pool in ("lj", "lj_mixed"):
+        if self._fused_pool in ("lj", "lj_mixed", "poly_mixed"):
             # the kernels take one box for all chains, as the reference
             # passes sys.box[0]; read once here, never per segment
             self._box = float(sim.chains0.box.reshape(-1)[0])
-            self._n_particles = int(pos0.shape[-2])
 
     def _recognise_pool(self):
         """Which fused sweep the pool's structure maps onto: ``'gaussian'``
         (one Gaussian displacement of a 1-D particle), ``'lj'`` (one 2-D LJ
         displacement), ``'lj_mixed'`` (2-D LJ displacement + swap sharing
-        one interaction table), or None."""
+        one interaction table), ``'poly_mixed'`` (2-D polydisperse
+        displacement + diameter swap sharing one ``PolyParams``, N >= 2), or
+        None.  A lone polydisperse displacement has no kernel, in the
+        reference as here."""
         kinds = tuple(m.move.kind for m in self.pool)
         if kinds == ("gaussian_displacement_1d",):
             return "gaussian"
         if self._pos_dim != 2:
-            return None       # the LJ row kernels are 2-D
+            return None       # the particle row kernels are 2-D
         if kinds == ("lj_displacement_2d",):
             return "lj"
-        if (len(kinds) == 2 and set(kinds) == {"lj_displacement_2d", "lj_swap"}
-                and self.pool[0].move.aux == self.pool[1].move.aux):
+        if len(kinds) != 2 or self.pool[0].move.aux != self.pool[1].move.aux:
+            return None
+        if set(kinds) == {"lj_displacement_2d", "lj_swap"}:
             return "lj_mixed"
+        if set(kinds) == {"poly_displacement_2d", "poly_swap"}:
+            # a swap needs two particles; the reference's kernel draws
+            # j = -1 at N = 1, the port leaves that pool to the generic path
+            return "poly_mixed" if self._n_particles >= 2 else None
         return None
 
     def init_state(self, sim):
@@ -300,11 +308,13 @@ class Metropolis(DeviceAlgorithm):
     def supports_fused(self) -> bool:
         """True when the fused path runs this pool: one Gaussian
         displacement move of a 1-D particle, one 2-D LJ displacement move,
-        or the 2-D LJ displacement + swap pool.  Under ``'auto'`` the chains
-        must be on a CUDA device, with a potential the Gaussian kernel knows
-        or at most :data:`~montecarlo_tpu_torch.ops.lj_sweep.MAX_PARTICLES`
-        LJ particles; under ``'interpret'`` any device and any elementwise
-        potential.  Any other pool takes the generic path."""
+        the 2-D LJ displacement + swap pool, or the 2-D polydisperse
+        displacement + diameter-swap pool (N >= 2).  Under ``'auto'`` the
+        chains must be on a CUDA device, with a potential the Gaussian kernel
+        knows or at most
+        :data:`~montecarlo_tpu_torch.ops.lj_sweep.MAX_PARTICLES` particles;
+        under ``'interpret'`` any device and any elementwise potential.  Any
+        other pool takes the generic path."""
         if self.fused == "off" or self._fused_pool is None:
             return False
         if self.fused == "interpret":
@@ -337,26 +347,35 @@ class Metropolis(DeviceAlgorithm):
                 potential=self.pool[0].move.aux, interpret=interp)
             new_sys = dataclasses.replace(sys, x=x, e=e)
         else:
-            from ..ops.lj_sweep import fused_lj_mixed_sweep, fused_lj_sweep
             kinds = tuple(m.move.kind for m in self.pool)
-            disp = kinds.index("lj_displacement_2d")
+            disp = kinds.index("poly_displacement_2d"
+                               if self._fused_pool == "poly_mixed"
+                               else "lj_displacement_2d")
             sigma = tree_leaves(params[disp])[0]
-            lj_params = self.pool[disp].move.aux
-            args = (sys.pos, sys.species, sys.beta, sys.energy, self._box,
-                    sigma)
-            if self._fused_pool == "lj":
-                pos, energy, acc = fused_lj_sweep(
-                    *args, self.seed, micro_t0, total, params=lj_params,
-                    interpret=interp)
-                new_sys = dataclasses.replace(sys, pos=pos, energy=energy)
-            else:
-                w_disp = float(self.weights[disp] / self.weights.sum())
-                pos, species, energy, acc, tot = fused_lj_mixed_sweep(
-                    *args, w_disp, self.seed, micro_t0, total,
-                    params=lj_params, interpret=interp)
-                new_sys = dataclasses.replace(sys, pos=pos, species=species,
+            aux = self.pool[disp].move.aux
+            w_disp = float(self.weights[disp] / self.weights.sum())
+            kw = dict(params=aux, interpret=interp)
+            if self._fused_pool == "poly_mixed":
+                from ..ops.poly_sweep import fused_poly_mixed_sweep
+                pos, diam, energy, acc, tot = fused_poly_mixed_sweep(
+                    sys.pos, sys.diam, sys.beta, sys.energy, self._box, sigma,
+                    w_disp, self.seed, micro_t0, total, **kw)
+                new_sys = dataclasses.replace(sys, pos=pos, diam=diam,
                                               energy=energy)
-        if self._fused_pool == "lj_mixed":
+            else:
+                from ..ops.lj_sweep import fused_lj_mixed_sweep, fused_lj_sweep
+                args = (sys.pos, sys.species, sys.beta, sys.energy, self._box,
+                        sigma)
+                if self._fused_pool == "lj":
+                    pos, energy, acc = fused_lj_sweep(
+                        *args, self.seed, micro_t0, total, **kw)
+                    new_sys = dataclasses.replace(sys, pos=pos, energy=energy)
+                else:
+                    pos, species, energy, acc, tot = fused_lj_mixed_sweep(
+                        *args, w_disp, self.seed, micro_t0, total, **kw)
+                    new_sys = dataclasses.replace(
+                        sys, pos=pos, species=species, energy=energy)
+        if self._fused_pool in ("lj_mixed", "poly_mixed"):
             # (M, kind, [accepted, attempted]), kinds in the pool's order
             inc = torch.stack([acc, tot], dim=-1)
             if disp == 1:

@@ -133,18 +133,19 @@ def total_energy(state: LJState, params: LJParams, row_batch: int = None):
     return 0.5 * torch.sum(torch.cat(rows, dim=1), dim=1)
 
 
-def _energies(state: LJState, params: LJParams, row_batch, pair_budget):
-    """:func:`total_energy` over chain batches of at most ``pair_budget``
-    pair terms each, so that many chains at large N stay bounded."""
-    m, n = state.species.shape
+def _energies(state, params, row_batch, pair_budget, total=total_energy):
+    """``total(state, params, row_batch)`` (an O(N^2) energy, by default
+    :func:`total_energy`) over chain batches of at most ``pair_budget`` pair
+    terms each, so that many chains at large N stay bounded."""
+    m, n = state.pos.shape[:2]
     per_chain = min(row_batch or n, n) * n
     batch = max(1, min(m, pair_budget // per_chain))
     if batch >= m:
-        return total_energy(state, params, row_batch)
+        return total(state, params, row_batch)
     return torch.cat([
-        total_energy(LJState(*(getattr(state, f.name)[s:s + batch]
-                               for f in dataclasses.fields(state))),
-                     params, row_batch)
+        total(type(state)(*(getattr(state, f.name)[s:s + batch]
+                            for f in dataclasses.fields(state))),
+              params, row_batch)
         for s in range(0, m, batch)])
 
 

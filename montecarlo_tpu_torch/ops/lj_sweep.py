@@ -52,8 +52,8 @@ _STEP_PRIME = 1000003
 _SWAP_TAG = 0x5CA1AB1E
 _ACCEPT_TAG = 0x0ACCE97
 _KIND_TAG = 0x7AB1E5
-#: most particles one warp's shared memory holds (x, y, species as float32
-#: in the 227 KB a Hopper block may opt into)
+#: most particles one warp's shared memory holds (x, y and the species or
+#: diameter as float32 in the 227 KB a Hopper block may opt into)
 MAX_PARTICLES = 232448 // 12
 
 _ARGS = [ctypes.c_void_p] * 5          # pos, species, beta, energy, scalars
@@ -92,17 +92,17 @@ def _lj_scalars(params, box, sigma, w_disp=1.0):
 
 
 @functools.lru_cache(maxsize=16)
-def _table_on(device, params, box, w_disp):
-    """The table without sigma, on ``device``: built once per (device,
-    params, box, w_disp), so a run copies it to the card once."""
-    return torch.as_tensor(_lj_scalars(params, box, 0.0, w_disp),
-                           device=device)
+def _table_on(device, build, params, box, w_disp):
+    """The table ``build(params, box, 0.0, w_disp)`` without sigma, on
+    ``device``: built once per (device, build, params, box, w_disp), so a
+    run copies it to the card once."""
+    return torch.as_tensor(build(params, box, 0.0, w_disp), device=device)
 
 
-def _table(params, box, sigma, w_disp, device):
+def _table(params, box, sigma, w_disp, device, build=_lj_scalars):
     """The full table on ``device`` with ``sigma`` (a float or a 0-d
     tensor) in slot 0, made with device ops only."""
-    const = _table_on(device, params, float(box), float(w_disp))
+    const = _table_on(device, build, params, float(box), float(w_disp))
     sigma = torch.as_tensor(sigma, dtype=torch.float32, device=device)
     return torch.cat([sigma.reshape(1), const[1:]])
 
@@ -159,9 +159,11 @@ def _uniform(lane, seeds, draw):
     return _uniform_from_bits(_draw_bits((lane + seeds) & _MASK, draw))
 
 
-def _disp_step(tab, x, y, spc, e, beta, seeds, lanes, col):
+def _disp_step(tab, x, y, spc, e, beta, seeds, lanes, col, row=_row_energy):
     """One displacement attempt on every chain (the reference's ``_kernel``
-    body).  Returns (x, y, e, accepted)."""
+    body; ``row`` is the row energy of the table's potential, taking the
+    per-particle labels or diameters ``spc``).  Returns (x, y, e,
+    accepted)."""
     n = x.shape[1]
     u_pick, u1, u2, u_acc = (_uniform(lanes[c], seeds, 0) for c in range(4))
     i_sel = torch.clamp((u_pick * n).to(torch.int64), max=n - 1)[:, None]
@@ -171,8 +173,8 @@ def _disp_step(tab, x, y, spc, e, beta, seeds, lanes, col):
     theta = (2.0 * math.pi) * u2
     xn = xi + (r * torch.cos(theta))[:, None]
     yn = yi + (r * torch.sin(theta))[:, None]
-    e_old = _row_energy(tab, x, y, spc, xi, yi, s_i, onehot)
-    e_new = _row_energy(tab, x, y, spc, xn, yn, s_i, onehot)
+    e_old = row(tab, x, y, spc, xi, yi, s_i, onehot)
+    e_new = row(tab, x, y, spc, xn, yn, s_i, onehot)
     d_e = e_new - e_old
     accept = torch.log(u_acc) < -beta * d_e
     upd = onehot & accept[:, None]
@@ -224,69 +226,94 @@ def _block_is_disp(step_seed: int, w_disp) -> bool:
     return bool(np.float32(bits) * np.float32(2.0 ** -31) < w_disp)
 
 
-def _plain_sweep(pos, species, beta, energy, tab, w_disp, seed, t0, n_steps,
-                 bc, mixed):
-    """Both reference kernels in plain torch ops, step by step."""
-    m, n, _ = pos.shape
-    dev = pos.device
-    x = pos[..., 0]
-    y = pos[..., 1]
-    spc = species.to(torch.float32)
-    e = energy
-    col = torch.arange(n, device=dev)[None, :]
-    chain = torch.arange(m, dtype=torch.int64, device=dev)
+def _grid(m, bc, device):
+    """(pid, row) of each chain in the reference's grid of ``bc``-chain
+    blocks, as int64 tensors."""
+    chain = torch.arange(m, dtype=torch.int64, device=device)
     pid = chain // bc
-    rows = chain - pid * bc
+    return pid, chain - pid * bc
+
+
+def _run_steps(x, y, attr, e, pid, bc, seed, t0, n_steps, w_disp, disp,
+               swap=None):
+    """The step loop of the plain versions.  ``disp(x, y, attr, e, seeds)
+    -> (x, y, e, accepted)`` and ``swap(x, y, attr, e, seeds) -> (attr, e,
+    accepted)`` make one attempt on every chain (``attr``: the labels or
+    diameters; ``seeds``: the chains' step seeds).  Each step draws one kind
+    per block, as the reference does (every step a displacement when
+    ``swap`` is None); where the blocks of a step differ, both branches run
+    and each chain keeps its own block's.  Returns ``(x, y, attr, e,
+    accepted, attempted)``, the counts (M, 2) int32: column 0 displacement,
+    column 1 swap."""
+    m = x.shape[0]
+    dev = x.device
     pid_seed = _mul32(pid, _STEP_PRIME)
-    lanes = [_mul32(rows * _LANES + c, _GOLDEN) for c in range(4)]
-    plane = _mul32(rows[:, None] * n + col, _GOLDEN) if mixed else None
     n_blocks = -(-m // bc)
     counts = torch.zeros((2, m), dtype=torch.int32, device=dev)
     tot = np.zeros((n_blocks, 2), np.int64)    # attempts per block and kind
     for k in range(n_steps):
         base = _hash32((seed + t0 + k) & _MASK)
         seeds = (pid_seed + base) & _MASK
-        disp = [not mixed or _block_is_disp(
+        kinds = [swap is None or _block_is_disp(
             (base + p * _STEP_PRIME) & _MASK, w_disp) for p in range(n_blocks)]
-        tot[:, 0] += disp
-        tot[:, 1] += [not d for d in disp]
-        if all(disp):
-            x, y, e, acc = _disp_step(tab, x, y, spc, e, beta, seeds, lanes,
-                                      col)
+        tot[:, 0] += kinds
+        tot[:, 1] += [not d for d in kinds]
+        if all(kinds):
+            x, y, e, acc = disp(x, y, attr, e, seeds)
             counts[0] += acc.to(torch.int32)
             continue
-        if not any(disp):
-            spc, e, acc = _swap_step(tab, x, y, spc, e, beta, seeds, lanes[0],
-                                     plane, col)
+        if not any(kinds):
+            attr, e, acc = swap(x, y, attr, e, seeds)
             counts[1] += acc.to(torch.int32)
             continue
-        # blocks of this step draw different kinds: run both, keep each
-        # chain's own
-        mine = torch.as_tensor(disp, device=dev)[pid]
-        xd, yd, ed, acc_d = _disp_step(tab, x, y, spc, e, beta, seeds, lanes,
-                                       col)
-        spc_s, es, acc_s = _swap_step(tab, x, y, spc, e, beta, seeds,
-                                      lanes[0], plane, col)
+        mine = torch.as_tensor(kinds, device=dev)[pid]
+        xd, yd, ed, acc_d = disp(x, y, attr, e, seeds)
+        attr_s, es, acc_s = swap(x, y, attr, e, seeds)
         x = torch.where(mine[:, None], xd, x)
         y = torch.where(mine[:, None], yd, y)
-        spc = torch.where(mine[:, None], spc, spc_s)
+        attr = torch.where(mine[:, None], attr, attr_s)
         e = torch.where(mine, ed, es)
         counts[0] += (acc_d & mine).to(torch.int32)
         counts[1] += (acc_s & ~mine).to(torch.int32)
+    attempts = torch.as_tensor(tot, dtype=torch.int32, device=dev)[pid]
+    return x, y, attr, e, counts.T.contiguous(), attempts
+
+
+def _plain_sweep(pos, species, beta, energy, tab, w_disp, seed, t0, n_steps,
+                 bc, mixed):
+    """Both reference kernels in plain torch ops, step by step."""
+    m, n, _ = pos.shape
+    dev = pos.device
+    col = torch.arange(n, device=dev)[None, :]
+    pid, rows = _grid(m, bc, dev)
+    lanes = [_mul32(rows * _LANES + c, _GOLDEN) for c in range(4)]
+    plane = _mul32(rows[:, None] * n + col, _GOLDEN) if mixed else None
+
+    def disp(x, y, spc, e, seeds):
+        return _disp_step(tab, x, y, spc, e, beta, seeds, lanes, col)
+
+    def swap(x, y, spc, e, seeds):
+        return _swap_step(tab, x, y, spc, e, beta, seeds, lanes[0], plane,
+                          col)
+
+    x, y, spc, e, acc, tot = _run_steps(
+        pos[..., 0], pos[..., 1], species.to(torch.float32), energy, pid, bc,
+        seed, t0, n_steps, w_disp, disp, swap if mixed else None)
     pos_out = torch.stack([x, y], dim=-1)
     if not mixed:
-        return pos_out, e.clone(), counts[0].clone()
-    attempts = torch.as_tensor(tot, dtype=torch.int32, device=dev)[pid]
-    return (pos_out, spc.to(species.dtype), e.clone(),
-            counts.T.contiguous(), attempts)
+        return pos_out, e.clone(), acc[:, 0].contiguous()
+    return pos_out, spc.to(species.dtype), e.clone(), acc, tot
 
 
 # -- the CUDA kernels ------------------------------------------------------------
 
 def _cuda_sweep(kernel, mixed, pos, species, beta, energy, tab, seed, t0,
-                n_steps, bc):
+                n_steps, bc, attr=("species", torch.int32)):
+    """Check the arguments and launch ``kernel``; ``attr`` names the
+    per-particle array (``species``, or the poly kernel's ``diam``) and its
+    dtype."""
     for name, t, dtype in (("pos", pos, torch.float32),
-                           ("species", species, torch.int32),
+                           (attr[0], species, attr[1]),
                            ("beta", beta, torch.float32),
                            ("energy", energy, torch.float32),
                            ("scalars", tab, torch.float32)):
@@ -300,12 +327,12 @@ def _cuda_sweep(kernel, mixed, pos, species, beta, energy, tab, seed, t0,
     if (species.shape != (m, n) or beta.shape != (m,)
             or energy.shape != (m,)):
         raise ValueError(
-            f"expected species (M, N), beta and energy (M,) for pos "
+            f"expected {attr[0]} (M, N), beta and energy (M,) for pos "
             f"{tuple(pos.shape)}, got {tuple(species.shape)}, "
             f"{tuple(beta.shape)}, {tuple(energy.shape)}")
     if not 1 <= n <= MAX_PARTICLES:
         raise ValueError(
-            f"the LJ kernels take 1 to {MAX_PARTICLES} particles per chain "
+            f"{kernel.symbol} takes 1 to {MAX_PARTICLES} particles per chain "
             f"(one warp's shared memory), got {n}")
     if not 0 <= t0 <= 2 ** 31 - 1 - n_steps:
         raise ValueError(f"t0={t0}, n_steps={n_steps} overflow int32")

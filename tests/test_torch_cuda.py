@@ -6,8 +6,9 @@ the machine has no JAX, without the repository's conftest):
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
 Tolerance: the Gaussian sweep atol 1e-5 on x and e and equal accept counts;
-the LJ sweeps bit for bit.  Each kernel and its plain version use the same
-CUDA math functions and, for the LJ rows, the same summation order.
+the LJ and polydisperse sweeps bit for bit.  Each kernel and its plain
+version use the same CUDA math functions and, for the particle rows, the
+same summation order.
 """
 
 import dataclasses
@@ -20,12 +21,15 @@ import torch
 import montecarlo_tpu_torch as tmc
 from montecarlo_tpu_torch.models import lennard_jones as lj
 from montecarlo_tpu_torch.models import particle1d as p1d
+from montecarlo_tpu_torch.models import polydisperse as poly
 from montecarlo_tpu_torch.ops.fused_sweep import (SWEEP_KERNEL,
                                                   fused_gaussian_sweep)
 from montecarlo_tpu_torch.ops.lj_sweep import (LJ_KERNEL, LJ_MIXED_KERNEL,
                                                MAX_PARTICLES,
                                                fused_lj_mixed_sweep,
                                                fused_lj_sweep)
+from montecarlo_tpu_torch.ops.poly_sweep import (POLY_KERNEL,
+                                                 fused_poly_mixed_sweep)
 
 pytestmark = pytest.mark.cuda
 
@@ -193,6 +197,99 @@ def test_simulation_runs_through_lj_kernels(cuda, mixed, tmp_path):
     sim.run()
     assert kernel.launches - before == len(sched)
     assert sim.device_state["sys"].pos.is_cuda
+    acc = np.loadtxt(tmp_path / "acceptance.dat")
+    assert 0.05 < acc[-1, 1] < 0.98
+    assert (tmp_path / "trajectories" / "32" / "lastframe.dat").exists()
+
+
+def _poly(m, n, device, seed=0):
+    return poly.init_chains(m, n, rho=0.9, beta=2.0, seed=seed,
+                            device=device)
+
+
+def _poly_sweep(st, n_steps, t0=5, **kw):
+    return fused_poly_mixed_sweep(st.pos, st.diam, st.beta, st.energy,
+                                  float(st.box[0]), 0.1, 0.8, 9, t0, n_steps,
+                                  params=poly.PolyParams(), **kw)
+
+
+@pytest.mark.parametrize("m,n,block_chains", [
+    (64, 256, 256), (64, 1024, 256), (300, 128, 256), (20, 128, 8),
+    (32, 2, 256)])
+def test_poly_kernel_matches_plain(cuda, m, n, block_chains):
+    st = _poly(m, n, cuda)
+    before = POLY_KERNEL.launches
+    got = _poly_sweep(st, 201, block_chains=block_chains)
+    assert POLY_KERNEL.launches == before + 1
+    want = _poly_sweep(st, 201, block_chains=block_chains, interpret=True)
+    assert POLY_KERNEL.launches == before + 1
+    assert all(g.is_cuda for g in got)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    pos, dia, energy, acc, tot = got
+    full = poly.total_energy(dataclasses.replace(st, pos=pos, diam=dia))
+    torch.testing.assert_close(energy, full, rtol=3e-3, atol=8e-2)
+    assert torch.equal(dia.sort(1).values, st.diam.sort(1).values)
+    assert int(acc[:, 1].sum()) > 0 and torch.all(tot.sum(1) == 201)
+
+
+def test_poly_kernel_is_segmentation_invariant(cuda):
+    st = _poly(40, 128, cuda)
+    one = _poly_sweep(st, 150)
+    cur, t = st, 5
+    acc, tot = torch.zeros_like(one[3]), torch.zeros_like(one[4])
+    for k in (70, 1, 0, 79):
+        pos, dia, e, a, n = _poly_sweep(cur, k, t0=t)
+        cur = dataclasses.replace(cur, pos=pos, diam=dia, energy=e)
+        acc, tot, t = acc + a, tot + n, t + k
+    for got, want in zip((cur.pos, cur.diam, cur.energy, acc, tot), one):
+        assert torch.equal(got, want)
+
+
+def test_poly_kernel_raises_instead_of_falling_back(cuda):
+    st = _poly(16, 32, cuda)
+    bad = (dataclasses.replace(st, pos=st.pos.double()),
+           dataclasses.replace(st, diam=st.diam.double()),
+           dataclasses.replace(st, pos=st.pos.transpose(0, 1)
+                               .contiguous().transpose(0, 1)),
+           dataclasses.replace(st, beta=st.beta.cpu()))
+    for b, err in zip(bad, (TypeError, TypeError, ValueError, ValueError)):
+        with pytest.raises(err):
+            _poly_sweep(b, 10)
+    with pytest.raises(ValueError):
+        _poly_sweep(st, 10, t0=2 ** 31 - 5)
+    one = dataclasses.replace(st, pos=st.pos[:, :1].contiguous(),
+                              diam=st.diam[:, :1].contiguous())
+    with pytest.raises(ValueError, match="N >= 2"):
+        _poly_sweep(one, 1)
+    n = MAX_PARTICLES + 1
+    big = poly.PolyState(pos=torch.zeros((1, n, 2), device=cuda),
+                         diam=torch.ones((1, n), device=cuda),
+                         beta=st.beta[:1], energy=st.energy[:1],
+                         box=st.box[:1])
+    with pytest.raises(ValueError):
+        _poly_sweep(big, 1)
+
+
+def test_simulation_runs_through_poly_kernel(cuda, tmp_path):
+    pool = (poly.displacement_move(0.1, weight=0.8),
+            poly.swap_move(weight=0.2))
+    sched = np.arange(2, 21, 2)
+    chains = _poly(32, 64, cuda)
+    sim = tmc.Simulation(poly.make_system(), chains, [
+        dict(algorithm=tmc.Metropolis, pool=pool, sweepstep=64, seed=3),
+        dict(algorithm=tmc.StoreCallbacks,
+             callbacks=(poly.callback_energy_per_particle,
+                        tmc.callback_acceptance), scheduler=sched),
+        dict(algorithm=tmc.StoreLastFrames, scheduler=[20]),
+    ], 20, path=str(tmp_path))
+    assert sim.device_algos[0].supports_fused
+    before = POLY_KERNEL.launches
+    sim.run()
+    assert POLY_KERNEL.launches - before == len(sched)
+    final = sim.device_state["sys"]
+    assert final.pos.is_cuda
+    assert torch.equal(final.diam.sort(1).values, chains.diam.sort(1).values)
     acc = np.loadtxt(tmp_path / "acceptance.dat")
     assert 0.05 < acc[-1, 1] < 0.98
     assert (tmp_path / "trajectories" / "32" / "lastframe.dat").exists()

@@ -20,6 +20,8 @@ def test_port_imports_without_jax():
         "import montecarlo_tpu_torch.ops.fused_sweep\n"
         "import montecarlo_tpu_torch.ops.lj_sweep\n"
         "import montecarlo_tpu_torch.models.lennard_jones\n"
+        "import montecarlo_tpu_torch.ops.poly_sweep\n"
+        "import montecarlo_tpu_torch.models.polydisperse\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'montecarlo_tpu', 'triton')]\n"
         "assert not bad, bad\n")
