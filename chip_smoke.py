@@ -34,9 +34,24 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
    64 chains x N 256, rho 0.9, beta 2, displacement + diameter swap, 100
    sweeps, with ``examples/swap_mc_glass.py``'s recorders), with physics
    and cache checks;
+5d. config 5 with PGMC (``tools/bench_lj.py``'s adaptive benchmark): the
+   config-5 pool at 64 chains x N 1024, 200 sweeps, VPG on the displacement
+   sigma (q 2, estimator every 10 sweeps, update every 20) through the
+   hybrid stepper, with energy, acceptance and parameters every 10 sweeps;
+   one launch per segment between sync points, sigma adapted and on the
+   card, counters, cache and acceptance checked; then the same run without
+   PGMC, for the adaptive tax, and once more under ``torch.profiler`` for
+   the card's busy time and idle share;
+5e. config 3's adaptation on the Gaussian kernel: 10^4 chains of the
+   harmonic particle-1d at beta 2, sigma 0.2 raised by VPG through the
+   hybrid stepper; sigma climbs, the energy keeps equipartition;
+5f. config 5 cut at sweep 100 after a ``StoreBackups`` checkpoint and
+   resumed from it in a fresh ``Simulation``: bit-equal to 5d's run in
+   positions, species, energies, counters, sigma and the estimator's sums;
 6. times of each kernel and its plain version at its main path's shape,
-   and the end-to-end rates of config 2 and the poly path, each printed
-   beside the card's name and power limit.
+   and the end-to-end rates of config 2 and the poly path, and where config
+   5's wall goes with PGMC, each printed beside the card's name and power
+   limit.
 
 Prints its findings on lines before the last, a ``{"kernels": [...]}``
 line (``ms`` per launch at the main path's segment of ``steps`` steps,
@@ -80,6 +95,12 @@ POLY = dict(chains=64, n=256, rho=0.9, beta=2.0, sigma=0.1, w_disp=0.8,
             sweeps=100, stride=10)
 POLY_T0, POLY_STEPS = 7, 301
 POLY_CACHE = dict(rtol=3e-3, atol=8e-2)  # the reference's own poly bounds
+# config 5 with PGMC (tools/bench_lj.py:83-109), resumed at sweep `resume`
+PGMC5 = dict(chains=64, n=1024, sweeps=200, w_disp=0.8, eta=0.001, q=2,
+             est_every=10, upd_every=20, stride=10, resume=100)
+# config 3's adaptation on the Gaussian kernel: sigma 0.2 climbs toward ~1.2
+PGMC3 = dict(chains=10 ** 4, beta=2.0, sigma0=0.2, eta=0.05, steps=4000,
+             est_every=10, upd_every=20, stride=100)
 
 
 def check(ok, what):
@@ -670,6 +691,272 @@ def poly_times(device, card):
     return out
 
 
+class Interrupt(Exception):
+    """Raised by :class:`StopAt` to cut a run short."""
+
+
+def counted(kernels, fn):
+    """Run ``fn`` with every launch count set to 0 just before; returns its
+    result and the counts read just after."""
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    return out, {k.symbol: k.launches for k in kernels}
+
+
+def pgmc5_sim(tmc, device, path, adaptive=True, extra=()):
+    """Config 5: the LJ mixed pool at full width with PGMC adapting the
+    displacement sigma through the hybrid stepper, energy per particle,
+    acceptance and parameters every ``stride`` sweeps.  ``adaptive=False``
+    drops the estimator and the update (the same run without PGMC)."""
+    from montecarlo_tpu_torch import policy_guided as pg
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    cfg = PGMC5
+    n, sweeps = cfg["n"], cfg["sweeps"]
+    pool = (lj.lj_displacement_move(sigma=LJ_SIGMA, weight=cfg["w_disp"]),
+            lj.lj_swap_move(weight=1.0 - cfg["w_disp"]))
+    sched = np.arange(cfg["stride"], sweeps + 1, cfg["stride"])
+    algos = [dict(algorithm=tmc.Metropolis, pool=pool, seed=42, sweepstep=n)]
+    if adaptive:
+        algos += [
+            dict(algorithm=pg.PolicyGradientEstimator,
+                 dependencies=(tmc.Metropolis,),
+                 optimisers=(pg.VPG(cfg["eta"]), pg.Static()),
+                 q_batch_size=cfg["q"],
+                 scheduler=np.arange(cfg["est_every"], sweeps + 1,
+                                     cfg["est_every"])),
+            dict(algorithm=pg.PolicyGradientUpdate,
+                 dependencies=(pg.PolicyGradientEstimator,),
+                 scheduler=np.arange(cfg["upd_every"], sweeps + 1,
+                                     cfg["upd_every"]))]
+    algos += [
+        dict(algorithm=tmc.StoreCallbacks,
+             callbacks=(lj.callback_energy_per_particle,
+                        tmc.callback_acceptance), scheduler=sched),
+        dict(algorithm=tmc.StoreParameters, dependencies=(tmc.Metropolis,),
+             scheduler=sched),
+        *extra]
+    return tmc.Simulation(
+        lj.make_system(),
+        lj.init_chains(cfg["chains"], n, 0.7, 1.0, frac_b=0.2, seed=42,
+                       device=device),
+        algos, sweeps, path=path)
+
+
+def timed_run(sim):
+    t0 = time.perf_counter()
+    sim.run()
+    return time.perf_counter() - t0
+
+
+def sync_points(sim):
+    """Sync points of a run in (0, steps] whose Metropolis is listed first:
+    events of the other algorithms and recorder points; the hybrid stepper
+    makes one fused launch for each."""
+    return len({int(t) for s in sim.schedulers[1:] for t in s
+                if 0 < t <= sim.steps})
+
+
+def pgmc5_checks(sim, path, wall, wall_plain, card):
+    """Phase 5d checks, made after the launch counts were read."""
+    import torch
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    cfg = PGMC5
+    m, n, sweeps = cfg["chains"], cfg["n"], cfg["sweeps"]
+    st = sim.device_state["sys"]
+    sigma = sim.device_state["params"][0]["sigma"]
+    with open(os.path.join(path, "parameters", "1", "parameters.dat")) as f:
+        rows = f.read().splitlines()
+    last_t, last = rows[-1].split(" ", 1)
+    cnt = sim.device_state["metropolis"]["counters"]
+    per_chain = cnt[..., 1].sum(1)
+    tot = cnt.sum(0).double()
+    rates = (tot[:, 0] / tot[:, 1]).tolist()
+    full = lj.make_system().refresh(st).energy
+    err = float(((st.energy - full).abs() - LJ_CACHE["rtol"] * full.abs())
+                .max())
+    e = np.loadtxt(os.path.join(path, "energy_per_particle.dat"))
+    moves = m * n * sweeps
+    print(f"config 5 with PGMC: {m} chains x N {n} x {sweeps} sweeps "
+          f"({moves} moves) in {wall!r} s wall ({moves / wall!r} moves/s "
+          f"with recorders); without PGMC {wall_plain!r} s "
+          f"({moves / wall_plain!r} moves/s), adaptive tax "
+          f"{100 * (wall / wall_plain - 1)!r} % [{card}]")
+    print(f"config 5 with PGMC: sigma 0.1 -> {float(sigma)!r} (parameters.dat "
+          f"last row t={last_t} {last}), acceptance per move {rates}, energy "
+          f"per particle {float(e[0, 1])!r} -> {float(e[-1, 1])!r}, max "
+          f"|E - E(N^2)| {float((st.energy - full).abs().max())!r}")
+    s = float(sigma)
+    check(np.isfinite(s) and s > 0 and s != np.float32(LJ_SIGMA),
+          f"config 5 sigma did not adapt ({s})")
+    check(sigma.device == st.pos.device, "config 5 sigma left the card")
+    check(int(last_t) == sweeps and last == f"[{s!r}]",
+          f"config 5 device sigma {s!r} != parameters.dat {rows[-1]}")
+    check(bool((per_chain == sweeps * n).all()),
+          "config 5 attempts per chain != sweeps x N")
+    check(all(0.05 < r < 0.98 for r in rates), f"config 5 acceptance {rates}")
+    check(bool(torch.isfinite(st.energy).all()) and err <= LJ_CACHE["atol"],
+          f"config 5 cached energy off the O(N^2) energy ({err})")
+    check(np.all(np.isfinite(e[:, 1])) and len(e) == sweeps // cfg["stride"]
+          + 1, "config 5 energy_per_particle.dat")
+
+
+def pgmc5_breakdown(sim, n_launches, seg_ms, wall, card):
+    """Config 5's parts timed apart by CUDA events on the final state: a
+    kernel segment (from ``lj_times``), an estimator event, an update and
+    a refresh, each times its count in the run.  An estimator event is
+    host-bound: timed alone it shows its launch time, which in the run
+    overlaps the segment enqueued before it, so the parts may sum to more
+    than the wall."""
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    est, upd = sim.device_algos[1], sim.device_algos[2]
+    ds, t = sim.device_state, sim.t
+    n_est = int(np.count_nonzero(sim.schedulers[1]))
+    n_upd = int(np.count_nonzero(sim.schedulers[2]))
+    refresh = lj.make_system().refresh
+    est_ms = cuda_time(lambda: est.step(ds, t), 5)
+    upd_ms = cuda_time(lambda: upd.step(ds, t), 5)
+    ref_ms = cuda_time(lambda: refresh(ds["sys"]), 5)
+    parts = {"kernel": n_launches * seg_ms, "estimator": n_est * est_ms,
+             "update": n_upd * upd_ms, "refresh": n_launches * ref_ms}
+    print("time: config 5 with PGMC, parts timed apart: " + ", ".join(
+        f"{k} {v!r} ms ({100 * v / (wall * 1e3)!r} % of the wall)"
+        for k, v in parts.items())
+        + f"; together {sum(parts.values())!r} ms of {wall * 1e3!r} ms "
+        f"wall; per event: estimator {est_ms!r} ms, update {upd_ms!r} ms, "
+        f"refresh {ref_ms!r} ms, kernel segment {seg_ms!r} ms [{card}]")
+
+
+def pgmc5_profile(tmc, device, path, card):
+    """Config 5 with PGMC once more under ``torch.profiler``: the card's
+    busy time summed over its kernel rows (one stream, so they do not
+    overlap), the idle share of the profiled wall, and the kernels that
+    take the most device time.  Returns the run's Simulation."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sim = pgmc5_sim(tmc, device, path)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = timed_run(sim)
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0))
+        rows.append((us / 1e3, evt.count, evt.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    top = "; ".join(f"{name[:60]} x{n}: {ms!r} ms" for ms, n, name in rows[:6])
+    print(f"profile: config 5 with PGMC under torch.profiler: {wall!r} s "
+          f"wall, the card busy {busy!r} ms "
+          f"({100 * busy / (wall * 1e3)!r} %), idle "
+          f"{100 * (1 - busy / (wall * 1e3))!r} %, {len(rows)} kernel "
+          f"names; most device time: {top} [{card}]")
+    check(busy > 0, "the profiler saw no device time")
+    return sim
+
+
+def pgmc5_resume(tmc, device, root, full):
+    """Phase 5f: config 5 cut at sweep ``resume`` after a backup, resumed
+    from its checkpoint in a fresh Simulation; bit-equal to the run that
+    was not cut (``full``).  Returns the seconds of the resumed part."""
+    import torch
+    from montecarlo_tpu_torch import checkpoint
+
+    class StopAt(tmc.HostAlgorithm):
+        def __init__(self, sim, dependencies=(), **_):
+            pass
+
+        def make_step(self, sim, t):
+            raise Interrupt(t)
+
+    cut = PGMC5["resume"]
+    path = os.path.join(root, "cut")
+    sim = pgmc5_sim(tmc, device, path, extra=(
+        dict(algorithm=tmc.StoreBackups, scheduler=np.asarray([cut])),
+        dict(algorithm=StopAt, scheduler=np.asarray([cut]))))
+    try:
+        sim.run()
+        check(False, "config 5 was not cut")
+    except Interrupt:
+        pass
+    check(sim.t == cut, f"config 5 cut at {sim.t}, not {cut}")
+    ckpt = os.path.join(path, "checkpoints", f"ckpt_t{cut}.npz")
+    resumed = pgmc5_sim(tmc, device, os.path.join(root, "resumed"))
+    checkpoint.resume_state(resumed, ckpt)
+    check(resumed.t == cut and isinstance(
+        resumed.device_state["pge"]["generator"], torch.Generator)
+        and resumed.device_state["pge"]["generator"].device.type
+        == device.type,
+        "config 5 checkpoint did not restore onto the card")
+    wall = timed_run(resumed)
+    a, b = full.device_state, resumed.device_state
+    pairs = {"pos": (a["sys"].pos, b["sys"].pos),
+             "species": (a["sys"].species, b["sys"].species),
+             "energy": (a["sys"].energy, b["sys"].energy),
+             "counters": (a["metropolis"]["counters"],
+                          b["metropolis"]["counters"]),
+             "sigma": (a["params"][0]["sigma"], b["params"][0]["sigma"]),
+             "estimator sums": (a["pge"]["gd"][0].grad_j,
+                                b["pge"]["gd"][0].grad_j)}
+    same = {k: bool(torch.equal(x, y)) for k, (x, y) in pairs.items()}
+    print(f"config 5 resume: cut at sweep {cut} (t={sim.t}), resumed from "
+          f"{os.path.basename(ckpt)} in {wall!r} s; bit-equal to the run "
+          f"that was not cut: {same}")
+    check(all(same.values()), f"config 5 resume differs: {same}")
+    return wall
+
+
+def pgmc3(tmc, device, path, card):
+    """Phase 5e: config 3's sigma adaptation on particle-1d (harmonic,
+    beta 2) through the Gaussian kernel and the hybrid stepper."""
+    from montecarlo_tpu_torch import policy_guided as pg
+    from montecarlo_tpu_torch.core.simulation import _select_advance
+    from montecarlo_tpu_torch.models import particle1d as p1d
+    cfg = PGMC3
+    steps = cfg["steps"]
+    sched = np.arange(cfg["stride"], steps + 1, cfg["stride"])
+    sim = tmc.Simulation(
+        p1d.make_system(p1d.harmonic),
+        p1d.init_chains(cfg["chains"], beta=cfg["beta"], seed=42,
+                        device=device),
+        [dict(algorithm=tmc.Metropolis,
+              pool=(p1d.displacement_move(cfg["sigma0"]),), seed=42),
+         dict(algorithm=pg.PolicyGradientEstimator,
+              dependencies=(tmc.Metropolis,), optimisers=(pg.VPG(cfg["eta"]),),
+              scheduler=np.arange(cfg["est_every"], steps + 1,
+                                  cfg["est_every"])),
+         dict(algorithm=pg.PolicyGradientUpdate,
+              dependencies=(pg.PolicyGradientEstimator,),
+              scheduler=np.arange(cfg["upd_every"], steps + 1,
+                                  cfg["upd_every"])),
+         dict(algorithm=tmc.StoreCallbacks,
+              callbacks=(p1d.callback_energy, tmc.callback_acceptance),
+              scheduler=sched),
+         dict(algorithm=tmc.StoreParameters, dependencies=(tmc.Metropolis,),
+              scheduler=sched)],
+        steps, path=path)
+    check("hybrid" in _select_advance(sim).__qualname__,
+          "config 3 adaptation did not take the hybrid stepper")
+    wall = timed_run(sim)
+    with open(os.path.join(path, "parameters", "1", "parameters.dat")) as f:
+        sig = [float(r.split(" ", 1)[1].strip("[]"))
+               for r in f.read().splitlines()]
+    e = np.loadtxt(os.path.join(path, "energy.dat"))
+    tail = float(e[len(e) // 2:, 1].mean())
+    s = float(sim.device_state["params"][0]["sigma"])
+    print(f"config 3 adaptation: {cfg['chains']} chains x {steps} steps in "
+          f"{wall!r} s ({cfg['chains'] * steps / wall!r} steps/s with "
+          f"recorders and PGMC), sigma {sig[0]!r} -> {sig[len(sig) // 2]!r} "
+          f"-> {s!r}, energy tail mean {tail!r} [{card}]")
+    check(sig[-1] == s and s > 0.6 and sig[len(sig) // 2] > sig[0],
+          f"config 3 sigma did not climb ({sig[0]} -> {s})")
+    check(abs(tail - 1 / (2 * cfg["beta"])) < 0.02,
+          f"config 3 energy tail {tail}")
+    return sim, wall
+
+
 def sweep_times(device, card):
     """Phase 6: kernel and plain-version ms per call and steps/s."""
     from montecarlo_tpu_torch.models import particle1d as p1d
@@ -708,6 +995,7 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     import montecarlo_tpu_torch as tmc
+    from montecarlo_tpu_torch.core.simulation import _select_advance
     from montecarlo_tpu_torch.models import particle1d as p1d
     from montecarlo_tpu_torch.ops.fused_sweep import SWEEP_KERNEL
     from montecarlo_tpu_torch.ops.lj_sweep import LJ_KERNEL, LJ_MIXED_KERNEL
@@ -785,6 +1073,50 @@ def main():
               "the main path did not launch fused_poly_mixed_sweep")
         launches["fused_poly_mixed_sweep"] = POLY_KERNEL.launches
         poly_main_checks(sim, chains, device, path, wall_poly)
+
+        # 5d. config 5 with PGMC, then the same run without it
+        path = os.path.join(tmp, "pgmc5")
+        sim5 = pgmc5_sim(tmc, device, path)
+        check("hybrid" in _select_advance(sim5).__qualname__,
+              "config 5 with PGMC did not take the hybrid stepper")
+        wall5, counts = counted(kernels, lambda: timed_run(sim5))
+        n5, seg5 = counts[LJ_MIXED_KERNEL.symbol], sync_points(sim5)
+        print(f"main path: config 5 with PGMC launches {counts}, {seg5} "
+              f"segments between events and recorder points")
+        check(n5 == seg5, f"config 5: {n5} launches for {seg5} segments")
+        check(sum(counts.values()) == n5, "config 5 launched another kernel")
+        launches["fused_lj_mixed_sweep"] += n5
+        plain5 = pgmc5_sim(tmc, device, os.path.join(tmp, "pool5"),
+                           adaptive=False)
+        wall5_plain, counts = counted(kernels, lambda: timed_run(plain5))
+        print(f"main path: config 5 without PGMC launches {counts}")
+        check(counts[LJ_MIXED_KERNEL.symbol] > 0,
+              "config 5 without PGMC did not launch fused_lj_mixed_sweep")
+        launches["fused_lj_mixed_sweep"] += counts[LJ_MIXED_KERNEL.symbol]
+        pgmc5_checks(sim5, path, wall5, wall5_plain, card)
+
+        sim5p, counts = counted(kernels, lambda: pgmc5_profile(
+            tmc, device, os.path.join(tmp, "pgmc5_profiled"), card))
+        check(counts[LJ_MIXED_KERNEL.symbol] == sync_points(sim5p),
+              "config 5 profiled: one launch per segment")
+        launches["fused_lj_mixed_sweep"] += counts[LJ_MIXED_KERNEL.symbol]
+
+        # 5e. config 3's adaptation on the Gaussian kernel
+        (sim3, wall3), counts = counted(kernels, lambda: pgmc3(
+            tmc, device, os.path.join(tmp, "pgmc3"), card))
+        print(f"main path: config 3 adaptation launches {counts}")
+        check(counts[SWEEP_KERNEL.symbol] == sync_points(sim3)
+              and sum(counts.values()) == counts[SWEEP_KERNEL.symbol],
+              "config 3 adaptation: one fused_gaussian_sweep per segment")
+        launches["fused_gaussian_sweep"] += counts[SWEEP_KERNEL.symbol]
+
+        # 5f. config 5 cut after a backup and resumed on the card
+        _, counts = counted(kernels, lambda: pgmc5_resume(
+            tmc, device, tmp, sim5))
+        print(f"main path: config 5 cut and resumed launches {counts}")
+        check(counts[LJ_MIXED_KERNEL.symbol] > 0,
+              "config 5 resume did not launch fused_lj_mixed_sweep")
+        launches["fused_lj_mixed_sweep"] += counts[LJ_MIXED_KERNEL.symbol]
     rate2 = CONFIG2_CHAINS * CONFIG2_STEPS / wall2
     print(f"time: config 2 end to end with recorders: {rate2!r} steps/s "
           f"({CONFIG2_CHAINS} chains, stride {CONFIG2_STRIDE}) [{card}]")
@@ -797,6 +1129,8 @@ def main():
           f"{n2 * ms / 1e3!r} s of {wall2!r} s wall "
           f"({100 * n2 * ms / 1e3 / wall2!r} % in the kernel) [{card}]")
     lj_ms = lj_times(device, card)
+    pgmc5_breakdown(sim5, n5, lj_ms["fused_lj_mixed_sweep"][
+        ("kernel", 10 * POOL5["n"])], wall5, card)
     poly_ms = poly_times(device, card)
     seg = POLY["stride"] * POLY["n"]
     n_poly = launches["fused_poly_mixed_sweep"]

@@ -17,10 +17,12 @@ from .core.algorithms import (Algorithm, DeviceAlgorithm, HostAlgorithm,
                               ObservableRecorder, SimView, Format, TXT, DAT,
                               BIN, StoreCallbacks, StoreTrajectories,
                               load_chain_major_trajectories, StoreLastFrames,
-                              PrintTimeSteps)
+                              StoreBackups, PrintTimeSteps)
 from .core.simulation import Simulation, build_schedule, run
 from .utils.observability import Throughput
+from . import checkpoint
 from . import interop
+from . import policy_guided
 
 __version__ = "0.1.0"
 
@@ -32,7 +34,7 @@ __all__ = [
     "Algorithm", "DeviceAlgorithm", "HostAlgorithm", "ObservableRecorder",
     "SimView", "Format", "TXT", "DAT", "BIN",
     "StoreCallbacks", "StoreTrajectories", "load_chain_major_trajectories",
-    "StoreLastFrames", "PrintTimeSteps",
+    "StoreLastFrames", "StoreBackups", "PrintTimeSteps",
     "Simulation", "build_schedule", "run",
-    "Throughput", "interop",
+    "Throughput", "checkpoint", "interop", "policy_guided",
 ]

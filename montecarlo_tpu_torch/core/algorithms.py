@@ -43,6 +43,7 @@ __all__ = [
     "StoreTrajectories",
     "load_chain_major_trajectories",
     "StoreLastFrames",
+    "StoreBackups",
     "PrintTimeSteps",
 ]
 
@@ -69,6 +70,14 @@ class Algorithm:
     def write_summary(self, io, scheduler) -> None:
         io.write(f"\t{type(self).__name__}\n")
         io.write(f"\t\tCalls: {_n_calls(scheduler)}\n")
+
+
+def is_resuming(sim) -> bool:
+    """True when ``sim`` carries a device state past step 0 (set by
+    :func:`~montecarlo_tpu_torch.checkpoint.resume_state`), which its next
+    run continues.  A recorder's ``initialise`` asks it of whatever
+    simulation it is given, which need not have a device state."""
+    return bool(getattr(sim, "device_state", None)) and sim.t > 0
 
 
 def _n_calls(scheduler) -> int:
@@ -143,7 +152,10 @@ class BIN(Format):
     ``trajectories/<field>.bin`` per frame field with a leading (time, chain)
     axis pair, plus ``trajectories/index.json`` (dtype/shape/times manifest)
     at finalise.  The same layout as the JAX package's; read back with
-    :func:`load_chain_major_trajectories`."""
+    :func:`load_chain_major_trajectories`.  A run resumed in the directory
+    of the run it continues appends to that run's store (records up to the
+    resumed step are kept, later ones dropped), where the JAX package's
+    truncates it."""
 
     extension = ".bin"
 
@@ -248,10 +260,31 @@ class StoreTrajectories(ObservableRecorder):
             self._times = []
             self._field_files = {}
             self._field_spec = {}
+            if is_resuming(sim):
+                self._reopen(sim.t)
             return
         for d in self.dirs:
             os.makedirs(d, exist_ok=True)
         self.files = [open(p, "w") for p in self.paths]
+
+    def _reopen(self, t):
+        """Continue the store a resumed run finds in its directory: keep its
+        records up to step ``t``, drop later ones, append from there."""
+        index = os.path.join(self.dir, "index.json")
+        if not os.path.exists(index):
+            return
+        with open(index) as f:
+            idx = json.load(f)
+        keep = int(np.searchsorted(np.asarray(idx["times"], np.int64), t,
+                                   side="right"))
+        self._times = [int(s) for s in idx["times"][:keep]]
+        for name, spec in idx["fields"].items():
+            path = os.path.join(self.dir, name + ".bin")
+            size = np.dtype(spec["dtype"]).itemsize * int(
+                np.prod(spec["shape"], dtype=np.int64))
+            os.truncate(path, keep * size)
+            self._field_files[name] = open(path, "ab")
+            self._field_spec[name] = spec
 
     def observable(self, view: SimView):
         return self.system.frame(view.sys)
@@ -378,6 +411,57 @@ class StoreLastFrames(Algorithm):
             os.makedirs(d, exist_ok=True)
             with open(os.path.join(d, "lastframe" + self.fmt.extension),
                       "w") as f:
+                f.write(self.system.format_frame(t, row) + "\n")
+
+
+# ---------------------------------------------------------------------------
+# StoreBackups (ref ``src/algorithms.jl:264-303``), with a loader
+# ---------------------------------------------------------------------------
+
+class StoreBackups(ObservableRecorder):
+    """Scheduled restart snapshots plus a restorable checkpoint.
+
+    Per chain, ``trajectories/<c>/restart_t<t>.dat`` holds the frame in the
+    system's ``format_frame`` line format, as the reference's; besides,
+    ``checkpoints/ckpt_t<t>.npz`` holds the whole device state (chains,
+    generators, counters, move parameters, PGMC accumulators, step), which
+    :func:`montecarlo_tpu_torch.checkpoint.resume_state` loads to resume.
+    """
+
+    #: never folded into buffered chunks: ``write`` saves sim.device_state,
+    #: which must be the state at the event, not at the end of a chunk
+    buffered_ok = False
+
+    def __init__(self, sim, fmt: Format = DAT(), store_first: bool = False,
+                 store_last: bool = False, checkpoint: bool = True,
+                 dependencies=(), **_):
+        self.fmt = fmt
+        self.store_first = store_first
+        self.store_last = store_last
+        self.checkpoint = checkpoint
+        self.system = sim.system
+        self.dirs = [os.path.join(sim.path, "trajectories", str(c + 1))
+                     for c in range(sim.n_chains)]
+        self.ckpt_dir = os.path.join(sim.path, "checkpoints")
+
+    def initialise(self, sim):
+        for d in self.dirs:
+            os.makedirs(d, exist_ok=True)
+        if self.checkpoint:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
+
+    def observable(self, view: SimView):
+        return self.system.frame(view.sys)
+
+    def write(self, sim, t, value):
+        t = int(t)
+        if self.checkpoint:
+            from .. import checkpoint as ckpt
+            ckpt.save(os.path.join(self.ckpt_dir, f"ckpt_t{t}.npz"),
+                      sim.device_state)
+        for d, row in zip(self.dirs, _unstack(value)):
+            path = os.path.join(d, f"restart_t{t}{self.fmt.extension}")
+            with open(path, "w") as f:
                 f.write(self.system.format_frame(t, row) + "\n")
 
 

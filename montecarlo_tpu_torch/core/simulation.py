@@ -4,10 +4,13 @@ Port of ``montecarlo_tpu/core/simulation.py`` (ref ``src/simulation.jl``).
 PyTorch runs eagerly, so the time loop is a host loop that enqueues device
 work and syncs only where the host needs values:
 
-- The stepper (:func:`_select_advance`) is either one fused sweep call per
+- The stepper (:func:`_select_advance`) is one fused sweep call per
   segment between sync points (a single always-on Metropolis with a
-  fusable pool), or the generic loop that applies each device algorithm at
-  the steps its schedule names.
+  fusable pool); the hybrid stepper, which runs such a Metropolis in fused
+  segments between the events of sparse further device algorithms (the
+  PGMC estimator and update) and those algorithms at their events; or the
+  generic loop that applies each device algorithm at the steps its
+  schedule names.
 - Recorder events are sync points.  Sorted sync times are factored into
   arithmetic runs, and each run advances ``stride`` steps at a time and
   writes observables into a device buffer that is copied to the host once
@@ -30,7 +33,7 @@ import torch
 from ..utils.observability import device_sync
 from ..utils.tree import tree_leaves, tree_leaves_with_path, tree_map
 from .algorithms import (Algorithm, DeviceAlgorithm, HostAlgorithm,
-                         ObservableRecorder, SimView, to_numpy)
+                         ObservableRecorder, SimView, is_resuming, to_numpy)
 from .schedule import build_schedule, compress_runs
 from .system import SystemDef, stack_chains
 
@@ -171,9 +174,11 @@ def run(simulation: Simulation):
         if sim.verbose:
             print("\n" + "-" * 50)
             print("\033[1;32mINITIALISATION\033[0m")
+        # decided before initialise, which may not touch the device state:
+        # a store kept across a resume (the BIN trajectories) asks the same
+        resuming = is_resuming(sim)
         for alg in sim.algorithms:
             alg.initialise(sim)
-        resuming = bool(sim.device_state) and sim.t > 0
         if not resuming:
             sim.device_state = sim.init_device_state()
         _write_summary(sim)
@@ -266,13 +271,42 @@ def _make_advance(device_algos, always_on=None):
     return advance
 
 
+def _make_hybrid_advance(met, sparse_algos, event_times):
+    """The fused path composed with sparse device algorithms (PGMC).
+
+    Between two consecutive events of the sparse algorithms (estimator /
+    update steps, the sorted ``event_times``) the always-on Metropolis
+    advances in one fused sweep call; at each event step the sparse
+    algorithms whose schedule names it run in list order.  Metropolis must
+    be the first device algorithm: the fused sweep through t comes before
+    the sparse algorithms at t, the reference's in-order semantics
+    (``src/simulation.jl:185-191``).  A host loop that never syncs with the
+    device.
+    """
+
+    def advance(ds, masks, n_steps):
+        t_end = ds["t"] + int(n_steps)
+        while ds["t"] < t_end:
+            k = int(np.searchsorted(event_times, ds["t"], side="right"))
+            t_next = (min(int(event_times[k]), t_end)
+                      if k < len(event_times) else t_end)
+            ds = met.fused_advance(ds, t_next - ds["t"])
+            for alg, m in zip(sparse_algos, masks[1:]):
+                if m[ds["t"]]:
+                    ds = alg.step(ds, ds["t"])
+        return ds
+
+    return advance
+
+
 def _select_advance(sim: Simulation):
     """Pick the device time-stepper.
 
     1. Single always-on Metropolis with a fusable pool -> one fused sweep
        call per segment.
-    2. Always-on fusable Metropolis + sparse further device algorithms (the
-       PGMC pattern): the hybrid stepper is not yet ported, so this raises.
+    2. Always-on fusable Metropolis listed first + sparse further device
+       algorithms (the PGMC estimator/update pattern) -> the hybrid stepper:
+       fused segments between events, the sparse algorithms at events.
     3. Otherwise -> the generic mask-scheduled loop.
     """
     def covers_all(sched):
@@ -288,14 +322,14 @@ def _select_advance(sim: Simulation):
                 def advance(ds, masks, n_steps):
                     return alg.fused_advance(ds, n_steps)
                 return advance
+            # hybrid: worthwhile when the other device algorithms fire on a
+            # minority of steps (each event costs a kernel relaunch)
             others = [sim.schedulers[sim.algorithms.index(a)]
                       for a in algos[1:]]
-            n_events = len({int(t) for s in others for t in s})
-            if n_events * 2 <= sim.steps:
-                raise NotImplementedError(
-                    "a fused Metropolis with sparse further device "
-                    "algorithms needs the hybrid stepper, which is not yet "
-                    "ported; pass fused='off' for the generic path")
+            events = sorted({int(t) for s in others for t in s})
+            if len(events) * 2 <= sim.steps:
+                return _make_hybrid_advance(alg, algos[1:],
+                                            np.asarray(events, np.int64))
     always_on = tuple(
         covers_all(sim.schedulers[sim.algorithms.index(a)]) for a in algos)
     return _make_advance(algos, always_on)

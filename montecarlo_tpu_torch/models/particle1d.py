@@ -7,7 +7,8 @@ per chain, so the Displacement move's delta-log-target comes from cached
 energies.
 
 Provides the harmonic and double-well potentials, the Gaussian displacement
-move with its analytic log density, and the energy callback.
+move with its analytic log density, the MALA move (gradient-informed
+proposal) and the energy callback.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ __all__ = [
     "init_chains",
     "StandardGaussian",
     "displacement_move",
+    "LangevinGaussian",
+    "mala_move",
     "callback_energy",
 ]
 
@@ -123,6 +126,77 @@ def displacement_move(sigma: float, weight: float = 1.0,
                  kind="gaussian_displacement_1d", aux=potential)
     return Move(move=md,
                 params={"sigma": torch.tensor(sigma, dtype=torch.float32)},
+                weight=weight)
+
+
+class LangevinGaussian(Policy):
+    """Gradient-informed (MALA) displacement proposal.
+
+    The drift is one Euler–Maruyama step of the overdamped Langevin
+    dynamics,
+
+        delta ~ N( -eps * beta * U'(x),  2 eps ),
+
+    with ``U'`` from ``torch.autograd`` on a detached copy of ``x`` (it does
+    not depend on the parameters, so a parameter gradient flows through the
+    drift's ``-eps * beta`` factor alone).  The proposal is asymmetric: the
+    generic MH step evaluates the backward density at the proposed state
+    with the inverted action.  Parameter ``step`` (= eps) is learnable by
+    PGMC like any other policy parameter.
+    """
+
+    def __init__(self, potential=harmonic):
+        self.potential = potential
+
+    def grad_u(self, x):
+        """U'(x), elementwise, as a constant of the parameters."""
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(self.potential(xd).sum(), xd)
+        return g
+
+    def _drift(self, params, state):
+        return -params["step"] * state.beta * self.grad_u(state.x)
+
+    def sample(self, params, generator, state):
+        eps = params["step"]
+        noise = torch.sqrt(2.0 * eps) * torch.randn(
+            state.x.shape, generator=generator, dtype=eps.dtype,
+            device=state.x.device)
+        return self._drift(params, state) + noise
+
+    def log_density(self, params, action, state):
+        eps = params["step"]
+        d = action - self._drift(params, state)
+        return (-(d * d) / (4.0 * eps)
+                - 0.5 * torch.log(4.0 * torch.pi * eps))
+
+
+def mala_move(step: float, weight: float = 1.0, potential=harmonic) -> Move:
+    """Metropolis-adjusted Langevin move: the apply/invert/reward of
+    :func:`displacement_move` with the :class:`LangevinGaussian` proposal.
+    Not fusable: it takes the generic path."""
+    if step <= 0:
+        raise ValueError(f"MALA step size must be positive, got {step}")
+
+    def apply(state: Particle1DState, delta):
+        xn = state.x + delta
+        en = potential(xn)
+        dlogp = -(en - state.e) * state.beta
+        return dataclasses.replace(state, x=xn, e=en), dlogp
+
+    def invert(delta, new_state):
+        return -delta
+
+    def reward(delta, new_state):
+        return delta * delta
+
+    md = MoveDef(name="LangevinDisplacement",
+                 policy=LangevinGaussian(potential),
+                 apply=apply, invert=invert, reward=reward,
+                 kind="mala_displacement_1d", aux=potential)
+    return Move(move=md,
+                params={"step": torch.tensor(step, dtype=torch.float32)},
                 weight=weight)
 
 

@@ -2,15 +2,18 @@
 
 The JAX package's state, parameters and observables are pytrees.  Here they
 are tuples, lists, dicts and dataclasses of tensors (or numpy arrays);
-everything else is a leaf.  Dataclass fields and dict keys are walked in
-declaration / insertion order, as ``jax.tree_util`` walks them.
+everything else is a leaf.  Sequences are walked in order, dataclass fields
+in declaration order and dict keys in sorted order, as ``jax.tree_util``
+walks them (a rebuilt dict has its keys sorted, as JAX's has).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["tree_map", "tree_leaves", "tree_leaves_with_path"]
+import torch
+
+__all__ = ["tree_map", "tree_leaves", "tree_leaves_with_path", "ravel"]
 
 
 def _children(node):
@@ -19,7 +22,7 @@ def _children(node):
         return (tuple(range(len(node))), tuple(node),
                 lambda vs, t=type(node): t(vs))
     if isinstance(node, dict):
-        keys = tuple(node)
+        keys = tuple(sorted(node))
         return keys, tuple(node[k] for k in keys), \
             lambda vs: dict(zip(keys, vs))
     if dataclasses.is_dataclass(node) and not isinstance(node, type):
@@ -54,3 +57,26 @@ def tree_leaves_with_path(tree, path=()):
 
 def tree_leaves(tree):
     return [leaf for _, leaf in tree_leaves_with_path(tree)]
+
+
+def ravel(tree):
+    """Flatten a tree of tensors into one 1-D tensor, the counterpart of
+    ``jax.flatten_util.ravel_pytree``.
+
+    Returns ``(flat, unravel)``: ``flat`` concatenates the leaves in tree
+    order; ``unravel(v)`` cuts a ``(..., P)`` tensor back into the tree,
+    each leaf a contiguous tensor of its shape and of ``v``'s dtype, with
+    any leading axes of ``v`` kept in front (a ``(B, P)`` tensor gives
+    leaves with a leading ``B`` axis).
+    """
+    leaves = [torch.as_tensor(x) for x in tree_leaves(tree)]
+    shapes = [x.shape for x in leaves]
+    sizes = [x.numel() for x in leaves]
+    flat = torch.cat([x.reshape(-1) for x in leaves])
+
+    def unravel(v):
+        pieces = iter([p.reshape(v.shape[:-1] + s).contiguous()
+                       for p, s in zip(torch.split(v, sizes, dim=-1), shapes)])
+        return tree_map(lambda _: next(pieces), tree)
+
+    return flat, unravel

@@ -293,3 +293,107 @@ def test_simulation_runs_through_poly_kernel(cuda, tmp_path):
     acc = np.loadtxt(tmp_path / "acceptance.dat")
     assert 0.05 < acc[-1, 1] < 0.98
     assert (tmp_path / "trajectories" / "32" / "lastframe.dat").exists()
+
+
+# -- PGMC, the hybrid stepper and resume on the card -----------------------------
+
+def _to(tree, device):
+    from montecarlo_tpu_torch.utils.tree import tree_map
+    return tree_map(lambda x: x.to(device), tree)
+
+
+@pytest.mark.parametrize("name", ["gaussian", "mala", "lj"])
+def test_per_chain_gradients_on_cuda_equal_cpu(cuda, name):
+    """pgmc_estimate (per-chain logq gradients, j, grad_j, g) on the card
+    against the CPU on the same inputs, to float32 ulps of the math
+    functions (rtol 1e-5)."""
+    from montecarlo_tpu_torch import policy_guided as pg
+    from montecarlo_tpu_torch.utils.tree import ravel
+    rng = np.random.default_rng(21)
+    m = 256
+    if name == "lj":
+        st = lj.init_chains(m, 64, 0.7, 1.0, frac_b=0.2, seed=3)
+        action = {"i": torch.as_tensor(rng.integers(0, 64, m)),
+                  "delta": torch.as_tensor(0.1 * rng.normal(size=(m, 2)),
+                                           dtype=torch.float32)}
+        mv = lj.lj_displacement_move(0.1)
+    else:
+        x = torch.as_tensor(rng.uniform(-1.5, 1.5, m), dtype=torch.float32)
+        st = p1d.Particle1DState(x=x, beta=torch.full((m,), 2.0), e=x * x)
+        action = torch.as_tensor(0.5 * rng.normal(size=m),
+                                 dtype=torch.float32)
+        mv = (p1d.mala_move(0.2) if name == "mala"
+              else p1d.displacement_move(0.5))
+    flat, unravel = ravel(mv.params)
+    want = pg.pgmc_estimate(mv.move, flat, unravel, st, action)
+    flat_c, unravel_c = ravel(_to(mv.params, cuda))
+    got = pg.pgmc_estimate(mv.move, flat_c, unravel_c, _to(st, cuda),
+                           _to(action, cuda))
+    assert got.grad_j.is_cuda and got.g.shape == (m, 1, 1)
+    for f in ("j", "grad_j", "grad_logq_forward", "g"):
+        torch.testing.assert_close(getattr(got, f).cpu(), getattr(want, f),
+                                   rtol=1e-5, atol=1e-6)
+    assert torch.equal(got.n.cpu(), want.n)
+
+
+def _lj_pgmc(device, path, sweeps=40, extra=()):
+    from montecarlo_tpu_torch import policy_guided as pg
+    pool = (lj.lj_displacement_move(0.1, weight=0.8),
+            lj.lj_swap_move(weight=0.2))
+    sched = np.arange(10, sweeps + 1, 10)
+    return tmc.Simulation(lj.make_system(), _lj(32, 64, device), [
+        dict(algorithm=tmc.Metropolis, pool=pool, sweepstep=64, seed=3),
+        dict(algorithm=pg.PolicyGradientEstimator,
+             dependencies=(tmc.Metropolis,),
+             optimisers=(pg.VPG(0.05), pg.Static()), q_batch_size=2,
+             scheduler=np.arange(4, sweeps + 1, 4)),
+        dict(algorithm=pg.PolicyGradientUpdate,
+             dependencies=(pg.PolicyGradientEstimator,),
+             scheduler=np.arange(8, sweeps + 1, 8)),
+        dict(algorithm=tmc.StoreCallbacks,
+             callbacks=(lj.callback_energy_per_particle,
+                        tmc.callback_acceptance), scheduler=sched),
+        dict(algorithm=tmc.StoreParameters, dependencies=(tmc.Metropolis,),
+             scheduler=sched),
+        *extra,
+    ], sweeps, path=str(path))
+
+
+def test_hybrid_lj_pgmc_launches_once_per_segment(cuda, tmp_path):
+    from montecarlo_tpu_torch.core.simulation import _select_advance
+    sim = _lj_pgmc(cuda, tmp_path)
+    assert "hybrid" in _select_advance(sim).__qualname__
+    sync = {int(t) for s in sim.schedulers[1:] for t in s}
+    before = LJ_MIXED_KERNEL.launches
+    sim.run()
+    assert LJ_MIXED_KERNEL.launches - before == len(sync)
+    sigma = sim.device_state["params"][0]["sigma"]
+    assert sigma.is_cuda and float(sigma) != np.float32(0.1)
+    last = (tmp_path / "parameters" / "1" / "parameters.dat").read_text()
+    assert last.splitlines()[-1] == f"40 [{float(sigma)!r}]"
+    cnt = sim.device_state["metropolis"]["counters"]
+    assert torch.all(cnt[..., 1].sum(1) == 40 * 64)
+
+
+def test_resume_on_cuda_is_bitwise_exact(cuda, tmp_path):
+    from montecarlo_tpu_torch import checkpoint
+    from montecarlo_tpu_torch.utils.tree import tree_leaves
+    ref = _lj_pgmc(cuda, tmp_path / "ref")
+    ref.run()
+    a = _lj_pgmc(cuda, tmp_path / "a", extra=(dict(
+        algorithm=tmc.StoreBackups, scheduler=np.asarray([20])),))
+    a.run()
+    b = _lj_pgmc(cuda, tmp_path / "b")
+    checkpoint.resume_state(b, str(tmp_path / "a" / "checkpoints" /
+                                   "ckpt_t20.npz"))
+    gen = b.device_state["pge"]["generator"]
+    assert b.t == 20 and gen.device.type == "cuda"
+    b.run()
+    for x, y in zip(tree_leaves(ref.device_state),
+                    tree_leaves(b.device_state)):
+        if isinstance(x, torch.Generator):
+            assert torch.equal(x.get_state(), y.get_state())
+        elif torch.is_tensor(x):
+            assert x.is_cuda and torch.equal(x, y)
+        else:
+            assert x == y

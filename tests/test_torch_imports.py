@@ -22,6 +22,8 @@ def test_port_imports_without_jax():
         "import montecarlo_tpu_torch.models.lennard_jones\n"
         "import montecarlo_tpu_torch.ops.poly_sweep\n"
         "import montecarlo_tpu_torch.models.polydisperse\n"
+        "import montecarlo_tpu_torch.policy_guided\n"
+        "import montecarlo_tpu_torch.checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'montecarlo_tpu', 'triton')]\n"
         "assert not bad, bad\n")
@@ -40,3 +42,13 @@ def test_public_names_follow_reference():
                  "StoreLastFrames"):
         assert name in ported
         assert getattr(tmc, name).__name__ == getattr(mc, name).__name__
+
+
+def test_policy_guided_exports_follow_reference():
+    from montecarlo_tpu import policy_guided as ref_pg
+    from montecarlo_tpu_torch import policy_guided as pg
+    assert pg.__all__ == ref_pg.__all__
+    for name in pg.__all__:
+        assert getattr(pg, name).__name__ == getattr(ref_pg, name).__name__
+    assert tmc.checkpoint.__all__ == mc.checkpoint.__all__
+    assert {"StoreBackups", "checkpoint", "policy_guided"} <= set(tmc.__all__)

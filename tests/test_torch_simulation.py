@@ -165,15 +165,22 @@ def test_per_event_path_matches_reference(tmp_path):
 
 def test_hybrid_stepper_is_not_ported(tmp_path):
     """A fused Metropolis followed by a sparse second device algorithm
-    needs the reference's hybrid stepper: refused, not silently rerouted."""
+    takes the reference's hybrid stepper (it used to be refused here, before
+    the stepper was ported): fused segments for the first, the second at its
+    events only."""
+    from montecarlo_tpu_torch.core.simulation import _select_advance
     chains = p1d.init_chains(8, beta=1.0)
     pool = (p1d.displacement_move(0.5),)
     sim = tmc.Simulation(p1d.make_system(), chains, [
         dict(algorithm=tmc.Metropolis, pool=pool, fused="interpret"),
         dict(algorithm=tmc.Metropolis, pool=pool, scheduler=[5, 10]),
     ], 10, path=str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        sim.run()
+    assert "hybrid" in _select_advance(sim).__qualname__
+    sim.run()
+    ds = sim.device_state
+    assert ds["t"] == 10
+    assert ds["metropolis"]["counters"][..., 1].sum() == 8 * 10
+    assert ds["metropolis_1"]["counters"][..., 1].sum() == 8 * 2
 
 
 class _FakeSim:
