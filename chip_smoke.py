@@ -9,15 +9,19 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
 2. build: compiles ``csrc/fused_sweep.cu``, ``csrc/lj_sweep.cu`` and
    ``csrc/poly_sweep.cu`` with one nvcc each, started together;
 3. the Gaussian sweep kernel vs its plain version, harmonic and double
-   well, at M = 10^4 (one block) and 10^6 (four blocks), odd t0 and
-   n_steps; segmentation invariance (one launch of n steps equals three
-   launches summing to n, bit for bit);
+   well, at M = 10, 10^4 and 10^6 (one M for each lane-group width T that
+   ``group_lanes`` picks on an H100: 32, 8, 1; the T used is printed), even
+   and odd t0, n_steps 1, 2, 7, 1001 and 10^4; every T from 1 to 32 against
+   the picked one, bit for bit; segmentation invariance at each M (one
+   launch of n steps equals three launches summing to n, bit for bit);
 4. both LJ kernels vs their plain versions at config 4's shape (256 chains
-   x N 256), the config-5 pool's (64 x N 1024), a gridded case (M 300 over
-   blocks of 256, M 20 over blocks of 8) and mono-species chains; after
-   each run the kernel's cached energies against an O(N^2) recompute,
-   positions in [0, box) and the species composition; segmentation
-   invariance of both;
+   x N 256) and the config-5 pool's (64 x N 1024: eight warps a chain), 3 x
+   N 100 and 1 x N 20 (N no multiple of 32, N < 32), 4 x N 4648 (sixteen
+   warps, ten slots a thread, N no multiple of 512), a gridded case (M 300
+   over blocks of 256, M 20 over blocks of 8) and mono-species chains;
+   after each run the kernel's cached energies against an O(N^2)
+   recompute, positions in [0, box) and the species composition;
+   segmentation invariance of both;
 4b. the polydisperse swap kernel vs its plain version at the main path's
    shape (64 chains x N 256, w_disp 0.8), 64 x N 1024, a gridded case (M 300
    over blocks of 256, M 20 over blocks of 8) and N 2: bit for bit, with the
@@ -25,7 +29,9 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
    chain's diameters conserved; segmentation invariance;
 5. the main paths, ``Simulation.run`` on CUDA, each with every launch count
    set to 0 just before and read just after: config 1 (the README example,
-   10 chains, per-chain DAT files), config 2 (10^4 chains, energy +
+   10 chains, per-chain DAT files), run as the README writes it, with no
+   ``device=`` argument anywhere: the chains, the device state and the
+   kernel launches must be on ``cuda``; config 2 (10^4 chains, energy +
    acceptance callbacks, chain-major BIN trajectories), config 4 (2-D LJ,
    256 chains x N 256, displacement, energy per particle + acceptance) and
    the config-5 pool of ``examples/lj_2d.py`` without PGMC (64 chains x
@@ -48,19 +54,36 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
 5f. config 5 cut at sweep 100 after a ``StoreBackups`` checkpoint and
    resumed from it in a fresh ``Simulation``: bit-equal to 5d's run in
    positions, species, energies, counters, sigma and the estimator's sums;
-6. times of each kernel and its plain version at its main path's shape,
-   and the end-to-end rates of config 2 and the poly path, and where config
-   5's wall goes with PGMC, each printed beside the card's name and power
-   limit.
+6. times of each kernel and its plain version at its main path's shape and
+   segment, each beside its bound (the larger of the bytes the function must
+   move over the card's memory rate and the operations it needs, counted
+   from this run's attempts, over the card's float32 rate), and the
+   end-to-end rates and breakdowns of config 2, config 4, the config-5 pool
+   and the poly path, and where config 5's wall goes with PGMC, each
+   printed beside the card's name and power limit.
 
 Prints its findings on lines before the last, a ``{"kernels": [...]}``
-line (``ms`` per launch at the main path's segment of ``steps`` steps,
-``plain_ms`` per call of ``plain_steps`` steps), and as the last line
-``{"ok": true, "device": {...}}``.  Any failed
-check raises, so the script exits non-zero without the last line.
+line (``ms`` and ``plain_ms`` per call at the main path's segment of
+``steps`` steps; ``library_ms`` is null: no single PyTorch call computes a
+Metropolis sweep), and as the last line ``{"ok": true, "device": {...}}``.
+Any failed check raises, so the script exits non-zero without the last
+line.
 
-Usage: python3 chip_smoke.py
+Usage: python3 chip_smoke.py [--parent CSRC_DIR] [--kernels-only]
+
+``--parent CSRC_DIR`` names a directory with an earlier version of
+``fused_sweep.cu`` and ``lj_sweep.cu`` (and their headers) that still has
+the first interface (one thread per Gaussian chain, one warp per LJ chain).
+They are built beside the package's kernels and, in one call, timed against
+them in turns (earlier, present, present, earlier) at the main paths'
+shapes; the Gaussian kernel must equal the earlier one bit for bit at every
+shape of phase 3, the LJ kernels where the block is one warp (N <= 32, the
+same sum order).  ``--kernels-only`` stops after phase 4 (and the
+comparison with ``--parent``).
 """
+
+import argparse
+import ctypes
 
 import dataclasses
 import json
@@ -79,14 +102,25 @@ SEED = 12345
 SIGMA = 0.5
 BETA = 2.0
 T0, N_STEPS = 7, 1001            # odd start, odd length: masked half-pairs
-SIZES = (10 ** 4, 10 ** 6)       # one Pallas-sized block; four blocks
+# one M for each lane-group width the rule picks on an H100 (T = 32, 8, 1);
+# 10^6 chains are four of the reference's blocks
+SIZES = (10, 10 ** 4, 10 ** 6)
+# (t0, n_steps): odd and even starts, segments of 1, 2 and 7 steps (shorter
+# than a round of any T), a few hundred pairs
+STEP_CASES = ((7, 1), (8, 1), (7, 2), (8, 2), (7, 7), (8, 7), (T0, N_STEPS))
+LONG_STEPS = 10 ** 4             # config 2's segment
+ALL_LANES = (1, 2, 4, 8, 16, 32)
+# the card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate, and 67 TFLOP/s float32 outside the tensor cores, which counts a
+# fused multiply-add as two: 3.35e13 operations a second over all lanes
+HBM_BYTES_PER_S = 3.35e12
+LANE_INSTR_PER_S = 67e12 / 2
 ATOL = 1e-5                      # x and e: float32 ulps of log/sin/cos
 MAX_FLIP_FRACTION = 1e-4         # chains allowed an ulp-level accept flip
 CONFIG2_CHAINS = 10 ** 4
 CONFIG2_STRIDE = 10 ** 4
 CONFIG2_STEPS = 2 * 10 ** 7
 LJ_SIGMA, LJ_T0, LJ_STEPS = 0.1, 7, 301      # odd start, a few hundred steps
-LJ_ATOL = 1e-5                   # pos and energy of chains without a flip
 LJ_CACHE = dict(rtol=3e-4, atol=5e-2)   # the reference's own cache bounds
 CONFIG4 = dict(chains=256, n=256, sweeps=200, stride=10)
 POOL5 = dict(chains=64, n=1024, sweeps=50, w_disp=0.8)
@@ -116,11 +150,13 @@ def card_line():
     return out.stdout.strip().splitlines()[0].strip()
 
 
-def cuda_time(fn, reps):
+def cuda_time(fn, reps, warm=True):
     """Mean milliseconds per call of ``fn`` over ``reps`` calls, by CUDA
-    events, after one warm-up call."""
+    events, after one warm-up call (none with ``warm=False``, for a plain
+    version whose one call takes seconds)."""
     import torch
-    fn()
+    if warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -129,6 +165,44 @@ def cuda_time(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+# Operations per lane that the functions need, for the bounds: counted in
+# the compiled kernels' loop bodies (``cuobjdump -sass`` of the libraries
+# this script builds: integer, float and special-function operations
+# alike, with the loops' loads and branches, without the slow paths of
+# sinf/cosf that arguments below 2 pi never take).
+GAUSS_INSTR_PER_STEP = 125        # half a pair: 378 a pair, less 131 slow path
+# a pair term (minimum image, exact reciprocal, pair energy, masked add):
+# (in a displacement's two rows, in a swap's four, which share the geometry
+# two by two)
+LJ_INSTR_PER_TERM = (60, 48)      # loops of 481 and 383 for 8 terms
+LJ_INSTR_PER_PICK = 48            # a swap-pick uniform a slot: 191 for 4 slots
+POLY_INSTR_PER_TERM = (58, 49)    # loops of 462 for 8 and 785 for 16 terms
+INSTR_PER_STEP_DRAWS = 300        # kind, pick, Box-Muller, log u: once a step
+
+
+def bound(n_bytes, operations):
+    """The least time (ms) the card could take: the bytes the function must
+    move (inputs read once, outputs written once) over the memory rate, or
+    its operations over the float32 rate, whichever is larger; and which
+    of the two it is."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = operations / LANE_INSTR_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes > by_ops
+                                   else "operations")
+
+
+def particle_bound(m, n, attempts, per_term, per_pick=0):
+    """The bound of a particle sweep of ``attempts`` = (displacements,
+    swaps) summed over the chains: two rows of N pair terms a displacement,
+    four a swap (and N pick draws for the LJ swap), the draws once a step;
+    the state (x, y and one attribute per particle) read and written once."""
+    disp, swap = attempts
+    instr = (disp * (2 * n * per_term[0] + INSTR_PER_STEP_DRAWS)
+             + swap * (4 * n * per_term[1] + n * per_pick
+                       + INSTR_PER_STEP_DRAWS))
+    return bound(2 * m * (12 * n + 8) + 16 * m, instr)
 
 
 def inputs(m, device, rng):
@@ -141,46 +215,100 @@ def inputs(m, device, rng):
     return x, beta, sigma
 
 
-def kernel_vs_plain(device, potentials):
-    """Phase 3.  Returns the largest |kernel - plain| over agreeing chains."""
-    import torch
+def gauss_compare(pot, m, t0, n, args):
+    """The Gaussian kernel against its plain version on ``args`` = (x, beta,
+    sigma): the present gate.  Returns the largest |kernel - plain| over
+    agreeing chains and the kernel's outputs."""
     from montecarlo_tpu_torch.ops.fused_sweep import fused_gaussian_sweep
+    xk, ek, ak = out = fused_gaussian_sweep(*args, SEED, t0, n, potential=pot)
+    xp, ep, ap = fused_gaussian_sweep(*args, SEED, t0, n, potential=pot,
+                                      interpret=True)
+    dx = (xk - xp).abs()
+    de = (ek - ep).abs()
+    off = (ak != ap) | (dx > ATOL) | (de > ATOL)
+    n_off = int(off.sum())
+    keep = ~off
+    err = max(float(dx[keep].max()), float(de[keep].max())) \
+        if bool(keep.any()) else 0.0
+    u_err = float((ek - pot(xk)).abs().max())
+    same = int(((xk == xp) & (ek == ep) & (ak == ap)).sum())
+    print(f"kernel vs plain: {pot.__name__} M={m} t0={t0} "
+          f"n={n}: {n_off} chains with an accept flip, "
+          f"max |diff| {err!r} on the rest, {same}/{m} bit-equal, "
+          f"max |e' - U(x')| {u_err!r}, "
+          f"acceptance {float(ak.sum()) / (m * n)!r}")
+    check(n_off <= MAX_FLIP_FRACTION * m,
+          f"{n_off} of {m} chains disagree ({pot.__name__})")
+    check(err <= ATOL, f"kernel vs plain differ by {err}")
+    check(u_err <= 1e-6, f"e' != U(x') by {u_err}")
+    return err, out
+
+
+def kernel_vs_plain(device, potentials, parent=None):
+    """Phase 3.  Returns the largest |kernel - plain| over agreeing chains.
+    With ``parent`` (the earlier kernels), every case must also equal the
+    earlier Gaussian kernel bit for bit."""
+    import torch
+    from montecarlo_tpu_torch.ops.fused_sweep import group_lanes
     rng = np.random.default_rng(SEED)
-    worst = 0.0
-    for pot in potentials:
-        for m in SIZES:
-            x, beta, sigma = inputs(m, device, rng)
-            args = (x, beta, sigma, SEED, T0, N_STEPS)
-            xk, ek, ak = fused_gaussian_sweep(*args, potential=pot)
-            xp, ep, ap = fused_gaussian_sweep(*args, potential=pot,
-                                              interpret=True)
-            dx = (xk - xp).abs()
-            de = (ek - ep).abs()
-            off = (ak != ap) | (dx > ATOL) | (de > ATOL)
-            n_off = int(off.sum())
-            keep = ~off
-            err = max(float(dx[keep].max()), float(de[keep].max()))
-            u_err = float((ek - pot(xk)).abs().max())
-            same = int(((xk == xp) & (ek == ep) & (ak == ap)).sum())
-            print(f"kernel vs plain: {pot.__name__} M={m} t0={T0} "
-                  f"n={N_STEPS}: {n_off} chains with an accept flip, "
-                  f"max |diff| {err!r} on the rest, {same}/{m} bit-equal, "
-                  f"max |e' - U(x')| {u_err!r}, "
-                  f"acceptance {float(ak.sum()) / (m * N_STEPS)!r}")
-            check(n_off <= MAX_FLIP_FRACTION * m,
-                  f"{n_off} of {m} chains disagree ({pot.__name__})")
-            check(err <= ATOL, f"kernel vs plain differ by {err}")
-            check(u_err <= 1e-6, f"e' != U(x') by {u_err}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    worst, n_parent = 0.0, 0
+    for k, m in enumerate(SIZES):
+        print(f"lane groups: M={m} on {sms} SMs: T = {group_lanes(m, sms)} "
+              f"lanes per chain")
+        # the long segment once per M, alternating potential and parity
+        long_case = (potentials[k % 2], T0 + k % 2, LONG_STEPS)
+        cases = [(pot, t0, n) for pot in potentials
+                 for t0, n in STEP_CASES] + [long_case]
+        for pot, t0, n in cases:
+            args = inputs(m, device, rng)
+            err, out = gauss_compare(pot, m, t0, n, args)
             worst = max(worst, err)
+            if parent is not None:
+                old = parent.gaussian(*args, t0, n, pot)
+                check(all(torch.equal(a, b) for a, b in zip(out, old)),
+                      f"the Gaussian kernel differs from the earlier one "
+                      f"({pot.__name__} M={m} t0={t0} n={n})")
+                n_parent += 1
+    if parent is not None:
+        print(f"kernel vs earlier kernel: x', e' and the accept counts "
+              f"bit-equal in all {n_parent} cases")
     return worst
 
 
+def lanes_invariance(device, potentials):
+    """Phase 3: the lane-group width changes no bit.  Every T from 1 to 32
+    against the T the rule picks, at every M and segment of phase 3."""
+    import torch
+    from montecarlo_tpu_torch.ops import fused_sweep as fs
+    rng = np.random.default_rng(SEED + 3)
+    n_cases = 0
+    for k, m in enumerate(SIZES):
+        pot = potentials[k % 2]
+        bc = fs._block_chains(m, 2048)
+        for t0, n in STEP_CASES + ((T0 + k % 2, LONG_STEPS),):
+            x, beta, sigma = inputs(m, device, rng)
+            want = fs.fused_gaussian_sweep(x, beta, sigma, SEED, t0, n,
+                                           potential=pot)
+            for lanes in ALL_LANES:
+                got = fs._cuda_sweep(x, beta, sigma, SEED, t0, n, pot, bc,
+                                     lanes=lanes)
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"T={lanes} differs from the picked T ({pot.__name__} "
+                      f"M={m} t0={t0} n={n})")
+                n_cases += 1
+    print(f"lane groups: T = {list(ALL_LANES)} bit-equal to the picked T in "
+          f"all {n_cases} cases (M = {list(SIZES)}, harmonic and double well)")
+
+
 def segmentation(device, potentials):
-    """Phase 4: one call of n steps == three calls summing to n."""
+    """Phase 3: one call of n steps == three calls summing to n, at each M
+    (each T the rule picks)."""
     import torch
     from montecarlo_tpu_torch.ops.fused_sweep import fused_gaussian_sweep
     rng = np.random.default_rng(SEED + 1)
-    for pot, m in zip(potentials, SIZES):
+    for k, m in enumerate(SIZES):
+        pot = potentials[k % 2]
         x, beta, sigma = inputs(m, device, rng)
         x1, e1, a1 = fused_gaussian_sweep(x, beta, sigma, SEED, T0, N_STEPS,
                                           potential=pot)
@@ -197,13 +325,19 @@ def segmentation(device, potentials):
         check(ok, "segmented sweep differs from one sweep")
 
 
-def config1(tmc, p1d, device, path):
-    """The README example: 10 chains, per-chain DAT trajectories."""
+def config1(tmc, p1d, path):
+    """The README example as the README writes it: 10 chains, per-chain DAT
+    trajectories, and no ``device=`` argument anywhere, so everything must
+    land on the card by default."""
     seed, beta, m, steps, burn = 42, 2.0, 10, 10 ** 5, 1000
     times = tmc.build_schedule(steps, burn, 10)
+    chains = p1d.init_chains(m, beta=beta, seed=seed)
+    check(all(t.device.type == "cuda" for t in (chains.x, chains.beta,
+                                                chains.e)),
+          f"init_chains without device= made chains on {chains.x.device}")
     sim = tmc.Simulation(
         p1d.make_system(p1d.harmonic),
-        p1d.init_chains(m, beta=beta, seed=seed, device=device),
+        chains,
         [dict(algorithm=tmc.Metropolis,
               pool=(p1d.displacement_move(sigma=0.1),), seed=seed),
          dict(algorithm=tmc.StoreCallbacks,
@@ -223,8 +357,13 @@ def config1(tmc, p1d, device, path):
     print(f"config 1: {m} chains x {steps} steps in {wall!r} s, energy tail "
           f"mean {tail!r}, acceptance {acc!r}, "
           f"{len(trj)} trajectory files of {len(trj[0])} lines")
-    check(sim.device_state["sys"].x.device.type == device.type,
-          "config 1 state left the device")
+    from montecarlo_tpu_torch.utils.tree import tree_leaves
+    where = {str(leaf.device.type) for leaf in tree_leaves(sim.device_state)
+             if hasattr(leaf, "device")}
+    print(f"config 1: no device= argument: chains on {chains.x.device}, the "
+          f"simulation on {sim.device}, the device state on {sorted(where)}")
+    check(sim.device.type == "cuda" and where == {"cuda"},
+          f"config 1 without device= ran on {sim.device}, state on {where}")
     check(abs(tail - 1 / (2 * beta)) < 0.02, f"config 1 energy {tail}")
     check(0.05 < acc < 0.99, f"config 1 acceptance {acc}")
     check(all(t.shape == (len(times) + 1, 2) for t in trj),
@@ -325,16 +464,23 @@ def lj_cache_check(st, out, what):
 LJ_CASES = (  # (label, M, N, block_chains, frac_b)
     ("config 4 shape", CONFIG4["chains"], CONFIG4["n"], 256, 0.2),
     ("config-5 pool shape", POOL5["chains"], POOL5["n"], 256, 0.2),
+    ("N no multiple of 32", 3, 100, 256, 0.2),
+    ("N < 32", 1, 20, 256, 0.2),
+    ("sixteen warps, N no multiple of 512", 4, 4608 + 40, 256, 0.2),
     ("gridded, blocks of 256", 300, 128, 256, 0.2),
     ("gridded, blocks of 8", 20, 128, 8, 0.2),
     ("mono-species", 32, 128, 256, 0.0),
+    ("mono-species, two warps", 8, 200, 256, 0.0),
 )
 
 
-def lj_kernels_vs_plain(device):
-    """Phase 4a.  Returns the largest |kernel - plain| per kernel over
-    chains without an accept flip."""
+def lj_kernels_vs_plain(device, parent=None):
+    """Phase 4a.  Returns the largest |kernel - plain| per kernel (required
+    0.0: bit-equal).  With ``parent`` (the earlier kernels), the cases whose
+    block is one warp must also equal the earlier kernels bit for bit: the
+    sum order is the same there."""
     import torch
+    from montecarlo_tpu_torch.ops.lj_sweep import block_warps
     worst = {False: 0.0, True: 0.0}
     for k, (label, m, n, bc, frac_b) in enumerate(LJ_CASES):
         st = lj_inputs(m, n, device, SEED + 10 + k, frac_b)
@@ -360,15 +506,27 @@ def lj_kernels_vs_plain(device):
                      / (tk.sum(0).double() if tk is not None
                         else m * LJ_STEPS)).tolist()
             print(f"LJ kernel vs plain: {name}, {label} (M={m}, N={n}, "
-                  f"block_chains={bc}, t0={LJ_T0}, n={LJ_STEPS}): "
+                  f"W={block_warps(n)} warps, block_chains={bc}, "
+                  f"t0={LJ_T0}, n={LJ_STEPS}): "
                   f"{int(same.sum())}/{m} chains bit-equal, "
                   f"{int(flip.sum())} with an accept flip, max |diff| "
                   f"{err!r} on the rest, attempts equal {tot_equal}, "
                   f"max |E - E(N^2)| {cache!r}, acceptance {rates}")
             check(tot_equal, f"{name} {label}: attempt counts differ")
-            check(int(flip.sum()) <= MAX_FLIP_FRACTION * m,
+            check(int(flip.sum()) == 0,
                   f"{name} {label}: {int(flip.sum())} of {m} chains flip")
-            check(err <= LJ_ATOL, f"{name} {label}: kernel vs plain {err}")
+            check(err == 0.0 and bool(same.all()),
+                  f"{name} {label}: kernel vs plain {err}, "
+                  f"{int(same.sum())}/{m} chains bit-equal")
+            if parent is not None:
+                old = parent.lj(st, LJ_STEPS, mixed, LJ_T0, bc)
+                eq = all(torch.equal(a, b) for a, b in zip(ker, old)
+                         if a is not None)
+                print(f"LJ kernel vs earlier kernel: {name}, {label}: "
+                      f"bit-equal {eq} (W={block_warps(n)})")
+                check(eq or block_warps(n) > 1,
+                      f"{name} {label}: one warp differs from the earlier "
+                      f"kernel")
             if frac_b == 0.0 and mixed:
                 check(int(acc_k[:, 1].sum()) == 0
                       and int(tk[:, 1].sum()) > 0
@@ -383,7 +541,9 @@ def lj_segmentation(device):
     kernels, bit for bit."""
     import torch
     for mixed, (m, n) in ((False, (CONFIG4["chains"], CONFIG4["n"])),
-                          (True, (POOL5["chains"], POOL5["n"]))):
+                          (True, (POOL5["chains"], POOL5["n"])),
+                          (False, (3, 100)), (True, (3, 100)),
+                          (True, (4, 4608 + 40))):
         st = lj_inputs(m, n, device, SEED + 20)
         one = lj_call(st, LJ_STEPS, mixed)
         parts = (LJ_STEPS // 3, 1, LJ_STEPS - LJ_STEPS // 3 - 1)
@@ -474,10 +634,121 @@ def lj_main_checks(sim, device, path, cfg, mixed, wall):
           f"the final state: max |E - E(N^2)| {err!r}")
 
 
+class EarlierKernels:
+    """An earlier version of ``fused_sweep.cu`` and ``lj_sweep.cu`` with the
+    first interface (no lane or warp count), built from ``csrc_dir`` with
+    the package's nvcc flags, for comparing and timing in the same call."""
+
+    _PTR = ctypes.c_void_p
+    _TAIL = [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32,
+             ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
+    _ARGTYPES = {
+        "mc_fused_gaussian_sweep": [_PTR] * 6 + [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+            ctypes.c_float, ctypes.c_void_p],
+        "mc_lj_sweep": [_PTR] * 8 + _TAIL,
+        "mc_lj_mixed_sweep": [_PTR] * 10 + _TAIL,
+    }
+
+    def __init__(self, csrc_dir, build_dir):
+        from montecarlo_tpu_torch.ops._cuda import NVCC_FLAGS, _nvcc
+        sources = {"fused_sweep": ("mc_fused_gaussian_sweep",),
+                   "lj_sweep": ("mc_lj_sweep", "mc_lj_mixed_sweep")}
+        procs = {}
+        for stem in sources:
+            out = os.path.join(build_dir, f"earlier_{stem}.so")
+            procs[stem] = (out, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", out,
+                 os.path.join(csrc_dir, stem + ".cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        self.fn = {}
+        for stem, (out, proc) in procs.items():
+            log, _ = proc.communicate()
+            check(proc.returncode == 0, f"nvcc failed on the earlier "
+                                        f"{stem}.cu:\n{log}")
+            lib = ctypes.CDLL(out)
+            for symbol in sources[stem]:
+                fn = getattr(lib, symbol)
+                fn.argtypes, fn.restype = self._ARGTYPES[symbol], ctypes.c_int
+                self.fn[symbol] = fn
+        print(f"build: the earlier kernels from {csrc_dir}")
+
+    def gaussian(self, x, beta, sigma, t0, n, pot):
+        import torch
+        from montecarlo_tpu_torch.ops import fused_sweep as fs
+        kind, a2, h, a4 = fs.kernel_potential(pot)
+        xo, eo = torch.empty_like(x), torch.empty_like(x)
+        acc = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+        err = self.fn["mc_fused_gaussian_sweep"](
+            x.data_ptr(), beta.data_ptr(), sigma.data_ptr(), xo.data_ptr(),
+            eo.data_ptr(), acc.data_ptr(), x.numel(),
+            fs._block_chains(x.numel(), 2048), SEED, t0, n, kind, a2, h, a4,
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the earlier Gaussian kernel: cudaError {err}")
+        return xo, eo, acc
+
+    def lj(self, st, n_steps, mixed, t0, block_chains=256,
+           w_disp=POOL5["w_disp"]):
+        """As ``lj_call``: (pos, species, energy, acc, tot)."""
+        import torch
+        from montecarlo_tpu_torch.models import lennard_jones as lj
+        from montecarlo_tpu_torch.ops import lj_sweep as ops
+        m, n, _ = st.pos.shape
+        tab = ops._table(lj.LJParams(), float(st.box[0]), LJ_SIGMA,
+                         w_disp if mixed else 1.0, st.pos.device)
+        pos, e = torch.empty_like(st.pos), torch.empty_like(st.energy)
+        acc = torch.empty((m, 2) if mixed else (m,), dtype=torch.int32,
+                          device=st.pos.device)
+        spc, tot = torch.empty_like(st.species), torch.empty_like(acc)
+        outs = ([pos, spc, e, acc, tot] if mixed else [pos, e, acc])
+        err = self.fn["mc_lj_mixed_sweep" if mixed else "mc_lj_sweep"](
+            st.pos.data_ptr(), st.species.data_ptr(), st.beta.data_ptr(),
+            st.energy.data_ptr(), tab.data_ptr(),
+            *(t.data_ptr() for t in outs), m, n, min(block_chains, max(8, m)),
+            SEED, t0, n_steps, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the earlier LJ kernel: cudaError {err}")
+        return (pos, spc, e, acc, tot) if mixed else (
+            pos, st.species, e, acc, None)
+
+
+def earlier_vs_present(parent, device, card):
+    """With ``--parent``: each redesigned kernel and its earlier version at
+    the main paths' shapes and segments, timed in one call in turns
+    (earlier, present, present, earlier), by CUDA events."""
+    from montecarlo_tpu_torch.models import particle1d as p1d
+    from montecarlo_tpu_torch.ops.fused_sweep import fused_gaussian_sweep
+    rng = np.random.default_rng(SEED + 4)
+    cases = []
+    for m in SIZES:
+        x, beta, sigma = inputs(m, device, rng)
+        cases.append((
+            f"fused_gaussian_sweep M={m} n_steps={LONG_STEPS}",
+            lambda x=x, beta=beta, sigma=sigma: parent.gaussian(
+                x, beta, sigma, 0, LONG_STEPS, p1d.harmonic),
+            lambda x=x, beta=beta, sigma=sigma: fused_gaussian_sweep(
+                x, beta, sigma, SEED, 0, LONG_STEPS, potential=p1d.harmonic)))
+    for mixed, cfg in ((False, CONFIG4), (True, POOL5)):
+        m, n = cfg["chains"], cfg["n"]
+        st = lj_inputs(m, n, device, SEED + 30)
+        name = "fused_lj_mixed_sweep" if mixed else "fused_lj_sweep"
+        cases.append((
+            f"{name} M={m} N={n} n_steps={10 * n}",
+            lambda st=st, mixed=mixed, n=n: parent.lj(st, 10 * n, mixed, 0),
+            lambda st=st, mixed=mixed, n=n: lj_call(st, 10 * n, mixed, t0=0)))
+    for label, old, new in cases:
+        ms = [cuda_time(fn, 3) for fn in (old, new, new, old)]
+        print(f"time: earlier vs present {label}: earlier {ms[0]!r} ms, "
+              f"present {ms[1]!r} ms, present {ms[2]!r} ms, earlier "
+              f"{ms[3]!r} ms per call: {(ms[0] + ms[3]) / (ms[1] + ms[2])!r} "
+              f"times faster [{card}]")
+
+
 def lj_times(device, card):
-    """Phase 6b: each LJ kernel and its plain version at its main path's
-    shape, LJ_TIME_STEPS steps per call; the kernel also at the main path's
-    segment length."""
+    """Phase 6b: each LJ kernel at its main path's shape, LJ_TIME_STEPS steps
+    per call and the main path's segment; its plain version at the segment
+    (one call, seconds long); the attempts of the timed segment for the
+    bound."""
     out = {}
     for mixed, cfg in ((False, CONFIG4), (True, POOL5)):
         m, n = cfg["chains"], cfg["n"]
@@ -486,13 +757,17 @@ def lj_times(device, card):
         for label, interp, steps, reps in (
                 ("kernel", False, LJ_TIME_STEPS, 5),
                 ("kernel", False, 10 * n, 3),
-                ("plain", True, LJ_TIME_STEPS, 1)):
+                ("plain", True, 10 * n, 1)):
             ms = cuda_time(lambda: lj_call(st, steps, mixed, t0=0,
-                                           interpret=interp), reps)
+                                           interpret=interp), reps,
+                           warm=not interp)
             rate = m * steps / (ms / 1e3)
             print(f"time: {label} {name} M={m} N={n} n_steps={steps}: "
                   f"{ms!r} ms per call, {rate!r} moves/s [{card}]")
             out.setdefault(name, {})[(label, steps)] = ms
+        tot = lj_call(st, 10 * n, mixed, t0=0)[4]
+        out[name]["attempts"] = ((m * 10 * n, 0) if tot is None
+                                 else tuple(int(v) for v in tot.sum(0)))
     return out
 
 
@@ -668,21 +943,24 @@ def poly_main_checks(sim, chains, device, path, wall):
 
 def poly_times(device, card):
     """Phase 6c: the poly kernel per main-path segment and per
-    LJ_TIME_STEPS steps, the plain version per LJ_TIME_STEPS steps."""
+    LJ_TIME_STEPS steps, the plain version per segment (one call), and the
+    attempts of the timed segment for the bound."""
     m, n = POLY["chains"], POLY["n"]
     st = poly_inputs(m, n, device, SEED + 60)
     out = {}
     for label, interp, steps, reps in (
             ("kernel", False, LJ_TIME_STEPS, 5),
             ("kernel", False, POLY["stride"] * n, 3),
-            ("plain", True, LJ_TIME_STEPS, 1)):
+            ("plain", True, POLY["stride"] * n, 1)):
         ms = cuda_time(lambda: poly_call(st, steps, t0=0, interpret=interp),
-                       reps)
+                       reps, warm=not interp)
         rate = m * steps / (ms / 1e3)
         print(f"time: {label} fused_poly_mixed_sweep M={m} N={n} "
               f"n_steps={steps}: {ms!r} ms per call, {rate!r} moves/s "
               f"[{card}]")
         out[(label, steps)] = ms
+    out["attempts"] = tuple(int(v) for v in poly_call(
+        st, POLY["stride"] * n, t0=0)[4].sum(0))
     from montecarlo_tpu_torch.models import polydisperse as poly
     refresh = poly.make_system().refresh
     out["refresh"] = cuda_time(lambda: refresh(st), 5)
@@ -979,7 +1257,7 @@ def sweep_times(device, card):
     x, beta, sigma = inputs(m, device, rng)
     ms = cuda_time(lambda: fused_gaussian_sweep(
         x, beta, sigma, SEED, 0, CONFIG2_STRIDE, potential=p1d.harmonic,
-        interpret=True), 1)
+        interpret=True), 1, warm=False)
     rate = m * CONFIG2_STRIDE / (ms / 1e3)
     print(f"time: plain sweep M={m} n_steps={CONFIG2_STRIDE}: {ms!r} ms per "
           f"call, {rate!r} steps/s [{card}]")
@@ -988,6 +1266,13 @@ def sweep_times(device, card):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--parent", metavar="CSRC_DIR", default=None,
+                        help="earlier fused_sweep.cu and lj_sweep.cu to "
+                             "compare and time against")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="stop after the kernels' checks (phase 4)")
+    opts = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1021,28 +1306,42 @@ def main():
               f"(nvcc wall {k.build_seconds!r} s)")
     print(f"build: all kernels ready in {time.perf_counter() - t0!r} s")
 
+    parent = None
+    if opts.parent is not None:
+        os.makedirs(os.path.dirname(SWEEP_KERNEL.library_path()),
+                    exist_ok=True)
+        parent = EarlierKernels(
+            opts.parent, os.path.dirname(SWEEP_KERNEL.library_path()))
+
     # 3. the Gaussian kernel against its plain version
     potentials = (p1d.harmonic, p1d.double_well)
-    max_err = kernel_vs_plain(device, potentials)
+    max_err = kernel_vs_plain(device, potentials, parent)
+    lanes_invariance(device, potentials)
     segmentation(device, potentials)
 
     # 4. the LJ kernels against their plain versions
-    lj_err = lj_kernels_vs_plain(device)
+    lj_err = lj_kernels_vs_plain(device, parent)
     lj_segmentation(device)
 
     # 4b. the poly kernel against its plain version
     poly_err = poly_kernel_vs_plain(device)
     poly_segmentation(device)
 
+    if parent is not None:
+        earlier_vs_present(parent, device, card)
+    if opts.kernels_only:
+        print("chip_smoke: --kernels-only: stopping before the main paths")
+        return 0
+
     # 5. the main paths; each reads only its own launches
     def zero_counts():
         for k in kernels:
             k.launches = 0
 
-    launches = {}
+    launches, walls = {}, {}
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as tmp:
         zero_counts()
-        config1(tmc, p1d, device, os.path.join(tmp, "config1"))
+        config1(tmc, p1d, os.path.join(tmp, "config1"))
         n1 = SWEEP_KERNEL.launches
         zero_counts()
         wall2 = config2(tmc, p1d, device, os.path.join(tmp, "config2"),
@@ -1063,6 +1362,7 @@ def main():
                   f"launches {counts}")
             check(kernel.launches > 0, f"the main path did not launch {name}")
             launches[name] = kernel.launches
+            walls[name] = (wall, kernel.launches)
             lj_main_checks(sim, device, path, cfg, mixed, wall)
         path = os.path.join(tmp, "poly")
         zero_counts()
@@ -1129,6 +1429,18 @@ def main():
           f"{n2 * ms / 1e3!r} s of {wall2!r} s wall "
           f"({100 * n2 * ms / 1e3 / wall2!r} % in the kernel) [{card}]")
     lj_ms = lj_times(device, card)
+    for name, cfg, label in (("fused_lj_sweep", CONFIG4, "config 4"),
+                             ("fused_lj_mixed_sweep", POOL5,
+                              "config-5 pool")):
+        wall, n_seg = walls[name]
+        seg_ms = lj_ms[name][("kernel", 10 * cfg["n"])]
+        steps = cfg["n"] * cfg["sweeps"]
+        # the pool's first segment is shorter than the others: by steps
+        in_kernel = seg_ms * steps / (10 * cfg["n"]) / 1e3
+        print(f"time: {label} breakdown: {n_seg} kernel launches, {steps} "
+              f"steps at {seg_ms!r} ms per {10 * cfg['n']} = {in_kernel!r} s "
+              f"of {wall!r} s wall ({100 * in_kernel / wall!r} % in the "
+              f"kernel) [{card}]")
     pgmc5_breakdown(sim5, n5, lj_ms["fused_lj_mixed_sweep"][
         ("kernel", 10 * POOL5["n"])], wall5, card)
     poly_ms = poly_times(device, card)
@@ -1141,45 +1453,43 @@ def main():
           f"{wall_poly!r} s wall, "
           f"{POLY['chains'] * POLY['n'] * POLY['sweeps'] / wall_poly!r}"
           f" moves/s with recorders [{card}]")
-    rows = [{
-        "name": "fused_gaussian_sweep",
-        "route": "cuda",
-        "source": "montecarlo_tpu_torch/csrc/fused_sweep.cu",
-        "replaces": "montecarlo_tpu/ops/fused_sweep.py:104",
-        "launches": launches["fused_gaussian_sweep"],
-        "max_abs_err": max_err,
-        "ms": ms,
-        "steps": CONFIG2_STRIDE,
-        "plain_ms": plain_ms,
-        "plain_steps": CONFIG2_STRIDE,
-    }]
+    m2 = CONFIG2_CHAINS
+    specs = [(
+        "fused_gaussian_sweep", "fused_sweep.cu",
+        "montecarlo_tpu/ops/fused_sweep.py:104", max_err, ms, plain_ms,
+        CONFIG2_STRIDE,
+        bound(20 * m2 + 4, m2 * CONFIG2_STRIDE * GAUSS_INSTR_PER_STEP))]
     for name, mixed, cfg, line in (
             ("fused_lj_sweep", False, CONFIG4, 122),
             ("fused_lj_mixed_sweep", True, POOL5, 191)):
+        seg = 10 * cfg["n"]
+        specs.append((
+            name, "lj_sweep.cu", f"montecarlo_tpu/ops/lj_sweep.py:{line}",
+            lj_err[mixed], lj_ms[name][("kernel", seg)],
+            lj_ms[name][("plain", seg)], seg,
+            particle_bound(cfg["chains"], cfg["n"], lj_ms[name]["attempts"],
+                           LJ_INSTR_PER_TERM, LJ_INSTR_PER_PICK)))
+    seg = POLY["stride"] * POLY["n"]
+    specs.append((
+        "fused_poly_mixed_sweep", "poly_sweep.cu",
+        "montecarlo_tpu/ops/poly_sweep.py:37", poly_err,
+        poly_ms[("kernel", seg)], poly_ms[("plain", seg)], seg,
+        particle_bound(POLY["chains"], POLY["n"], poly_ms["attempts"],
+                       POLY_INSTR_PER_TERM)))
+    rows = []
+    for name, source, replaces, err, k_ms, p_ms, steps, (b_ms, by) in specs:
         rows.append({
-            "name": name,
-            "route": "cuda",
-            "source": "montecarlo_tpu_torch/csrc/lj_sweep.cu",
-            "replaces": f"montecarlo_tpu/ops/lj_sweep.py:{line}",
-            "launches": launches[name],
-            "max_abs_err": lj_err[mixed],
-            "ms": lj_ms[name][("kernel", 10 * cfg["n"])],
-            "steps": 10 * cfg["n"],
-            "plain_ms": lj_ms[name][("plain", LJ_TIME_STEPS)],
-            "plain_steps": LJ_TIME_STEPS,
-        })
-    rows.append({
-        "name": "fused_poly_mixed_sweep",
-        "route": "cuda",
-        "source": "montecarlo_tpu_torch/csrc/poly_sweep.cu",
-        "replaces": "montecarlo_tpu/ops/poly_sweep.py:37",
-        "launches": launches["fused_poly_mixed_sweep"],
-        "max_abs_err": poly_err,
-        "ms": poly_ms[("kernel", seg)],
-        "steps": seg,
-        "plain_ms": poly_ms[("plain", LJ_TIME_STEPS)],
-        "plain_steps": LJ_TIME_STEPS,
-    })
+            "name": name, "route": "cuda",
+            "source": f"montecarlo_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "steps": steps})
+        print(f"bound: {name} at its main path's segment of {steps} steps: "
+              f"{k_ms!r} ms per launch against a bound of {b_ms!r} ms (by "
+              f"{by}): {100 * b_ms / k_ms!r} % of the bound's rate; plain "
+              f"version {p_ms!r} ms; no single PyTorch call computes a "
+              f"Metropolis sweep [{card}]")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

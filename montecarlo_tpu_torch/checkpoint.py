@@ -15,6 +15,7 @@ the Python-int step counter is stored as an int64 and restored as an int.
 from __future__ import annotations
 
 import json
+import os
 from typing import Any
 
 import numpy as np
@@ -29,7 +30,9 @@ _INT_MARK = "__int__"
 
 
 def save(path: str, dstate: Any) -> None:
-    """Serialise a device-state tree to ``path`` (.npz)."""
+    """Serialise a device-state tree to ``path`` (.npz), written whole to
+    a temporary file beside it and moved into place, so a process killed
+    meanwhile leaves no cut checkpoint under that name."""
     arrays, meta = {}, {}
     for i, (keys, leaf) in enumerate(tree_leaves_with_path(dstate)):
         name = f"leaf_{i}"
@@ -47,7 +50,9 @@ def save(path: str, dstate: Any) -> None:
         meta[name] = entry
     arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
                                        dtype=np.uint8)
-    np.savez(path, **arrays)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
 
 
 def restore(path: str, like: Any) -> Any:

@@ -19,6 +19,7 @@ to the JAX package's for the same values.
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import os
 import sys
@@ -150,12 +151,20 @@ class DAT(Format):
 class BIN(Format):
     """Chain-major consolidated binary trajectory layout: one
     ``trajectories/<field>.bin`` per frame field with a leading (time, chain)
-    axis pair, plus ``trajectories/index.json`` (dtype/shape/times manifest)
-    at finalise.  The same layout as the JAX package's; read back with
+    axis pair, plus ``trajectories/index.json`` (dtype/shape/times
+    manifest).  The same layout as the JAX package's; read back with
     :func:`load_chain_major_trajectories`.  A run resumed in the directory
     of the run it continues appends to that run's store (records up to the
     resumed step are kept, later ones dropped), where the JAX package's
-    truncates it."""
+    truncates it.
+
+    The manifest never trails the last checkpoint: it is rewritten (to a
+    temporary file, then ``os.replace``) when the run starts, after each
+    flushed chunk, before a ``StoreBackups`` event saves its checkpoint and
+    at finalise, each time after the ``.bin`` files were flushed, so a
+    process killed at any point leaves a manifest that the files cover.
+    The flush hands the bytes to the operating system; it is no ``fsync``
+    against a power cut."""
 
     extension = ".bin"
 
@@ -262,6 +271,8 @@ class StoreTrajectories(ObservableRecorder):
             self._field_spec = {}
             if is_resuming(sim):
                 self._reopen(sim.t)
+            else:
+                self.commit()
             return
         for d in self.dirs:
             os.makedirs(d, exist_ok=True)
@@ -272,6 +283,15 @@ class StoreTrajectories(ObservableRecorder):
         records up to step ``t``, drop later ones, append from there."""
         index = os.path.join(self.dir, "index.json")
         if not os.path.exists(index):
+            stale = sorted(glob.glob(os.path.join(self.dir, "*.bin")))
+            if stale:
+                raise RuntimeError(
+                    f"cannot resume the trajectory store in {self.dir}: it "
+                    f"holds {[os.path.basename(p) for p in stale]} but no "
+                    f"index.json, so its records cannot be told from "
+                    f"leftovers; move the files away or resume in another "
+                    f"directory")
+            self.commit()
             return
         with open(index) as f:
             idx = json.load(f)
@@ -282,9 +302,28 @@ class StoreTrajectories(ObservableRecorder):
             path = os.path.join(self.dir, name + ".bin")
             size = np.dtype(spec["dtype"]).itemsize * int(
                 np.prod(spec["shape"], dtype=np.int64))
+            if os.path.getsize(path) < keep * size:
+                raise RuntimeError(
+                    f"{path} holds fewer than the {keep} records that "
+                    f"index.json lists up to step {t}")
             os.truncate(path, keep * size)
             self._field_files[name] = open(path, "ab")
             self._field_spec[name] = spec
+        self.commit()
+
+    def commit(self):
+        """Make the chain-major store on disk whole: flush the ``.bin``
+        files, then replace the manifest with one that lists every record
+        written so far.  A no-op for the per-chain text layout."""
+        if not self.chain_major:
+            return
+        for f in self._field_files.values():
+            f.flush()
+        index = os.path.join(self.dir, "index.json")
+        with open(index + ".tmp", "w") as f:
+            json.dump({"n_chains": self.n_chains, "times": self._times,
+                       "fields": self._field_spec}, f)
+        os.replace(index + ".tmp", index)
 
     def observable(self, view: SimView):
         return self.system.frame(view.sys)
@@ -321,6 +360,7 @@ class StoreTrajectories(ObservableRecorder):
     def write_batch(self, sim, ts, value):
         if self.chain_major:
             self._append_records(ts, value)
+            self.commit()
             return
         fmt = self.system.format_frame
         if isinstance(value, np.ndarray) and value.ndim == 2:
@@ -336,15 +376,12 @@ class StoreTrajectories(ObservableRecorder):
         if sim.verbose:
             print("Closing trajectory files...")
         if self.chain_major:
-            for f in self._field_files.values():
-                f.close()
             # the manifest is written even for an empty run so the loader
             # never hits a missing index.json
             os.makedirs(self.dir, exist_ok=True)
-            with open(os.path.join(self.dir, "index.json"), "w") as f:
-                json.dump({"n_chains": self.n_chains,
-                           "times": self._times,
-                           "fields": self._field_spec}, f)
+            self.commit()
+            for f in self._field_files.values():
+                f.close()
             self._field_files = {}
             return
         for f in self.files:
@@ -426,6 +463,10 @@ class StoreBackups(ObservableRecorder):
     ``checkpoints/ckpt_t<t>.npz`` holds the whole device state (chains,
     generators, counters, move parameters, PGMC accumulators, step), which
     :func:`montecarlo_tpu_torch.checkpoint.resume_state` loads to resume.
+    Before the checkpoint is saved, every chain-major trajectory store of
+    the run is committed (``StoreTrajectories.commit``), and at a step that
+    both record the backup is written last, so a checkpoint at step t
+    finds the records up to t on disk and listed in the manifest.
     """
 
     #: never folded into buffered chunks: ``write`` saves sim.device_state,
@@ -457,6 +498,9 @@ class StoreBackups(ObservableRecorder):
         t = int(t)
         if self.checkpoint:
             from .. import checkpoint as ckpt
+            for alg in sim.algorithms:
+                if isinstance(alg, StoreTrajectories):
+                    alg.commit()
             ckpt.save(os.path.join(self.ckpt_dir, f"ckpt_t{t}.npz"),
                       sim.device_state)
         for d, row in zip(self.dirs, _unstack(value)):

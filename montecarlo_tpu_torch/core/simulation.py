@@ -428,7 +428,11 @@ def _execute_inner(sim: Simulation):
                     sim.device_state = ds
                 if obs_ids:
                     vals = to_numpy(observe(ds))
-                    for i, v in zip(obs_ids, vals):
+                    # unbuffered recorders (the backups) write last, so a
+                    # checkpoint at t finds the other records at t on disk
+                    for i, v in sorted(
+                            zip(obs_ids, vals), key=lambda iv: not getattr(
+                                sim.algorithms[iv[0]], "buffered_ok", True)):
                         sim.algorithms[i].write(sim, t, v)
                 for i in host_ids:
                     sim.algorithms[i].make_step(sim, t)

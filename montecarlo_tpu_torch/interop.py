@@ -21,6 +21,7 @@ import torch
 from .models.lennard_jones import LJState
 from .models.particle1d import Particle1DState
 from .models.polydisperse import PolyState
+from .utils.device import resolve_device
 
 __all__ = ["chains_from_reference", "chains_to_reference"]
 
@@ -33,7 +34,7 @@ _INT_FIELDS = ("species",)
 def chains_from_reference(np_state, device=None):
     """The JAX package's chains, given as a mapping (or an object with
     attributes) of chain-stacked arrays, as this package's state on
-    ``device`` (default CPU), told apart by their fields: a
+    ``device`` (the card, ``cuda``, when None), told apart by their fields: a
     :class:`PolyState` when there is a ``diam`` field, an :class:`LJState`
     when there is a ``species`` field, else a :class:`Particle1DState`.
     Labels stay int32, everything else becomes float32."""
@@ -42,6 +43,7 @@ def chains_from_reference(np_state, device=None):
     else:
         get = lambda k: getattr(np_state, k)
         has = lambda k: hasattr(np_state, k)
+    device = resolve_device(device)
     cls = (PolyState if has("diam") else LJState if has("species")
            else Particle1DState)
     return cls(**{

@@ -19,6 +19,7 @@ import torch
 
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
+from ..utils.device import resolve_device
 
 __all__ = [
     "LJState",
@@ -186,7 +187,9 @@ def init_chains(n_chains: int, n_particles: int, rho: float, beta: float,
     overlaps), species assigned round-robin to hit ``frac_b``.  The jitter
     comes from a ``torch.Generator`` seeded with ``seed`` — a different
     stream than the JAX package's, so ``interop.chains_from_reference``
-    carries its chains over instead."""
+    carries its chains over instead.  The chains are made on ``device``, the
+    card (``cuda``) when it is None."""
+    device = resolve_device(device)
     box = float((n_particles / rho) ** (1.0 / 2))
     side = int(np.ceil(n_particles ** (1.0 / 2)))
     spacing = box / side
@@ -199,7 +202,7 @@ def init_chains(n_chains: int, n_particles: int, rho: float, beta: float,
     if n_b:
         species[np.linspace(0, n_particles - 1, n_b).astype(int)] = 1
 
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     jitter = (0.1 * spacing) * (2.0 * torch.rand(
         (n_chains, n_particles, 2), generator=gen, device=device) - 1.0)
     pos = (torch.as_tensor(base, dtype=torch.float32, device=device)[None]

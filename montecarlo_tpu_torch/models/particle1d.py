@@ -19,6 +19,7 @@ import torch
 
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
+from ..utils.device import resolve_device
 
 __all__ = [
     "Particle1DState",
@@ -80,8 +81,10 @@ def init_chains(n_chains: int, beta: float, seed: int = 42,
     """Chain-batched initial state with x0 ~ U[-2, 2) (the reference
     scripts' ``4rand(rng) - 2`` init), drawn from a ``torch.Generator``
     seeded with ``seed`` — a different stream than the JAX package's, so
-    ``interop.chains_from_reference`` carries its chains over instead."""
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    ``interop.chains_from_reference`` carries its chains over instead.  The
+    chains are made on ``device``, the card (``cuda``) when it is None."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
     x = 4.0 * torch.rand((n_chains,), generator=gen, dtype=dtype,
                          device=device) - 2.0
     return Particle1DState(

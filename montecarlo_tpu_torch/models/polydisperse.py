@@ -23,6 +23,7 @@ import torch
 
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
+from ..utils.device import resolve_device
 from . import lennard_jones as _lj
 from .lennard_jones import GaussianDisplacement2D, _gather_pos, _slot_mask
 
@@ -189,7 +190,9 @@ def init_chains(n_chains: int, n_particles: int, rho: float, beta: float,
     chains), ``sample_diameters(n_particles, params, seed + 1)`` as in the
     reference.  The jitter comes from a ``torch.Generator`` seeded with
     ``seed`` — a different stream than the JAX package's, so
-    ``interop.chains_from_reference`` carries its chains over instead."""
+    ``interop.chains_from_reference`` carries its chains over instead.  The
+    chains are made on ``device``, the card (``cuda``) when it is None."""
+    device = resolve_device(device)
     box = float((n_particles / rho) ** (1.0 / 2))
     side = int(np.ceil(n_particles ** (1.0 / 2)))
     spacing = box / side
@@ -198,7 +201,7 @@ def init_chains(n_chains: int, n_particles: int, rho: float, beta: float,
     base = (grid + 0.5) * spacing
     diam = sample_diameters(n_particles, params, seed=seed + 1)
 
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     jitter = (0.1 * spacing) * (2.0 * torch.rand(
         (n_chains, n_particles, 2), generator=gen, device=device) - 1.0)
     pos = (torch.as_tensor(base, dtype=torch.float32, device=device)[None]

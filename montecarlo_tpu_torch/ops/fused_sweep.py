@@ -5,7 +5,10 @@ runs ``n_steps`` Metropolis steps of one symmetric Gaussian displacement
 move over all chains in one call, and has two bodies:
 
 - the hand-written CUDA kernel ``csrc/fused_sweep.cu``, launched for CUDA
-  tensors: one thread per chain, state in registers for the whole segment;
+  tensors: a group of T lanes of a warp per chain (:func:`group_lanes`),
+  which make the noise of T step pairs side by side and then apply the
+  pairs' accept steps in order, the state in registers for the whole
+  segment;
 - a plain PyTorch version, taken for CPU tensors or under
   ``interpret=True`` (the engine's ``fused='interpret'``).  The tests hold it
   against the reference's Pallas kernel in interpret mode, and
@@ -29,10 +32,11 @@ import functools
 
 import torch
 
+from ..utils.device import resolve_device
 from ._cuda import CudaKernel
 
 __all__ = ["fused_gaussian_sweep", "software_bits", "kernel_potential",
-           "SWEEP_KERNEL"]
+           "group_lanes", "SWEEP_KERNEL"]
 
 _LANES = 128
 _SUBLANES = 8
@@ -45,8 +49,8 @@ SWEEP_KERNEL = CudaKernel(
     "fused_sweep.cu", "mc_fused_gaussian_sweep",
     [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32,
                              ctypes.c_int32, ctypes.c_int32, ctypes.c_int,
-                             ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                             ctypes.c_void_p])
+                             ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                             ctypes.c_float, ctypes.c_void_p])
 
 
 # -- the counter-hash stream -------------------------------------------------
@@ -84,7 +88,9 @@ def _draw_bits(h, draw: int):
 def software_bits(step_seed: int, draw: int, shape, device=None):
     """Counter-based uint32 bits (as int64 in [0, 2**32)) for a plane of
     ``shape``: lane ``flat = row * shape[-1] + col`` over the first and last
-    axes, as the reference's ``software_bits``."""
+    axes, as the reference's ``software_bits``; on ``device``, the card
+    (``cuda``) when it is None."""
+    device = resolve_device(device)
     rows = torch.arange(shape[0], dtype=torch.int64, device=device)
     cols = torch.arange(shape[-1], dtype=torch.int64, device=device)
     view = (-1,) + (1,) * (len(shape) - 1)
@@ -161,7 +167,29 @@ def _plain_sweep(x, beta, sigma, seed, t0, n_steps, potential, block_chains):
     return x, potential(x), acc
 
 
-def _cuda_sweep(x, beta, sigma, seed, t0, n_steps, potential, block_chains):
+#: threads per SM at which the kernel's dependent hash and transcendental
+#: chains overlap well enough that a wider group's extra work no longer
+#: pays: three warps for each of an SM's four schedulers (timed on an H100
+#: at 10^3 to 10^6 chains)
+_FILL_THREADS_PER_SM = 384
+
+
+def group_lanes(m: int, sm_count: int) -> int:
+    """T, the lanes of a warp that serve one chain in the CUDA kernel: the
+    smallest power of two in 1..32 with ``m * T`` threads filling a card of
+    ``sm_count`` SMs (``_FILL_THREADS_PER_SM`` each).  Few chains get wide
+    groups, which buy parallelism with extra work per step; 10^6 chains
+    fill the card alone and get T = 1.  T changes no bit of the result."""
+    lanes = 1
+    while lanes < 32 and m * lanes < sm_count * _FILL_THREADS_PER_SM:
+        lanes *= 2
+    return lanes
+
+
+def _cuda_sweep(x, beta, sigma, seed, t0, n_steps, potential, block_chains,
+                lanes=None):
+    """Check the arguments and launch the kernel, with ``lanes`` lanes per
+    chain (default: :func:`group_lanes` for this card)."""
     pot = kernel_potential(potential)
     if pot is None:
         raise ValueError(
@@ -187,12 +215,15 @@ def _cuda_sweep(x, beta, sigma, seed, t0, n_steps, potential, block_chains):
     if x.numel() == 0:
         return x_out, e_out, acc
     kind, a2, h, a4 = pot
+    if lanes is None:
+        lanes = group_lanes(x.numel(), torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         SWEEP_KERNEL.launch(
             x.data_ptr(), beta.data_ptr(), sigma.data_ptr(), x_out.data_ptr(),
             e_out.data_ptr(), acc.data_ptr(), x.numel(), block_chains,
-            seed, t0, n_steps, kind, a2, h, a4, stream)
+            seed, t0, n_steps, lanes, kind, a2, h, a4, stream)
     return x_out, e_out, acc
 
 

@@ -14,20 +14,23 @@ two bodies:
   Gumbel-max over two (B, N) uniform planes.
 
 CUDA tensors launch the hand-written kernels in ``csrc/lj_sweep.cu`` (one
-warp per chain, the chain's particles in shared memory for the whole
-segment) or raise; CPU tensors and ``interpret=True`` take the plain torch
-versions below.  Both draw from the reference's counter-hash stream with
-the reference's block geometry, so the plain versions reproduce its
+block of :func:`block_warps` warps per chain, the chain's particles in
+shared memory for the whole segment) or raise; CPU tensors and
+``interpret=True`` take the plain torch versions below.  Both draw from
+the reference's counter-hash stream with the reference's block geometry,
+so the plain versions reproduce its
 interpret-mode results on the CPU (equal accept counts, positions within
 float32 ulps of log/cos/sin), and the kernels reproduce the plain versions
 bit for bit on the card.
 
 Two choices follow the reference kernel rather than the model: the pair
 energy is ``s2 * reciprocal(max(r2, 1e-12))`` (the model divides), and the
-row sums are taken in the CUDA kernel's lane order (:func:`_lane_sum`):
-a partial sum per warp lane over slots ``lane, lane + 32, ...``, then a
-5-level butterfly.  The reference sums in XLA's order, so energies differ
-from it by float32 ulps of the row sums.
+row sums are taken in the CUDA kernel's thread order (:func:`_lane_sum`):
+a partial sum per thread t of the chain's block over slots ``t, t + 32 W,
+...``, a 5-level butterfly in each of the W warps, then the W warp sums in
+turn.  W depends on N alone (:func:`block_warps`), so the order does not
+depend on the number of chains or on the card.  The reference sums in XLA's
+order, so energies differ from it by float32 ulps of the row sums.
 """
 
 from __future__ import annotations
@@ -43,8 +46,8 @@ from ._cuda import CudaKernel
 from .fused_sweep import (_GOLDEN, _MASK, _draw_bits, _hash32, _mul32,
                           _uniform_from_bits)
 
-__all__ = ["fused_lj_sweep", "fused_lj_mixed_sweep", "MAX_PARTICLES",
-           "LJ_KERNEL", "LJ_MIXED_KERNEL"]
+__all__ = ["fused_lj_sweep", "fused_lj_mixed_sweep", "block_warps",
+           "MAX_PARTICLES", "LJ_KERNEL", "LJ_MIXED_KERNEL"]
 
 _LANES = 128
 _WARP = 32
@@ -52,17 +55,41 @@ _STEP_PRIME = 1000003
 _SWAP_TAG = 0x5CA1AB1E
 _ACCEPT_TAG = 0x0ACCE97
 _KIND_TAG = 0x7AB1E5
-#: most particles one warp's shared memory holds (x, y and the species or
-#: diameter as float32 in the 227 KB a Hopper block may opt into)
-MAX_PARTICLES = 232448 // 12
+_MAX_WARPS = 16
+#: most particles a chain's block holds in shared memory: x, y and the
+#: species or diameter as float32 in the 227 KB a Hopper block may opt into,
+#: less the 3 KB of the LJ block's scratch (row sums, arg-max, a batch of
+#: draws).  The polydisperse kernel has no scratch and shares the limit.
+MAX_PARTICLES = (232448 - 3072) // 12
 
 _ARGS = [ctypes.c_void_p] * 5          # pos, species, beta, energy, scalars
-_TAIL = [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32,
-         ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
-LJ_KERNEL = CudaKernel("lj_sweep.cu", "mc_lj_sweep",
-                       _ARGS + [ctypes.c_void_p] * 3 + _TAIL)
-LJ_MIXED_KERNEL = CudaKernel("lj_sweep.cu", "mc_lj_mixed_sweep",
-                             _ARGS + [ctypes.c_void_p] * 5 + _TAIL)
+_TAIL = [ctypes.c_int64, ctypes.c_uint32, ctypes.c_int32, ctypes.c_int32,
+         ctypes.c_void_p]          # block_chains, seed, t0, n_steps, stream
+_SHAPE = [ctypes.c_int64, ctypes.c_int]                 # m, n
+LJ_KERNEL = CudaKernel(
+    "lj_sweep.cu", "mc_lj_sweep",
+    _ARGS + [ctypes.c_void_p] * 3 + _SHAPE + [ctypes.c_int] + _TAIL)
+LJ_MIXED_KERNEL = CudaKernel(
+    "lj_sweep.cu", "mc_lj_mixed_sweep",
+    _ARGS + [ctypes.c_void_p] * 5 + _SHAPE + [ctypes.c_int] + _TAIL)
+
+
+def block_warps(n: int) -> int:
+    """W, the warps of the block that serves one chain of ``n`` particles
+    in the LJ kernels, a power of two: one slot a thread up to 8 warps
+    (N <= 256), then up to four slots a thread (8 warps to N 1024, 16 to
+    N 2048), then 16 warps (timed on an H100: a step is bound by its
+    latency, which more threads shorten, until one SM's issue rate
+    bounds it).  It depends on N alone, because the row sums' order
+    (:func:`_lane_sum`) follows it: the plain version and the kernel read
+    it here."""
+    def pow2_warps(slots_per_warp):
+        warps = 1
+        while warps < _MAX_WARPS and warps * slots_per_warp < n:
+            warps *= 2
+        return warps
+
+    return max(pow2_warps(128), min(8, pow2_warps(32)))
 
 
 # -- the scalar table ----------------------------------------------------------
@@ -109,23 +136,28 @@ def _table(params, box, sigma, w_disp, device, build=_lj_scalars):
 
 # -- the plain versions ----------------------------------------------------------
 
-def _lane_sum(u):
-    """Row sums of ``u`` (M, N) in the CUDA kernel's order: per lane
-    l < 32 the sum of slots l, l + 32, ... in turn (the padding adds 0.0,
-    which is exact), then lane l += lane l + o for o = 16, 8, 4, 2, 1."""
+def _lane_sum(u, warps=1):
+    """Row sums of ``u`` (M, N) in the CUDA kernels' order for a block of
+    ``warps`` warps: per thread t < 32 W the sum of slots t, t + 32 W, ...
+    in turn (the padding adds 0.0, which is exact); in each warp lane l +=
+    lane l + o for o = 16, 8, 4, 2, 1; then the W warp sums in turn."""
     m, n = u.shape
-    groups = max(1, -(-n // _WARP))
-    if groups * _WARP != n:
-        u = torch.nn.functional.pad(u, (0, groups * _WARP - n))
-    u = u.view(m, groups, _WARP)
+    threads = warps * _WARP
+    groups = max(1, -(-n // threads))
+    if groups * threads != n:
+        u = torch.nn.functional.pad(u, (0, groups * threads - n))
+    u = u.view(m, groups, warps, _WARP)
     p = u[:, 0]
     for g in range(1, groups):
         p = p + u[:, g]
     w = _WARP
     while w > 1:
         w //= 2
-        p = p[:, :w] + p[:, w:2 * w]
-    return p[:, 0]
+        p = p[..., :w] + p[..., w:2 * w]
+    total = p[:, 0, 0]
+    for k in range(1, warps):
+        total = total + p[:, k, 0]
+    return total
 
 
 def _row_energy(tab, x, y, spc, xi, yi, s_i, excl):
@@ -150,7 +182,7 @@ def _row_energy(tab, x, y, spc, xi, yi, s_i, excl):
     i6 = inv * inv * inv
     u = 4.0 * eps * (i6 * i6 - i6) - shift
     u = torch.where((r2 < rc2) & ~excl, u, 0.0)
-    return _lane_sum(u)
+    return _lane_sum(u, block_warps(u.shape[1]))
 
 
 def _uniform(lane, seeds, draw):
@@ -308,10 +340,11 @@ def _plain_sweep(pos, species, beta, energy, tab, w_disp, seed, t0, n_steps,
 # -- the CUDA kernels ------------------------------------------------------------
 
 def _cuda_sweep(kernel, mixed, pos, species, beta, energy, tab, seed, t0,
-                n_steps, bc, attr=("species", torch.int32)):
+                n_steps, bc, attr=("species", torch.int32), warps=None):
     """Check the arguments and launch ``kernel``; ``attr`` names the
     per-particle array (``species``, or the poly kernel's ``diam``) and its
-    dtype."""
+    dtype; ``warps`` is the block's warp count for a kernel that takes one
+    (the LJ kernels), None for one warp per chain (the poly kernel)."""
     for name, t, dtype in (("pos", pos, torch.float32),
                            (attr[0], species, attr[1]),
                            ("beta", beta, torch.float32),
@@ -333,7 +366,7 @@ def _cuda_sweep(kernel, mixed, pos, species, beta, energy, tab, seed, t0,
     if not 1 <= n <= MAX_PARTICLES:
         raise ValueError(
             f"{kernel.symbol} takes 1 to {MAX_PARTICLES} particles per chain "
-            f"(one warp's shared memory), got {n}")
+            f"(one block's shared memory), got {n}")
     if not 0 <= t0 <= 2 ** 31 - 1 - n_steps:
         raise ValueError(f"t0={t0}, n_steps={n_steps} overflow int32")
     pos_out = torch.empty_like(pos)
@@ -352,8 +385,9 @@ def _cuda_sweep(kernel, mixed, pos, species, beta, energy, tab, seed, t0,
         with torch.cuda.device(pos.device):
             stream = torch.cuda.current_stream().cuda_stream
             kernel.launch(pos.data_ptr(), species.data_ptr(), beta.data_ptr(),
-                          energy.data_ptr(), tab.data_ptr(), *outs, m, n, bc,
-                          seed, t0, n_steps, stream)
+                          energy.data_ptr(), tab.data_ptr(), *outs, m, n,
+                          *(() if warps is None else (warps,)), bc, seed, t0,
+                          n_steps, stream)
     if mixed:
         return pos_out, spc_out, e_out, acc, tot
     return pos_out, e_out, acc
@@ -376,7 +410,7 @@ def _sweep(mixed, pos, species, beta, energy, box, sigma, w_disp, seed, t0,
         raise ValueError(f"no LJ sweep kernel for device {pos.device}")
     kernel = LJ_MIXED_KERNEL if mixed else LJ_KERNEL
     return _cuda_sweep(kernel, mixed, pos, species, beta, energy, tab, seed,
-                       t0, n_steps, bc)
+                       t0, n_steps, bc, warps=block_warps(pos.shape[1]))
 
 
 def fused_lj_sweep(pos, species, beta, energy, box, sigma, seed, t0, n_steps,

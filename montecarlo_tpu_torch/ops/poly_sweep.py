@@ -18,7 +18,7 @@ diameters, positions within float32 ulps of log/cos/sin), and the kernel
 reproduces the plain version bit for bit on the card.  As in
 ``ops/lj_sweep.py``, the pair terms use exact reciprocals, as the
 reference kernel does, and the row sums are taken in the CUDA kernel's lane
-order (:func:`~montecarlo_tpu_torch.ops.lj_sweep._lane_sum`).
+order (:func:`~montecarlo_tpu_torch.ops.lj_sweep._lane_sum` for one warp).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import torch
 
 from ._cuda import CudaKernel
 from .fused_sweep import _GOLDEN, _MASK, _mul32
-from .lj_sweep import (_ARGS, _TAIL, _cuda_sweep, _disp_step, _grid,
+from .lj_sweep import (_ARGS, _SHAPE, _TAIL, _cuda_sweep, _disp_step, _grid,
                        _lane_sum, _run_steps, _table, _uniform)
 
 __all__ = ["fused_poly_mixed_sweep", "POLY_KERNEL"]
@@ -39,7 +39,7 @@ _LANES = 128
 _SWAP_TAG = 0x51AB
 
 POLY_KERNEL = CudaKernel("poly_sweep.cu", "mc_poly_mixed_sweep",
-                         _ARGS + [ctypes.c_void_p] * 5 + _TAIL)
+                         _ARGS + [ctypes.c_void_p] * 5 + _SHAPE + _TAIL)
 
 
 # -- the scalar table ----------------------------------------------------------

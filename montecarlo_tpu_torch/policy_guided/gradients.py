@@ -22,6 +22,7 @@ import dataclasses
 import torch
 
 from ..core.moves import MoveDef
+from ..utils.device import resolve_device
 from ..utils.tree import ravel, tree_leaves, tree_map
 
 __all__ = [
@@ -48,7 +49,9 @@ class GradientData:
 
 def init_gradient_data(n_params: int, dtype=torch.float32,
                        device=None) -> GradientData:
-    """Zero accumulator (ref ``initialise_gradient_data``)."""
+    """Zero accumulator (ref ``initialise_gradient_data``) on ``device``,
+    the card (``cuda``) when it is None."""
+    device = resolve_device(device)
     return GradientData(
         j=torch.zeros((), dtype=dtype, device=device),
         grad_j=torch.zeros((n_params,), dtype=dtype, device=device),

@@ -12,6 +12,8 @@ truncates.
 
 import glob
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ import torch
 import montecarlo_tpu_torch as tmc
 from montecarlo_tpu_torch import checkpoint
 from montecarlo_tpu_torch import policy_guided as pg
+from montecarlo_tpu_torch.core import simulation
 from montecarlo_tpu_torch.core.simulation import _select_advance
 from montecarlo_tpu_torch.models import lennard_jones as lj
 from montecarlo_tpu_torch.models import particle1d as p1d
@@ -54,7 +57,7 @@ def _same(a, b):
             assert type(x) is type(y) and x == y, path
 
 
-def _algorithms(case, backup=False, fmt=None):
+def _algorithms(case, backup=False, fmt=None, backup_first=False):
     if case == "lj_pgmc":
         pool = (lj.lj_displacement_move(0.1, weight=0.8),
                 lj.lj_swap_move(weight=0.2))
@@ -83,22 +86,24 @@ def _algorithms(case, backup=False, fmt=None):
         algos.append(dict(algorithm=tmc.StoreParameters,
                           dependencies=(tmc.Metropolis,),
                           scheduler=tmc.build_schedule(STEPS, 0, 10)))
+    store = []
     if fmt is not None:
-        algos.append(dict(algorithm=tmc.StoreTrajectories, fmt=fmt,
+        store.append(dict(algorithm=tmc.StoreTrajectories, fmt=fmt,
                           scheduler=tmc.build_schedule(STEPS, 0, 5)))
     if backup:
-        algos.append(dict(algorithm=tmc.StoreBackups,
+        store.append(dict(algorithm=tmc.StoreBackups,
                           scheduler=np.asarray([BACKUP])))
-    return algos
+    return algos + (store[::-1] if backup_first else store)
 
 
 def _simulation(case, path, **kw):
     if case == "lj_pgmc":
         system = lj.make_system()
-        chains = lj.init_chains(4, 32, 0.7, 1.0, frac_b=0.2, seed=3)
+        chains = lj.init_chains(4, 32, 0.7, 1.0, frac_b=0.2, seed=3,
+                                device="cpu")
     else:
         system = p1d.make_system()
-        chains = p1d.init_chains(16, beta=2.0, seed=1)
+        chains = p1d.init_chains(16, beta=2.0, seed=1, device="cpu")
     return tmc.Simulation(system, chains, _algorithms(case, **kw), STEPS,
                           path=str(path))
 
@@ -185,10 +190,130 @@ def test_bin_store_appends_on_resume_in_place(tmp_path):
         np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))
 
 
+_KILLED_RUN = """
+import os, sys
+sys.path.insert(0, {tests!r})
+import test_torch_checkpoint as tc
+import montecarlo_tpu_torch as tmc
+
+write = tmc.StoreBackups.write
+
+def write_then_die(self, sim, t, value):
+    write(self, sim, t, value)
+    os._exit(1)          # no finalise, no flush of open files, no atexit
+
+tmc.StoreBackups.write = write_then_die
+tc._simulation("fused", {path!r}, backup=True, fmt=tmc.BIN(),
+               backup_first={backup_first}).run()
+"""
+
+
+@pytest.mark.parametrize("backup_first", [False, True])
+def test_bin_store_survives_a_kill_after_a_backup(tmp_path, backup_first):
+    """A run killed hard (``os._exit``) right after its backup, wherever
+    the backup stands in the algorithm list, leaves a manifest that lists
+    the records up to the checkpoint; resumed in the same directory, the
+    store ends with the times and records of the run that was not cut."""
+    ref = _simulation("fused", tmp_path / "ref", fmt=tmc.BIN())
+    ref.run()
+    want_t, want = tmc.load_chain_major_trajectories(ref.path)
+
+    path = str(tmp_path / "a")
+    script = _KILLED_RUN.format(tests=os.path.dirname(__file__), path=path,
+                                backup_first=backup_first)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", script], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 1, proc.stderr
+    assert not os.path.exists(os.path.join(path, "summary.log")) or \
+        "Completed" not in open(os.path.join(path, "summary.log")).read()
+    ckpt = os.path.join(path, "checkpoints", f"ckpt_t{BACKUP}.npz")
+    assert os.path.exists(ckpt)
+    cut_t, cut = tmc.load_chain_major_trajectories(path)
+    np.testing.assert_array_equal(cut_t, want_t[want_t <= BACKUP])
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(cut[k]),
+                                      np.asarray(want[k])[:len(cut_t)])
+    del cut                                   # memory maps of the store
+
+    b = _simulation("fused", path, fmt=tmc.BIN())
+    checkpoint.resume_state(b, ckpt)
+    b.run()
+    got_t, got = tmc.load_chain_major_trajectories(path)
+    np.testing.assert_array_equal(got_t, want_t)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))
+    _same(ref.device_state, b.device_state)
+
+
+def test_bin_manifest_follows_each_flushed_chunk(tmp_path, monkeypatch):
+    """The manifest on disk lists every record of a flushed chunk as soon
+    as the chunk is written, long before finalise."""
+    monkeypatch.setattr(simulation, "_CHUNK", 4)
+    sim = tmc.Simulation(
+        p1d.make_system(), p1d.init_chains(16, beta=2.0, seed=1, device="cpu"),
+        [dict(algorithm=tmc.Metropolis, pool=(p1d.displacement_move(0.5),),
+              seed=42, fused="interpret"),
+         dict(algorithm=tmc.StoreTrajectories, fmt=tmc.BIN(),
+              scheduler=tmc.build_schedule(STEPS, 0, 5))],
+        STEPS, path=str(tmp_path / "m"))
+    store = sim.algorithms[-1]
+    seen = []
+    write_batch = store.write_batch
+
+    def spy(sim_, ts, value):
+        write_batch(sim_, ts, value)
+        t, fields = tmc.load_chain_major_trajectories(sim.path)
+        seen.append((list(t), {k: v.shape[0] for k, v in fields.items()}))
+
+    store.write_batch = spy
+    sim.run()
+    assert seen, "the run flushed no chunk"
+    last = 0
+    for times, lengths in seen:
+        assert times[-1] > last and times == list(range(0, times[-1] + 1, 5))
+        assert set(lengths.values()) == {len(times)}
+        last = times[-1]
+    assert last == STEPS and len(seen) == 3
+
+
+def test_bin_resume_refuses_a_store_without_manifest(tmp_path):
+    """``.bin`` files without ``index.json`` are not silently overwritten
+    by a resumed run."""
+    a = _simulation("fused", tmp_path / "a", backup=True, fmt=tmc.BIN())
+    a.run()
+    os.remove(os.path.join(a.path, "trajectories", "index.json"))
+    b = _simulation("fused", tmp_path / "a", fmt=tmc.BIN())
+    checkpoint.resume_state(
+        b, os.path.join(a.path, "checkpoints", f"ckpt_t{BACKUP}.npz"))
+    size = os.path.getsize(os.path.join(a.path, "trajectories", "frame.bin"))
+    with pytest.raises(RuntimeError, match="no index.json"):
+        b.run()
+    assert os.path.getsize(
+        os.path.join(a.path, "trajectories", "frame.bin")) == size
+
+
+def test_bin_resume_in_an_empty_directory_starts_a_store(tmp_path):
+    """Resumed elsewhere, the store holds the post-resume records only."""
+    a = _simulation("fused", tmp_path / "a", backup=True, fmt=tmc.BIN())
+    a.run()
+    b = _simulation("fused", tmp_path / "b", fmt=tmc.BIN())
+    checkpoint.resume_state(
+        b, os.path.join(a.path, "checkpoints", f"ckpt_t{BACKUP}.npz"))
+    b.run()
+    want_t, want = tmc.load_chain_major_trajectories(a.path)
+    got_t, got = tmc.load_chain_major_trajectories(b.path)
+    np.testing.assert_array_equal(got_t, want_t[want_t > BACKUP])
+    np.testing.assert_array_equal(np.asarray(got["frame"]),
+                                  np.asarray(want["frame"])[want_t > BACKUP])
+
+
 def test_restart_text_files_written(tmp_path):
     system = p1d.make_system()
     path = str(tmp_path / "bk")
-    sim = tmc.Simulation(system, p1d.init_chains(4, beta=2.0, seed=1), [
+    sim = tmc.Simulation(system, p1d.init_chains(4, beta=2.0, seed=1,
+                                                 device="cpu"), [
         dict(algorithm=tmc.Metropolis, pool=(p1d.displacement_move(0.5),),
              seed=42),
         dict(algorithm=tmc.StoreBackups, scheduler=np.asarray([20, 40]),

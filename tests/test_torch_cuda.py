@@ -70,6 +70,37 @@ def test_kernel_matches_plain(cuda, pot, block_rows):
     torch.testing.assert_close(ek, pot(xk), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("m", [10, 1000 + 3, 10 ** 5])
+@pytest.mark.parametrize("pot", [p1d.harmonic, p1d.double_well])
+def test_every_lane_group_width_gives_the_same_bits(cuda, pot, m):
+    """T lanes per chain, T = 1..32, for segments that start mid-pair, are
+    shorter than a round, or end mid-round, with M no multiple of 32 / T."""
+    from montecarlo_tpu_torch.ops import fused_sweep as fs
+    x, beta = _inputs(m, cuda)
+    sigma = torch.tensor(0.5, device=cuda)
+    bc = fs._block_chains(m, 2048)
+    for t0, n in ((5, 1), (4, 2), (5, 7), (4, 64), (5, 301)):
+        want = fs._cuda_sweep(x, beta, sigma, 9, t0, n, pot, bc, lanes=1)
+        for lanes in (2, 4, 8, 16, 32):
+            got = fs._cuda_sweep(x, beta, sigma, 9, t0, n, pot, bc,
+                                 lanes=lanes)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (
+                lanes, t0, n)
+    with pytest.raises(RuntimeError):
+        fs._cuda_sweep(x, beta, sigma, 9, 0, 4, pot, bc, lanes=3)
+
+
+def test_entry_points_default_to_the_card(cuda, tmp_path):
+    chains = p1d.init_chains(64, beta=2.0, seed=1)
+    assert chains.x.is_cuda and chains.beta.is_cuda and chains.e.is_cuda
+    assert _lj(2, 16, None).pos.is_cuda
+    assert _poly(2, 16, None).pos.is_cuda
+    sim = tmc.Simulation(p1d.make_system(), chains, [
+        dict(algorithm=tmc.Metropolis, pool=(p1d.displacement_move(0.5),),
+             seed=3)], 100, path=str(tmp_path))
+    assert sim.device.type == "cuda"
+
+
 def test_kernel_raises_instead_of_falling_back(cuda):
     x, beta = _inputs(1000, cuda)
     with pytest.raises(ValueError):
@@ -136,6 +167,16 @@ def test_lj_kernel_matches_plain(cuda, mixed, m, n, block_chains, frac_b):
         st, pos=got[0], species=got[1] if mixed else st.species),
         lj.LJParams())
     torch.testing.assert_close(energy, full, rtol=3e-4, atol=5e-2)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_lj_kernel_at_the_most_particles_a_block_holds(cuda, mixed):
+    """N = MAX_PARTICLES fills the block's shared memory to the byte."""
+    st = _lj(2, MAX_PARTICLES, cuda)
+    got = _lj_sweep(st, 33, mixed)
+    want = _lj_sweep(st, 33, mixed, interpret=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("mixed", [False, True])
@@ -312,7 +353,7 @@ def test_per_chain_gradients_on_cuda_equal_cpu(cuda, name):
     rng = np.random.default_rng(21)
     m = 256
     if name == "lj":
-        st = lj.init_chains(m, 64, 0.7, 1.0, frac_b=0.2, seed=3)
+        st = lj.init_chains(m, 64, 0.7, 1.0, frac_b=0.2, seed=3, device="cpu")
         action = {"i": torch.as_tensor(rng.integers(0, 64, m)),
                   "delta": torch.as_tensor(0.1 * rng.normal(size=(m, 2)),
                                            dtype=torch.float32)}

@@ -42,7 +42,8 @@ def _run(pkg, mod, chains, beta, path, pool=None):
 @pytest.mark.parametrize("beta", [2.0, 3.0])
 def test_generic_path_moments_and_reference_acceptance(tmp_path, beta):
     ref_chains = ref_p1d.init_chains(M, beta=beta, seed=3)
-    sim = _run(tmc, p1d, interop.chains_from_reference(ref_chains), beta,
+    sim = _run(tmc, p1d, interop.chains_from_reference(ref_chains,
+                                                       device="cpu"), beta,
                str(tmp_path / "port"))
     assert not sim.device_algos[0].supports_fused
     _, fields = tmc.load_chain_major_trajectories(sim.path)
@@ -66,7 +67,7 @@ def test_grouped_pool_counts_and_moments(tmp_path):
     """Two displacement moves of one structure (grouped into one proposal
     with gathered sigmas): attempts follow the weights, the narrow move
     accepts more, and the target is still sampled."""
-    chains = p1d.init_chains(M, beta=2.0, seed=4)
+    chains = p1d.init_chains(M, beta=2.0, seed=4, device="cpu")
     pool = (p1d.displacement_move(0.2, weight=1.0),
             p1d.displacement_move(1.5, weight=3.0))
     sim = _run(tmc, p1d, chains, 2.0, str(tmp_path / "pool"), pool=pool)
@@ -94,7 +95,7 @@ def test_mc_step_matches_grouped_step_statistics():
     groups, g_of, w_of = build_move_groups(pool)
     rates = []
     for grouped in (False, True):
-        st = p1d.init_chains(20000, beta=2.0, seed=1)
+        st = p1d.init_chains(20000, beta=2.0, seed=1, device="cpu")
         cnt = torch.zeros((20000, 2, 2), dtype=torch.int32)
         gen = torch.Generator().manual_seed(5)
         for _ in range(20):
@@ -110,7 +111,7 @@ def test_mc_step_matches_grouped_step_statistics():
 
 
 def test_metropolis_rejects_bad_options(tmp_path):
-    chains = p1d.init_chains(4, beta=1.0)
+    chains = p1d.init_chains(4, beta=1.0, device="cpu")
     def build(**kw):
         return tmc.Simulation(p1d.make_system(), chains, [
             dict(algorithm=tmc.Metropolis, **kw)], 10, path=str(tmp_path))

@@ -89,7 +89,7 @@ def _setup(kind, pkg, ref):
         pool = (mod.displacement_move(0.2),)
         sweepstep = 1
     if not ref:
-        chains = interop.chains_from_reference(chains)
+        chains = interop.chains_from_reference(chains, device="cpu")
     return mod.make_system(), chains, pool, sweepstep, sweeps
 
 
@@ -181,7 +181,7 @@ def test_hybrid_segments_launch_the_sweep_once_each(tmp_path, monkeypatch):
 
 def _pgmc_sim(tmp_path, fused="interpret", est_every=10, upd_every=20,
               steps=200, metropolis_sched=None, extra=()):
-    chains = p1d.init_chains(16, beta=2.0, seed=1)
+    chains = p1d.init_chains(16, beta=2.0, seed=1, device="cpu")
     met = dict(algorithm=tmc.Metropolis, pool=(p1d.displacement_move(0.2),),
                seed=3, fused=fused)
     if metropolis_sched is not None:
@@ -212,7 +212,8 @@ def test_select_advance_picks_hybrid_where_the_reference_does(
           "metropolis_not_always_on": dict(
               metropolis_sched=np.arange(2, 201, 2))}.get(case)
     if case == "metropolis_alone":
-        sim = tmc.Simulation(p1d.make_system(), p1d.init_chains(4, 2.0), [
+        chains = p1d.init_chains(4, 2.0, device="cpu")
+        sim = tmc.Simulation(p1d.make_system(), chains, [
             dict(algorithm=tmc.Metropolis,
                  pool=(p1d.displacement_move(0.2),), fused="interpret")],
             20, path=str(tmp_path))

@@ -31,7 +31,7 @@ RTOL = 1e-6
 def _state(m=6, n=32, frac_b=0.25, seed=5, rho=0.6):
     ref = ref_lj.init_chains(m, n, rho=rho, beta=1.3, frac_b=frac_b,
                              seed=seed)
-    return ref, interop.chains_from_reference(ref)
+    return ref, interop.chains_from_reference(ref, device="cpu")
 
 
 @pytest.mark.parametrize("row_batch", [None, 5, 32])
@@ -167,7 +167,8 @@ def test_system_frame_and_callback_match_reference():
 
 
 def test_init_chains_and_interop_round_trip():
-    st = lj.init_chains(5, 30, rho=0.7, beta=1.0, frac_b=0.2, seed=3)
+    st = lj.init_chains(5, 30, rho=0.7, beta=1.0, frac_b=0.2, seed=3,
+                        device="cpu")
     ref = ref_lj.init_chains(5, 30, rho=0.7, beta=1.0, frac_b=0.2, seed=3)
     assert st.pos.shape == (5, 30, 2) and st.species.dtype == torch.int32
     np.testing.assert_array_equal(st.species.numpy(), np.asarray(ref.species))
@@ -182,7 +183,8 @@ def test_init_chains_and_interop_round_trip():
     d -= box * np.round(d / box)
     assert np.abs(d).max() <= 0.2 * spacing + 1e-5
     assert np.all(st.energy.numpy() < 0)
-    back = interop.chains_to_reference(interop.chains_from_reference(ref))
+    back = interop.chains_to_reference(
+        interop.chains_from_reference(ref, device="cpu"))
     assert set(back) == {"pos", "species", "beta", "energy", "box"}
     for k, v in back.items():
         np.testing.assert_array_equal(v, np.asarray(getattr(ref, k)))

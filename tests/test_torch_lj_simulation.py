@@ -60,7 +60,8 @@ def runs(request, tmp_path_factory):
                             path=str(root / "ref"))
     ref_sim.run()
     sim = tmc.Simulation(lj.make_system(),
-                         interop.chains_from_reference(ref_chains),
+                         interop.chains_from_reference(ref_chains,
+                                                       device="cpu"),
                          _algorithms(tmc, lj, kind), SWEEPS,
                          path=str(root / "port"))
     assert sim.device_algos[0].supports_fused
@@ -138,7 +139,7 @@ def test_auto_and_unfusable_pools_take_the_generic_path(tmp_path):
     """On the CPU 'auto' never fuses; an LJ pool the kernels do not take (a
     swap with another interaction table, a 3-D state) takes the generic path
     under 'interpret' too, and runs."""
-    chains = lj.init_chains(4, 16, 0.7, 1.0, frac_b=0.25, seed=1)
+    chains = lj.init_chains(4, 16, 0.7, 1.0, frac_b=0.25, seed=1, device="cpu")
 
     def metropolis(pool, fused, st=chains):
         sim = tmc.Simulation(lj.make_system(), st, [

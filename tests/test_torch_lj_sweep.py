@@ -40,7 +40,7 @@ def _state(m, n=32, frac_b=0.25, seed=5, rho=0.6):
     """The reference's initial chains and the same chains in the port."""
     ref = ref_lj.init_chains(m, n, rho=rho, beta=1.0, frac_b=frac_b,
                              seed=seed)
-    return ref, interop.chains_from_reference(ref)
+    return ref, interop.chains_from_reference(ref, device="cpu")
 
 
 def _box(st):
@@ -253,6 +253,96 @@ def test_lane_sum_is_the_kernels_order():
             want[c] = lanes[0]
         got = ops._lane_sum(torch.from_numpy(u)).numpy()
         np.testing.assert_array_equal(got, want)
+
+
+def _emulated_block_sum(row, warps):
+    """One row summed as a block of ``warps`` warps does it, one float32
+    addition at a time: thread t takes slots t, t + 32 W, ... in turn, each
+    warp's lanes fold by 16, 8, 4, 2, 1, then the warp sums add in turn."""
+    threads = 32 * warps
+    part = [np.float32(0.0)] * threads
+    for j, v in enumerate(row):
+        part[j % threads] = np.float32(part[j % threads] + v)
+    sums = []
+    for k in range(warps):
+        lanes = part[32 * k:32 * (k + 1)]
+        w = 32
+        while w > 1:
+            w //= 2
+            lanes = [np.float32(lanes[i] + lanes[i + w]) for i in range(w)]
+        sums.append(lanes[0])
+    total = sums[0]
+    for v in sums[1:]:
+        total = np.float32(total + v)
+    return total
+
+
+@pytest.mark.parametrize("n", [1, 20, 31, 64, 100, 256, 300, 1024, 1100])
+@pytest.mark.parametrize("warps", [1, 2, 8, 32])
+def test_lane_sum_is_the_blocks_order(warps, n):
+    """``_lane_sum`` at 32, 64, 256 and 1,024 threads against the emulated
+    order, at N that is and is not a multiple of the thread count and at
+    N < 32: bit for bit."""
+    rng = np.random.default_rng(100 * warps + n)
+    u = (rng.normal(size=(3, n)) * 10.0 ** rng.integers(-3, 4, size=(3, n))
+         ).astype(np.float32)
+    want = np.asarray([_emulated_block_sum(row, warps) for row in u])
+    got = ops._lane_sum(torch.from_numpy(u), warps).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def _one_warp_lane_sum(u):
+    """The row sum as the one-warp-per-chain kernels take it (the order the
+    polydisperse kernel keeps), written on its own."""
+    m, n = u.shape
+    groups = max(1, -(-n // 32))
+    u = torch.nn.functional.pad(u, (0, groups * 32 - n)).view(m, groups, 32)
+    p = u[:, 0]
+    for g in range(1, groups):
+        p = p + u[:, g]
+    w = 32
+    while w > 1:
+        w //= 2
+        p = p[:, :w] + p[:, w:2 * w]
+    return p[:, 0]
+
+
+@pytest.mark.parametrize("n", [1, 24, 32, 45, 256, 1000])
+def test_lane_sum_of_one_warp_is_unchanged(n):
+    """At 32 threads (the default, which the polydisperse sweep uses) the
+    order is the one-warp order, bit for bit."""
+    u = torch.from_numpy(np.random.default_rng(n).normal(
+        size=(4, n)).astype(np.float32))
+    assert torch.equal(ops._lane_sum(u), _one_warp_lane_sum(u))
+    assert torch.equal(ops._lane_sum(u, 1), _one_warp_lane_sum(u))
+
+
+# The tolerances of the LJ plain versions, stated again: counts and species
+# equal, positions within 1e-5 (float32 ulps of log/cos/sin between XLA and
+# torch), energies within rtol 1e-5 over 250 steps (the row sums' order
+# differs from XLA's)
+@pytest.mark.parametrize("pool", ["displacement", "mixed"])
+@pytest.mark.parametrize("m,n", [(8, 64), (4, 300)])
+def test_block_order_sweep_matches_reference(m, n, pool):
+    """The plain versions with the block's sum order (two warps at N 64,
+    eight warps at N 300, which is no multiple of 256) against the
+    reference's interpret-mode kernels over 250 steps."""
+    assert ops.block_warps(64) == 2 and ops.block_warps(300) == 8
+    ref, st = _state(m, n=n, frac_b=0.2, seed=11, rho=0.7)
+    w_disp = 0.8 if pool == "mixed" else None
+    want = _ref_sweep(ref, 250, w_disp=w_disp)
+    got = [a.numpy() for a in _sweep(st, 250, w_disp=w_disp)]
+    if pool == "mixed":
+        (pos_r, spc_r, e_r, acc_r, tot_r), (pos, spc, e, acc, tot) = want, got
+        np.testing.assert_array_equal(spc, spc_r)
+        np.testing.assert_array_equal(tot, tot_r)
+        assert acc[:, 1].sum() > 0
+    else:
+        (pos_r, e_r, acc_r), (pos, e, acc) = want, got
+    np.testing.assert_array_equal(acc, acc_r)
+    np.testing.assert_allclose(pos, pos_r, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(e, e_r, rtol=1e-5, atol=0)
+    assert 0 < acc.sum() < m * 250
 
 
 def test_sweep_checks_its_arguments():

@@ -31,7 +31,7 @@ def _state(m=257, seed=0):
     np_state = {"x": x, "beta": beta, "e": np.asarray(x * x, np.float32)}
     ref = ref_p1d.Particle1DState(**{k: jnp.asarray(v)
                                      for k, v in np_state.items()})
-    return np_state, ref, interop.chains_from_reference(np_state)
+    return np_state, ref, interop.chains_from_reference(np_state, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["harmonic", "double_well"])
@@ -130,14 +130,14 @@ def test_generic_apply_matches_reference():
 
 
 def test_init_chains_and_interop_round_trip():
-    state = p1d.init_chains(1000, beta=2.0, seed=5)
+    state = p1d.init_chains(1000, beta=2.0, seed=5, device="cpu")
     assert state.x.dtype == torch.float32
     assert float(state.x.min()) >= -2.0 and float(state.x.max()) < 2.0
     assert torch.equal(state.e, state.x * state.x)
     assert torch.equal(state.beta, torch.full((1000,), 2.0))
     ref_state = ref_p1d.init_chains(64, beta=1.5, seed=2)
     np_state = interop.chains_to_reference(
-        interop.chains_from_reference(ref_state))
+        interop.chains_from_reference(ref_state, device="cpu"))
     for k in ("x", "beta", "e"):
         np.testing.assert_array_equal(np_state[k],
                                       np.asarray(getattr(ref_state, k)))
@@ -148,7 +148,8 @@ def test_tree_select_and_stack_chains_match_reference():
     pred = np.arange(64) % 3 == 0
     other = tmc.tree_select(torch.from_numpy(pred), state,
                             interop.chains_from_reference(
-                                {k: -v for k, v in np_state.items()}))
+                                {k: -v for k, v in np_state.items()},
+                                device="cpu"))
     ref_other = jax.tree_util.tree_map(
         lambda a, b: jnp.where(jnp.asarray(pred), a, b), ref_state,
         jax.tree_util.tree_map(lambda v: -v, ref_state))

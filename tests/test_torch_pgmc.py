@@ -70,7 +70,8 @@ def _estimator_pair(name, tmp_path):
     sims = []
     for pkg, p, mod, pool, opt, chains in zip(
             (mc, tmc), (ref_pg, pg), mods, pools, opts,
-            (ref_chains, interop.chains_from_reference(ref_chains))):
+            (ref_chains, interop.chains_from_reference(ref_chains,
+                                                       device="cpu"))):
         sims.append(pkg.Simulation(mod.make_system(), chains, [
             dict(algorithm=pkg.Metropolis, pool=pool, seed=9, fused="off"),
             dict(algorithm=p.PolicyGradientEstimator,
@@ -138,7 +139,7 @@ def lj_pgmc_run(tmp_path_factory):
     n, m, steps = 256, 16, 40
     params = lj.LJParams()
     chains = lj.init_chains(m, n, rho=1.2, beta=1.0 / 0.45, frac_b=0.2,
-                            seed=42, params=params)
+                            seed=42, params=params, device="cpu")
     pool = (lj.lj_displacement_move(sigma=0.05, weight=0.8, params=params),
             lj.lj_swap_move(weight=0.2, params=params))
     sim = tmc.Simulation(lj.make_system(params), chains, [
@@ -212,7 +213,8 @@ def test_displacement_optimisation(tmp_path):
     sampletimes = tmc.build_schedule(steps, steps // 4, 10)
     path = str(tmp_path / "pgmc")
     sim = tmc.Simulation(p1d.make_system(p1d.harmonic),
-                         p1d.init_chains(256, beta=BETA, seed=42), [
+                         p1d.init_chains(256, beta=BETA, seed=42,
+                                         device="cpu"), [
         dict(algorithm=tmc.Metropolis, pool=pool, seed=42),
         dict(algorithm=pg.PolicyGradientEstimator,
              dependencies=(tmc.Metropolis,), optimisers=optimisers,
@@ -243,7 +245,7 @@ def _mala_run(tmp_path, pool, steps, burn, n_chains=256, seed=42):
     sched = tmc.build_schedule(steps, burn, 5)
     sim = tmc.Simulation(
         p1d.make_system(p1d.harmonic),
-        p1d.init_chains(n_chains, beta=BETA, seed=seed),
+        p1d.init_chains(n_chains, beta=BETA, seed=seed, device="cpu"),
         [dict(algorithm=tmc.Metropolis, pool=pool, seed=seed + 1),
          dict(algorithm=tmc.StoreCallbacks,
               callbacks=(p1d.callback_energy, tmc.callback_acceptance),
@@ -309,7 +311,8 @@ def test_mala_step_learnable_by_pgmc(tmp_path):
     """PGMC differentiates through the drift: a tiny step grows."""
     steps = 1500
     sim = tmc.Simulation(
-        p1d.make_system(p1d.harmonic), p1d.init_chains(128, BETA, seed=3),
+        p1d.make_system(p1d.harmonic), p1d.init_chains(128, BETA, seed=3,
+                                                       device="cpu"),
         [dict(algorithm=tmc.Metropolis, pool=(p1d.mala_move(step=0.02),),
               seed=4),
          dict(algorithm=pg.PolicyGradientEstimator,
@@ -328,7 +331,8 @@ def test_mala_step_learnable_by_pgmc(tmp_path):
 
 def test_pgmc_on_second_sampler_updates_only_its_params(tmp_path):
     steps = 30
-    sim = tmc.Simulation(p1d.make_system(), p1d.init_chains(16, BETA, seed=3), [
+    sim = tmc.Simulation(p1d.make_system(), p1d.init_chains(16, BETA, seed=3,
+                                                            device="cpu"), [
         dict(algorithm=tmc.Metropolis,
              pool=(p1d.displacement_move(sigma=0.5),), seed=11),
         dict(algorithm=tmc.Metropolis,
@@ -353,7 +357,8 @@ def test_pgmc_on_second_sampler_updates_only_its_params(tmp_path):
 # -- misuse --------------------------------------------------------------------
 
 def _misuse(tmp_path, algos):
-    return tmc.Simulation(p1d.make_system(), p1d.init_chains(4, BETA), algos,
+    chains = p1d.init_chains(4, BETA, device="cpu")
+    return tmc.Simulation(p1d.make_system(), chains, algos,
                           10, path=str(tmp_path))
 
 

@@ -111,7 +111,7 @@ def test_two_key_move_writes_the_reference_parameters_line(tmp_path):
     for name, pkg, mod, pol, chains in (
             ("ref", mc, ref_p1d, ref_p1d.StandardGaussian, ref_chains),
             ("port", tmc, p1d, p1d.StandardGaussian,
-             interop.chains_from_reference(ref_chains))):
+             interop.chains_from_reference(ref_chains, device="cpu"))):
         sim = pkg.Simulation(mod.make_system(), chains, [
             dict(algorithm=pkg.Metropolis, pool=(_two_key_move(mod, pol),),
                  seed=1, fused="off"),
@@ -146,7 +146,7 @@ def _p1d_states(rng, dtype):
 
 def _lj_states(rng):
     ref = ref_lj.init_chains(M, 64, 0.7, 1.0, frac_b=0.2, seed=3)
-    return ref, interop.chains_from_reference(ref)
+    return ref, interop.chains_from_reference(ref, device="cpu")
 
 
 def _case(name, rng, dtype=np.float32):
@@ -228,7 +228,7 @@ def test_pgmc_estimate_needs_a_reward():
     mv = p1d.displacement_move(0.5)
     md = dataclasses.replace(mv.move, reward=None)
     flat, unravel = ravel(mv.params)
-    st = p1d.init_chains(4, beta=1.0)
+    st = p1d.init_chains(4, beta=1.0, device="cpu")
     with pytest.raises(ValueError, match="reward"):
         pg.pgmc_estimate(md, flat, unravel, st, torch.zeros(4))
 
@@ -419,7 +419,7 @@ def test_gradient_data_monoid_matches_reference():
     for f in ("j", "grad_j", "grad_logq_forward", "g", "n"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(ref, f)))
-    zero = pg.init_gradient_data(3)
+    zero = pg.init_gradient_data(3, device="cpu")
     want = ref_pg.init_gradient_data(3)
     for f in ("j", "grad_j", "grad_logq_forward", "g", "n"):
         x = getattr(zero, f)

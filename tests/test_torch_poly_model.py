@@ -30,7 +30,7 @@ RTOL = 1e-6
 @functools.lru_cache(maxsize=None)
 def _state(m=6, n=32, seed=5, rho=0.9, beta=1.3):
     ref = ref_poly.init_chains(m, n, rho=rho, beta=beta, seed=seed)
-    return ref, interop.chains_from_reference(ref)
+    return ref, interop.chains_from_reference(ref, device="cpu")
 
 
 def test_smoothing_coefficients_and_diameters_equal_reference():
@@ -188,7 +188,7 @@ def test_system_frame_and_callback_match_reference():
 
 
 def test_init_chains_and_interop_round_trip():
-    st = poly.init_chains(5, 30, rho=0.9, beta=2.0, seed=3)
+    st = poly.init_chains(5, 30, rho=0.9, beta=2.0, seed=3, device="cpu")
     ref = ref_poly.init_chains(5, 30, rho=0.9, beta=2.0, seed=3)
     assert st.pos.shape == (5, 30, 2) and st.diam.dtype == torch.float32
     np.testing.assert_array_equal(st.diam.numpy(), np.asarray(ref.diam))
@@ -202,7 +202,8 @@ def test_init_chains_and_interop_round_trip():
     d = st.pos.numpy() - np.asarray(ref.pos)
     d -= box * np.round(d / box)
     assert np.abs(d).max() <= 0.2 * spacing + 1e-5
-    back = interop.chains_to_reference(interop.chains_from_reference(ref))
+    back = interop.chains_to_reference(
+        interop.chains_from_reference(ref, device="cpu"))
     assert set(back) == {"pos", "diam", "beta", "energy", "box"}
     for k, v in back.items():
         assert v.dtype == np.float32
@@ -210,7 +211,8 @@ def test_init_chains_and_interop_round_trip():
     again = ref_poly.PolyState(**{k: jnp.asarray(v) for k, v in back.items()})
     assert again.pos.shape == ref.pos.shape
     # a mapping with the same fields is told apart by its diam
-    assert isinstance(interop.chains_from_reference(back), poly.PolyState)
+    assert isinstance(interop.chains_from_reference(back, device="cpu"),
+                      poly.PolyState)
 
 
 def test_params_are_hashable_and_equal_by_value():

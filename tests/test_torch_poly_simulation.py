@@ -54,7 +54,8 @@ def runs(tmp_path_factory):
                             path=str(root / "ref"))
     ref_sim.run()
     sim = tmc.Simulation(poly.make_system(),
-                         interop.chains_from_reference(ref_chains),
+                         interop.chains_from_reference(ref_chains,
+                                                       device="cpu"),
                          _algorithms(tmc, poly), SWEEPS,
                          path=str(root / "port"))
     assert sim.device_algos[0].supports_fused
@@ -139,7 +140,7 @@ def test_auto_and_unfusable_pools_take_the_generic_path(tmp_path):
     kernel (as in the reference), nor has a swap with other PolyParams or
     a single particle: each takes the generic path under 'interpret' too,
     and runs."""
-    chains = poly.init_chains(4, 16, rho=0.9, beta=2.0, seed=1)
+    chains = poly.init_chains(4, 16, rho=0.9, beta=2.0, seed=1, device="cpu")
 
     def metropolis(pool, fused, st=chains):
         sim = tmc.Simulation(poly.make_system(), st, [
@@ -162,5 +163,5 @@ def test_auto_and_unfusable_pools_take_the_generic_path(tmp_path):
         np.testing.assert_allclose(final.energy.numpy(),
                                    poly.total_energy(final).numpy(),
                                    rtol=1e-4, atol=1e-3)
-    one = poly.init_chains(4, 1, rho=0.9, beta=2.0, seed=1)
+    one = poly.init_chains(4, 1, rho=0.9, beta=2.0, seed=1, device="cpu")
     assert not metropolis(_pool(poly), "interpret", one)[1].supports_fused

@@ -40,7 +40,7 @@ LAYOUTS = {"single": (8, 256), "gridded": (20, 8)}
 def _state(m, n=32, seed=5, rho=0.9, beta=1.0):
     """The reference's initial chains and the same chains in the port."""
     ref = ref_poly.init_chains(m, n, rho=rho, beta=beta, seed=seed)
-    return ref, interop.chains_from_reference(ref)
+    return ref, interop.chains_from_reference(ref, device="cpu")
 
 
 def _box(st):

@@ -52,7 +52,8 @@ def runs(tmp_path_factory):
                             path=str(root / "ref"))
     ref_sim.run()
     sim = tmc.Simulation(p1d.make_system(),
-                         interop.chains_from_reference(ref_chains),
+                         interop.chains_from_reference(ref_chains,
+                                                       device="cpu"),
                          _algorithms(tmc, p1d, sched), STEPS,
                          path=str(root / "port"))
     sim.run()
@@ -141,7 +142,8 @@ def test_per_event_path_matches_reference(tmp_path):
                             path=str(tmp_path / "ref"))
     ref_sim.run()
     sim = tmc.Simulation(p1d.make_system(),
-                         interop.chains_from_reference(ref_chains),
+                         interop.chains_from_reference(ref_chains,
+                                                       device="cpu"),
                          algorithms(tmc, p1d, tmc.Throughput), steps,
                          path=str(tmp_path / "port"))
     sim.run()
@@ -169,7 +171,7 @@ def test_hybrid_stepper_is_not_ported(tmp_path):
     the stepper was ported): fused segments for the first, the second at its
     events only."""
     from montecarlo_tpu_torch.core.simulation import _select_advance
-    chains = p1d.init_chains(8, beta=1.0)
+    chains = p1d.init_chains(8, beta=1.0, device="cpu")
     pool = (p1d.displacement_move(0.5),)
     sim = tmc.Simulation(p1d.make_system(), chains, [
         dict(algorithm=tmc.Metropolis, pool=pool, fused="interpret"),
