@@ -23,10 +23,12 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
    recompute, positions in [0, box) and the species composition;
    segmentation invariance of both;
 4b. the polydisperse swap kernel vs its plain version at the main path's
-   shape (64 chains x N 256, w_disp 0.8), 64 x N 1024, a gridded case (M 300
-   over blocks of 256, M 20 over blocks of 8) and N 2: bit for bit, with the
-   cache against an O(N^2) recompute, positions in [0, box) and each
-   chain's diameters conserved; segmentation invariance;
+   shape (64 chains x N 256, w_disp 0.8: eight warps a chain), 64 x N 1024,
+   gridded cases (M 300 over blocks of 256, M 20 over blocks of 8, M 12 x
+   N 100 over blocks of 8), N 2 and N 20 (one warp), 4 x N 4648 (sixteen
+   warps): bit for bit, with the cache against an O(N^2) recompute,
+   positions in [0, box) and each chain's diameters conserved;
+   segmentation invariance;
 5. the main paths, ``Simulation.run`` on CUDA, each with every launch count
    set to 0 just before and read just after: config 1 (the README example,
    10 chains, per-chain DAT files), run as the README writes it, with no
@@ -54,13 +56,20 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
 5f. config 5 cut at sweep 100 after a ``StoreBackups`` checkpoint and
    resumed from it in a fresh ``Simulation``: bit-equal to 5d's run in
    positions, species, energies, counters, sigma and the estimator's sums;
+5g. the other two pools the hybrid stepper reaches, with PGMC: the poly
+   pool at 64 x N 256 and the one-move LJ pool at 256 x N 256, VPG on the
+   displacement sigma (estimator every 10 sweeps, update every 20), 100
+   sweeps, energy, acceptance and parameters every 10; one launch per
+   segment between sync points, sigma adapted, on the card and equal to the
+   last ``parameters.dat`` row, the cache within the reference's bounds;
 6. times of each kernel and its plain version at its main path's shape and
    segment, each beside its bound (the larger of the bytes the function must
    move over the card's memory rate and the operations it needs, counted
    from this run's attempts, over the card's float32 rate), and the
    end-to-end rates and breakdowns of config 2, config 4, the config-5 pool
-   and the poly path, and where config 5's wall goes with PGMC, each
-   printed beside the card's name and power limit.
+   and the poly path, and where config 5's wall goes with PGMC; the poly
+   kernel at every block width W (64 x N 256 and N 1024); each printed
+   beside the card's name and power limit.
 
 Prints its findings on lines before the last, a ``{"kernels": [...]}``
 line (``ms`` and ``plain_ms`` per call at the main path's segment of
@@ -72,14 +81,16 @@ line.
 Usage: python3 chip_smoke.py [--parent CSRC_DIR] [--kernels-only]
 
 ``--parent CSRC_DIR`` names a directory with an earlier version of
-``fused_sweep.cu`` and ``lj_sweep.cu`` (and their headers) that still has
-the first interface (one thread per Gaussian chain, one warp per LJ chain).
+``fused_sweep.cu``, ``lj_sweep.cu`` and ``poly_sweep.cu`` (and their
+headers) with commit e6e7854's interface (a lane count for the Gaussian
+kernel, a warp count for the LJ kernels, one warp per polydisperse chain).
 They are built beside the package's kernels and, in one call, timed against
 them in turns (earlier, present, present, earlier) at the main paths'
-shapes; the Gaussian kernel must equal the earlier one bit for bit at every
-shape of phase 3, the LJ kernels where the block is one warp (N <= 32, the
-same sum order).  ``--kernels-only`` stops after phase 4 (and the
-comparison with ``--parent``).
+shapes (the poly kernel at 64 x N 256 and N 1024); the Gaussian and LJ
+kernels must equal the earlier ones bit for bit at every shape of phases 3
+and 4, the poly kernel where its block is one warp (N <= 32, the same sum
+order).  ``--kernels-only`` stops after phase 4b (and the comparison with
+``--parent``).
 """
 
 import argparse
@@ -132,9 +143,36 @@ POLY_CACHE = dict(rtol=3e-3, atol=8e-2)  # the reference's own poly bounds
 # config 5 with PGMC (tools/bench_lj.py:83-109), resumed at sweep `resume`
 PGMC5 = dict(chains=64, n=1024, sweeps=200, w_disp=0.8, eta=0.001, q=2,
              est_every=10, upd_every=20, stride=10, resume=100)
+# the other two pools the hybrid stepper reaches (phase 5g): the poly pool
+# and the one-move LJ pool, VPG on the displacement sigma
+PGMC_POOLS = dict(sweeps=100, eta=0.001, q=2, est_every=10, upd_every=20,
+                  stride=10, poly=(POLY["chains"], POLY["n"]),
+                  lj=(CONFIG4["chains"], CONFIG4["n"]))
 # config 3's adaptation on the Gaussian kernel: sigma 0.2 climbs toward ~1.2
 PGMC3 = dict(chains=10 ** 4, beta=2.0, sigma0=0.2, eta=0.05, steps=4000,
              est_every=10, upd_every=20, stride=100)
+
+
+_ONCE = {}
+
+
+def host_box(st):
+    """The box edge of ``st`` as a float, read from the card once per state:
+    a read in a timed loop would make every call wait for the one before."""
+    key = ("box", id(st.box))
+    if key not in _ONCE:
+        _ONCE[key] = (st.box, float(st.box[0]))   # keeps the id taken
+    return _ONCE[key][1]
+
+
+def card_scalar(value, device):
+    """A 0-d float32 tensor on ``device``, made once: a copy from the host
+    in a timed loop would make every call wait for the one before."""
+    import torch
+    key = ("scalar", value, str(device))
+    if key not in _ONCE:
+        _ONCE[key] = torch.tensor(value, dtype=torch.float32, device=device)
+    return _ONCE[key]
 
 
 def check(ok, what):
@@ -171,14 +209,15 @@ def cuda_time(fn, reps, warm=True):
 # the compiled kernels' loop bodies (``cuobjdump -sass`` of the libraries
 # this script builds: integer, float and special-function operations
 # alike, with the loops' loads and branches, without the slow paths of
-# sinf/cosf that arguments below 2 pi never take).
+# sinf/cosf that arguments below 2 pi never take, nor those of __frcp_rn
+# that arguments of normal exponent never take).
 GAUSS_INSTR_PER_STEP = 125        # half a pair: 378 a pair, less 131 slow path
 # a pair term (minimum image, exact reciprocal, pair energy, masked add):
 # (in a displacement's two rows, in a swap's four, which share the geometry
 # two by two)
-LJ_INSTR_PER_TERM = (60, 48)      # loops of 481 and 383 for 8 terms
+LJ_INSTR_PER_TERM = (57, 44)      # loops of 455 and 352 for 8 terms
 LJ_INSTR_PER_PICK = 48            # a swap-pick uniform a slot: 191 for 4 slots
-POLY_INSTR_PER_TERM = (58, 49)    # loops of 462 for 8 and 785 for 16 terms
+POLY_INSTR_PER_TERM = (52, 43)    # loops of 419 for 8 and 687 for 16 terms
 INSTR_PER_STEP_DRAWS = 300        # kind, pick, Box-Muller, log u: once a step
 
 
@@ -431,8 +470,8 @@ def lj_call(st, n_steps, mixed, t0=LJ_T0, interpret=False, block_chains=256,
     from montecarlo_tpu_torch.models import lennard_jones as lj
     from montecarlo_tpu_torch.ops.lj_sweep import (fused_lj_mixed_sweep,
                                                    fused_lj_sweep)
-    box = float(st.box[0])
-    args = (st.pos, st.species, st.beta, st.energy, box, LJ_SIGMA)
+    args = (st.pos, st.species, st.beta, st.energy, host_box(st),
+            card_scalar(LJ_SIGMA, st.pos.device))
     kw = dict(params=lj.LJParams(), interpret=interpret,
               block_chains=block_chains)
     if mixed:
@@ -476,9 +515,8 @@ LJ_CASES = (  # (label, M, N, block_chains, frac_b)
 
 def lj_kernels_vs_plain(device, parent=None):
     """Phase 4a.  Returns the largest |kernel - plain| per kernel (required
-    0.0: bit-equal).  With ``parent`` (the earlier kernels), the cases whose
-    block is one warp must also equal the earlier kernels bit for bit: the
-    sum order is the same there."""
+    0.0: bit-equal).  With ``parent`` (the earlier kernels), every case must
+    also equal the earlier kernels bit for bit."""
     import torch
     from montecarlo_tpu_torch.ops.lj_sweep import block_warps
     worst = {False: 0.0, True: 0.0}
@@ -524,9 +562,8 @@ def lj_kernels_vs_plain(device, parent=None):
                          if a is not None)
                 print(f"LJ kernel vs earlier kernel: {name}, {label}: "
                       f"bit-equal {eq} (W={block_warps(n)})")
-                check(eq or block_warps(n) > 1,
-                      f"{name} {label}: one warp differs from the earlier "
-                      f"kernel")
+                check(eq, f"{name} {label}: differs from the earlier "
+                          f"kernel")
             if frac_b == 0.0 and mixed:
                 check(int(acc_k[:, 1].sum()) == 0
                       and int(tk[:, 1].sum()) > 0
@@ -634,27 +671,40 @@ def lj_main_checks(sim, device, path, cfg, mixed, wall):
           f"the final state: max |E - E(N^2)| {err!r}")
 
 
+def unset(t):
+    """An output buffer like ``t`` that equals no result: NaN, or -1 for
+    integers, so a kernel that writes nothing never compares equal."""
+    import torch
+    return torch.full_like(t, float("nan") if t.is_floating_point() else -1)
+
+
 class EarlierKernels:
-    """An earlier version of ``fused_sweep.cu`` and ``lj_sweep.cu`` with the
-    first interface (no lane or warp count), built from ``csrc_dir`` with
-    the package's nvcc flags, for comparing and timing in the same call."""
+    """The kernels of an earlier ``csrc/`` with commit e6e7854's interface
+    (a lane count for the Gaussian kernel, a warp count for the LJ kernels,
+    one warp per polydisperse chain), built from ``csrc_dir`` with the
+    package's nvcc flags, for comparing and timing in the same call."""
 
     _PTR = ctypes.c_void_p
-    _TAIL = [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32,
-             ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
+    _RUN = [ctypes.c_uint32, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
     _ARGTYPES = {
         "mc_fused_gaussian_sweep": [_PTR] * 6 + [
             ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32, ctypes.c_int32,
-            ctypes.c_int32, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.c_float, ctypes.c_void_p],
-        "mc_lj_sweep": [_PTR] * 8 + _TAIL,
-        "mc_lj_mixed_sweep": [_PTR] * 10 + _TAIL,
+            ctypes.c_int32, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+        "mc_lj_sweep": [_PTR] * 8 + [ctypes.c_int64, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int64] + _RUN,
+        "mc_lj_mixed_sweep": [_PTR] * 10 + [ctypes.c_int64, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_int64]
+        + _RUN,
+        "mc_poly_mixed_sweep": [_PTR] * 10 + [ctypes.c_int64, ctypes.c_int,
+                                              ctypes.c_int64] + _RUN,
     }
 
     def __init__(self, csrc_dir, build_dir):
         from montecarlo_tpu_torch.ops._cuda import NVCC_FLAGS, _nvcc
         sources = {"fused_sweep": ("mc_fused_gaussian_sweep",),
-                   "lj_sweep": ("mc_lj_sweep", "mc_lj_mixed_sweep")}
+                   "lj_sweep": ("mc_lj_sweep", "mc_lj_mixed_sweep"),
+                   "poly_sweep": ("mc_poly_mixed_sweep",)}
         procs = {}
         for stem in sources:
             out = os.path.join(build_dir, f"earlier_{stem}.so")
@@ -678,12 +728,14 @@ class EarlierKernels:
         import torch
         from montecarlo_tpu_torch.ops import fused_sweep as fs
         kind, a2, h, a4 = fs.kernel_potential(pot)
-        xo, eo = torch.empty_like(x), torch.empty_like(x)
-        acc = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+        xo, eo = unset(x), unset(x)
+        acc = unset(torch.empty(x.shape, dtype=torch.int32, device=x.device))
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         err = self.fn["mc_fused_gaussian_sweep"](
             x.data_ptr(), beta.data_ptr(), sigma.data_ptr(), xo.data_ptr(),
             eo.data_ptr(), acc.data_ptr(), x.numel(),
-            fs._block_chains(x.numel(), 2048), SEED, t0, n, kind, a2, h, a4,
+            fs._block_chains(x.numel(), 2048), SEED, t0, n,
+            fs.group_lanes(x.numel(), sms), kind, a2, h, a4,
             torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"the earlier Gaussian kernel: cudaError {err}")
         return xo, eo, acc
@@ -695,21 +747,44 @@ class EarlierKernels:
         from montecarlo_tpu_torch.models import lennard_jones as lj
         from montecarlo_tpu_torch.ops import lj_sweep as ops
         m, n, _ = st.pos.shape
-        tab = ops._table(lj.LJParams(), float(st.box[0]), LJ_SIGMA,
+        tab = ops._table(lj.LJParams(), host_box(st),
+                         card_scalar(LJ_SIGMA, st.pos.device),
                          w_disp if mixed else 1.0, st.pos.device)
-        pos, e = torch.empty_like(st.pos), torch.empty_like(st.energy)
-        acc = torch.empty((m, 2) if mixed else (m,), dtype=torch.int32,
-                          device=st.pos.device)
-        spc, tot = torch.empty_like(st.species), torch.empty_like(acc)
+        pos, e = unset(st.pos), unset(st.energy)
+        acc = unset(torch.empty((m, 2) if mixed else (m,), dtype=torch.int32,
+                                device=st.pos.device))
+        spc, tot = unset(st.species), unset(acc)
         outs = ([pos, spc, e, acc, tot] if mixed else [pos, e, acc])
         err = self.fn["mc_lj_mixed_sweep" if mixed else "mc_lj_sweep"](
             st.pos.data_ptr(), st.species.data_ptr(), st.beta.data_ptr(),
             st.energy.data_ptr(), tab.data_ptr(),
-            *(t.data_ptr() for t in outs), m, n, min(block_chains, max(8, m)),
-            SEED, t0, n_steps, torch.cuda.current_stream().cuda_stream)
+            *(t.data_ptr() for t in outs), m, n, ops.block_warps(n),
+            min(block_chains, max(8, m)), SEED, t0, n_steps,
+            torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"the earlier LJ kernel: cudaError {err}")
         return (pos, spc, e, acc, tot) if mixed else (
             pos, st.species, e, acc, None)
+
+    def poly(self, st, n_steps, t0, block_chains=256):
+        """As ``poly_call``: (pos, diam, energy, accepted, attempted)."""
+        import torch
+        from montecarlo_tpu_torch.models import polydisperse as poly
+        from montecarlo_tpu_torch.ops import lj_sweep, poly_sweep
+        m, n, _ = st.pos.shape
+        tab = lj_sweep._table(poly.PolyParams(), host_box(st),
+                              card_scalar(POLY["sigma"], st.pos.device),
+                              POLY["w_disp"], st.pos.device,
+                              build=poly_sweep._poly_scalars)
+        counts = torch.empty((m, 2), dtype=torch.int32, device=st.pos.device)
+        out = (unset(st.pos), unset(st.diam), unset(st.energy), unset(counts),
+               unset(counts))
+        err = self.fn["mc_poly_mixed_sweep"](
+            st.pos.data_ptr(), st.diam.data_ptr(), st.beta.data_ptr(),
+            st.energy.data_ptr(), tab.data_ptr(),
+            *(t.data_ptr() for t in out), m, n, min(block_chains, max(8, m)),
+            SEED, t0, n_steps, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the earlier poly kernel: cudaError {err}")
+        return out
 
 
 def earlier_vs_present(parent, device, card):
@@ -736,6 +811,13 @@ def earlier_vs_present(parent, device, card):
             f"{name} M={m} N={n} n_steps={10 * n}",
             lambda st=st, mixed=mixed, n=n: parent.lj(st, 10 * n, mixed, 0),
             lambda st=st, mixed=mixed, n=n: lj_call(st, 10 * n, mixed, t0=0)))
+    for n in (POLY["n"], 1024):
+        st = poly_inputs(POLY["chains"], n, device, SEED + 60)
+        cases.append((
+            f"fused_poly_mixed_sweep M={POLY['chains']} N={n} "
+            f"n_steps={POLY['stride'] * n}",
+            lambda st=st, n=n: parent.poly(st, POLY["stride"] * n, 0),
+            lambda st=st, n=n: poly_call(st, POLY["stride"] * n, t0=0)))
     for label, old, new in cases:
         ms = [cuda_time(fn, 3) for fn in (old, new, new, old)]
         print(f"time: earlier vs present {label}: earlier {ms[0]!r} ms, "
@@ -787,7 +869,8 @@ def poly_call(st, n_steps, t0=POLY_T0, interpret=False, block_chains=256):
     from montecarlo_tpu_torch.models import polydisperse as poly
     from montecarlo_tpu_torch.ops.poly_sweep import fused_poly_mixed_sweep
     return fused_poly_mixed_sweep(
-        st.pos, st.diam, st.beta, st.energy, float(st.box[0]), POLY["sigma"],
+        st.pos, st.diam, st.beta, st.energy, host_box(st),
+        card_scalar(POLY["sigma"], st.pos.device),
         POLY["w_disp"], SEED, t0, n_steps, params=poly.PolyParams(),
         interpret=interpret, block_chains=block_chains)
 
@@ -817,12 +900,19 @@ POLY_CASES = (  # (label, M, N, block_chains)
     ("gridded, blocks of 256", 300, 128, 256),
     ("gridded, blocks of 8", 20, 128, 8),
     ("N 2", 32, 2, 256),
+    ("N < 32", 16, 20, 256),
+    ("N no multiple of 32", 12, 100, 8),
+    ("sixteen warps, N no multiple of 512", 4, 4608 + 40, 256),
 )
 
 
-def poly_kernel_vs_plain(device):
-    """Phase 4b.  Returns the largest |kernel - plain| (required 0.0)."""
+def poly_kernel_vs_plain(device, parent=None):
+    """Phase 4b.  Returns the largest |kernel - plain| (required 0.0).  With
+    ``parent`` (the earlier kernels, one warp per chain), the cases whose
+    block is one warp must also equal the earlier kernel bit for bit: the
+    sum order is the same there."""
     import torch
+    from montecarlo_tpu_torch.ops.poly_sweep import poly_block_warps
     worst = 0.0
     for k, (label, m, n, bc) in enumerate(POLY_CASES):
         st = poly_inputs(m, n, device, SEED + 40 + k)
@@ -837,6 +927,7 @@ def poly_kernel_vs_plain(device):
         cache = poly_cache_check(st, ker, f"poly kernel, {label}")
         rates = (ak.sum(0).double() / tk.sum(0).clamp(min=1).double()).tolist()
         print(f"poly kernel vs plain: {label} (M={m}, N={n}, "
+              f"W={poly_block_warps(n)} warps, "
               f"block_chains={bc}, t0={POLY_T0}, n={POLY_STEPS}): "
               f"bit-equal {same}, {int(flip.sum())} chains with an accept "
               f"flip, max |diff| {err!r}, attempts equal "
@@ -846,6 +937,13 @@ def poly_kernel_vs_plain(device):
         check(int(flip.sum()) == 0, f"poly {label}: {int(flip.sum())} flips")
         check(err == 0.0 and same, f"poly {label}: kernel vs plain {err}")
         check(int(ak[:, 1].sum()) > 0, f"poly {label}: no swap accepted")
+        if parent is not None:
+            old = parent.poly(st, POLY_STEPS, POLY_T0, bc)
+            eq = all(torch.equal(a, b) for a, b in zip(ker, old))
+            print(f"poly kernel vs earlier kernel: {label}: bit-equal {eq} "
+                  f"(W={poly_block_warps(n)})")
+            check(eq or poly_block_warps(n) > 1,
+                  f"poly {label}: one warp differs from the earlier kernel")
         worst = max(worst, err)
     return worst
 
@@ -966,7 +1064,39 @@ def poly_times(device, card):
     out["refresh"] = cuda_time(lambda: refresh(st), 5)
     print(f"time: poly refresh (O(N^2) cache check) M={m} N={n}: "
           f"{out['refresh']!r} ms per call [{card}]")
+    poly_warp_times(device, card)
     return out
+
+
+def poly_warp_times(device, card, sizes=(POLY["n"], 1024)):
+    """Phase 6c: the poly kernel with every block width W at 64 chains of
+    each N in ``sizes`` (the main path's and N 1024), one main-path segment
+    (10 N steps) per call, the Ws in turns and then in reverse, for
+    ``poly_block_warps``' rule."""
+    import torch
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    from montecarlo_tpu_torch.ops import lj_sweep, poly_sweep
+    for n in sizes:
+        st = poly_inputs(POLY["chains"], n, device, SEED + 60)
+        tab = lj_sweep._table(poly.PolyParams(), host_box(st),
+                              card_scalar(POLY["sigma"], device),
+                              POLY["w_disp"], device,
+                              build=poly_sweep._poly_scalars)
+        steps = POLY["stride"] * n
+        ms = {}
+        order = (1, 2, 4, 8, 16)
+        for w in order + order[::-1]:
+            ms.setdefault(w, []).append(cuda_time(
+                lambda w=w: lj_sweep._cuda_sweep(
+                    poly_sweep.POLY_KERNEL, True, st.pos, st.diam, st.beta,
+                    st.energy, tab, SEED, 0, steps, 256, w,
+                    attr=("diam", torch.float32)), 3))
+        best = min(ms, key=lambda w: sum(ms[w]))
+        print(f"time: poly kernel by block width, M={POLY['chains']} N={n} "
+              f"n_steps={steps}: " + ", ".join(
+                  f"W {w}: {v[0]!r} / {v[1]!r} ms" for w, v in ms.items())
+              + f"; fastest W {best}, the rule's W "
+              f"{poly_sweep.poly_block_warps(n)} [{card}]")
 
 
 class Interrupt(Exception):
@@ -1186,6 +1316,101 @@ def pgmc5_resume(tmc, device, root, full):
     return wall
 
 
+def pgmc_pool_sim(tmc, device, path, kind):
+    """Phase 5g: the poly pool (``kind`` "poly") or the one-move LJ pool
+    ("lj") at its main path's width with VPG on the displacement sigma
+    through the hybrid stepper, energy per particle, acceptance and
+    parameters every ``stride`` sweeps."""
+    from montecarlo_tpu_torch import policy_guided as pg
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    cfg = PGMC_POOLS
+    m, n = cfg[kind]
+    sweeps = cfg["sweeps"]
+    if kind == "poly":
+        model = poly
+        params = poly.PolyParams()
+        pool = (poly.displacement_move(POLY["sigma"], weight=POLY["w_disp"],
+                                       params=params),
+                poly.swap_move(weight=1.0 - POLY["w_disp"], params=params))
+        chains = poly.init_chains(m, n, rho=POLY["rho"], beta=POLY["beta"],
+                                  seed=42, params=params, device=device)
+        system = poly.make_system(params)
+        optimisers = (pg.VPG(cfg["eta"]), pg.Static())
+    else:
+        model = lj
+        pool = (lj.lj_displacement_move(sigma=LJ_SIGMA),)
+        chains = lj.init_chains(m, n, 0.7, 1.0, frac_b=0.2, seed=42,
+                                device=device)
+        system = lj.make_system()
+        optimisers = (pg.VPG(cfg["eta"]),)
+    sched = np.arange(cfg["stride"], sweeps + 1, cfg["stride"])
+    return tmc.Simulation(system, chains, [
+        dict(algorithm=tmc.Metropolis, pool=pool, seed=42, sweepstep=n),
+        dict(algorithm=pg.PolicyGradientEstimator,
+             dependencies=(tmc.Metropolis,), optimisers=optimisers,
+             q_batch_size=cfg["q"],
+             scheduler=np.arange(cfg["est_every"], sweeps + 1,
+                                 cfg["est_every"])),
+        dict(algorithm=pg.PolicyGradientUpdate,
+             dependencies=(pg.PolicyGradientEstimator,),
+             scheduler=np.arange(cfg["upd_every"], sweeps + 1,
+                                 cfg["upd_every"])),
+        dict(algorithm=tmc.StoreCallbacks,
+             callbacks=(model.callback_energy_per_particle,
+                        tmc.callback_acceptance), scheduler=sched),
+        dict(algorithm=tmc.StoreParameters, dependencies=(tmc.Metropolis,),
+             scheduler=sched)], sweeps, path=path)
+
+
+def pgmc_pool_checks(sim, kind, path, wall, card):
+    """Phase 5g checks, made after the launch counts were read: sigma
+    adapted, on the card and equal to the last ``parameters.dat`` row;
+    attempts per chain; acceptance; the cache against an O(N^2) recompute
+    within the reference's bounds; for poly, each chain's diameters."""
+    import torch
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    cfg = PGMC_POOLS
+    m, n = cfg[kind]
+    sweeps = cfg["sweeps"]
+    label = f"{kind} pool with PGMC"
+    st = sim.device_state["sys"]
+    sigma = sim.device_state["params"][0]["sigma"]
+    with open(os.path.join(path, "parameters", "1", "parameters.dat")) as f:
+        rows = f.read().splitlines()
+    last_t, last = rows[-1].split(" ", 1)
+    cnt = sim.device_state["metropolis"]["counters"]
+    tot = cnt.sum(0).double()
+    rates = (tot[:, 0] / tot[:, 1]).tolist()
+    model, bounds = (poly, POLY_CACHE) if kind == "poly" else (lj, LJ_CACHE)
+    full = model.make_system().refresh(st).energy
+    err = float(((st.energy - full).abs() - bounds["rtol"] * full.abs())
+                .max())
+    moves = m * n * sweeps
+    s = float(sigma)
+    print(f"{label}: {m} chains x N {n} x {sweeps} sweeps ({moves} moves) in "
+          f"{wall!r} s wall ({moves / wall!r} moves/s with recorders and "
+          f"PGMC), sigma {LJ_SIGMA} -> {s!r} (parameters.dat last row "
+          f"t={last_t} {last}), acceptance per move {rates}, max "
+          f"|E - E(N^2)| {float((st.energy - full).abs().max())!r} [{card}]")
+    check(np.isfinite(s) and s > 0 and s != np.float32(LJ_SIGMA),
+          f"{label}: sigma did not adapt ({s})")
+    check(sigma.device == st.pos.device, f"{label}: sigma left the card")
+    check(int(last_t) == sweeps and last == f"[{s!r}]",
+          f"{label}: device sigma {s!r} != parameters.dat {rows[-1]}")
+    check(bool((cnt[..., 1].sum(1) == sweeps * n).all()),
+          f"{label}: attempts per chain != sweeps x N")
+    check(all(0.01 < r < 0.98 for r in rates), f"{label}: acceptance {rates}")
+    check(bool(torch.isfinite(st.energy).all()) and err <= bounds["atol"],
+          f"{label}: cached energy off the O(N^2) energy ({err})")
+    if kind == "poly":
+        check(torch.equal(st.diam.sort(1).values,
+                          sim.chains0.diam.sort(1).values)
+              and not torch.equal(st.diam, sim.chains0.diam),
+              f"{label}: diameters not conserved, or none swapped")
+
+
 def pgmc3(tmc, device, path, card):
     """Phase 5e: config 3's sigma adaptation on particle-1d (harmonic,
     beta 2) through the Gaussian kernel and the hybrid stepper."""
@@ -1268,8 +1493,8 @@ def sweep_times(device, card):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", metavar="CSRC_DIR", default=None,
-                        help="earlier fused_sweep.cu and lj_sweep.cu to "
-                             "compare and time against")
+                        help="an earlier csrc/ (commit e6e7854's interface) "
+                             "to compare and time against")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernels' checks (phase 4)")
     opts = parser.parse_args()
@@ -1324,7 +1549,7 @@ def main():
     lj_segmentation(device)
 
     # 4b. the poly kernel against its plain version
-    poly_err = poly_kernel_vs_plain(device)
+    poly_err = poly_kernel_vs_plain(device, parent)
     poly_segmentation(device)
 
     if parent is not None:
@@ -1371,7 +1596,7 @@ def main():
         print(f"main path: poly launches {counts}")
         check(POLY_KERNEL.launches > 0,
               "the main path did not launch fused_poly_mixed_sweep")
-        launches["fused_poly_mixed_sweep"] = POLY_KERNEL.launches
+        n_poly = launches["fused_poly_mixed_sweep"] = POLY_KERNEL.launches
         poly_main_checks(sim, chains, device, path, wall_poly)
 
         # 5d. config 5 with PGMC, then the same run without it
@@ -1417,6 +1642,26 @@ def main():
         check(counts[LJ_MIXED_KERNEL.symbol] > 0,
               "config 5 resume did not launch fused_lj_mixed_sweep")
         launches["fused_lj_mixed_sweep"] += counts[LJ_MIXED_KERNEL.symbol]
+
+        # 5g. the poly pool and the one-move LJ pool with PGMC
+        for kind, name, kernel in (
+                ("poly", "fused_poly_mixed_sweep", POLY_KERNEL),
+                ("lj", "fused_lj_sweep", LJ_KERNEL)):
+            path = os.path.join(tmp, f"pgmc_{kind}")
+            sim = pgmc_pool_sim(tmc, device, path, kind)
+            check("hybrid" in _select_advance(sim).__qualname__,
+                  f"the {kind} pool with PGMC did not take the hybrid "
+                  f"stepper")
+            wall, counts = counted(kernels, lambda: timed_run(sim))
+            n_seg = sync_points(sim)
+            print(f"main path: the {kind} pool with PGMC launches {counts}, "
+                  f"{n_seg} segments between events and recorder points")
+            check(counts[kernel.symbol] == n_seg
+                  and sum(counts.values()) == n_seg,
+                  f"the {kind} pool with PGMC: {counts} for {n_seg} "
+                  f"segments")
+            launches[name] += counts[kernel.symbol]
+            pgmc_pool_checks(sim, kind, path, wall, card)
     rate2 = CONFIG2_CHAINS * CONFIG2_STEPS / wall2
     print(f"time: config 2 end to end with recorders: {rate2!r} steps/s "
           f"({CONFIG2_CHAINS} chains, stride {CONFIG2_STRIDE}) [{card}]")
@@ -1445,7 +1690,6 @@ def main():
         ("kernel", 10 * POOL5["n"])], wall5, card)
     poly_ms = poly_times(device, card)
     seg = POLY["stride"] * POLY["n"]
-    n_poly = launches["fused_poly_mixed_sweep"]
     print(f"time: poly path breakdown: {n_poly} kernel launches x "
           f"{poly_ms[('kernel', seg)]!r} ms = "
           f"{n_poly * poly_ms[('kernel', seg)] / 1e3!r} s and "

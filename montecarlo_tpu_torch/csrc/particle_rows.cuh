@@ -1,8 +1,7 @@
-// Row energies of 2-D particle chains for the sweep kernels: the minimum
-// image, the wrap into the box, the warp butterfly sum, and the row sums of
-// a pair functor over the chain's particles in shared memory, for one warp
-// per chain (row_energies: poly_sweep.cu) and for one block of several warps
-// per chain (block_row_energies: lj_sweep.cu).
+// Row energies of 2-D particle chains for the sweep kernels (lj_sweep.cu,
+// poly_sweep.cu): the minimum image, the wrap into the box, the warp
+// butterfly sum, and the row sums of a pair functor over the chain's
+// particles in shared memory, for one block of W warps per chain.
 //
 // The float arithmetic uses the _rn intrinsics so that nvcc does not
 // contract a*b+c into an FMA the plain versions do not make; rintf rounds
@@ -75,27 +74,11 @@ __device__ __forceinline__ void partial_rows(
   }
 }
 
-// The K row sums of the reference's row_energy for one warp per chain, in
-// the lane order: lane l sums slots l, l + 32, ... in turn, then warp_sum.
-// Returned in all lanes.
-template <int K, class Pair>
-__device__ __forceinline__ void row_energies(
-    const Pair& pair, const float* xs, const float* ys, const float* as,
-    int n, int lane, const float (&px)[K], const float (&py)[K],
-    const float (&pa)[K], int excl0, int excl1, float box, float inv_box,
-    float (&out)[K]) {
-  float part[K];
-  partial_rows<K>(pair, xs, ys, as, n, lane, kWarp, px, py, pa, excl0, excl1,
-                  box, inv_box, part);
-#pragma unroll
-  for (int q = 0; q < K; ++q) out[q] = warp_sum(part[q]);
-}
-
-// The same K row sums for one block of W = blockDim.x / 32 warps per chain,
-// in the thread order: thread t sums slots t, t + 32 W, ... in turn,
-// warp_sum closes each warp, the W warp sums go to red (shared, at least
-// K W floats), and after one __syncthreads every thread adds them in warp
-// order.  Returned in all threads.  Every thread of the block must call it;
+// The K row sums of the reference's row_energy for one block of
+// W = blockDim.x / 32 warps per chain, in the thread order: thread t sums
+// slots t, t + 32 W, ... in turn, warp_sum closes each warp, the W warp sums
+// go to red (shared, at least K W floats), and after one __syncthreads
+// every thread adds them in warp order (at W = 1: the warp's sum).  Returned in all threads.  Every thread of the block must call it;
 // red must not be written again before the block's next barrier.
 template <int K, class Pair>
 __device__ __forceinline__ void block_row_energies(

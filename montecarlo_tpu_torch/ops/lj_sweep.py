@@ -58,8 +58,9 @@ _KIND_TAG = 0x7AB1E5
 _MAX_WARPS = 16
 #: most particles a chain's block holds in shared memory: x, y and the
 #: species or diameter as float32 in the 227 KB a Hopper block may opt into,
-#: less the 3 KB of the LJ block's scratch (row sums, arg-max, a batch of
-#: draws).  The polydisperse kernel has no scratch and shares the limit.
+#: less the block's 3 KB of scratch (the LJ kernels: row sums, arg-max, a
+#: batch of draws; the polydisperse kernel: row sums, a batch of draws; both
+#: sources assert the 3 KB).
 MAX_PARTICLES = (232448 - 3072) // 12
 
 _ARGS = [ctypes.c_void_p] * 5          # pos, species, beta, energy, scalars
@@ -83,13 +84,16 @@ def block_warps(n: int) -> int:
     bounds it).  It depends on N alone, because the row sums' order
     (:func:`_lane_sum`) follows it: the plain version and the kernel read
     it here."""
-    def pow2_warps(slots_per_warp):
-        warps = 1
-        while warps < _MAX_WARPS and warps * slots_per_warp < n:
-            warps *= 2
-        return warps
+    return max(_pow2_warps(n, 128), min(8, _pow2_warps(n, 32)))
 
-    return max(pow2_warps(128), min(8, pow2_warps(32)))
+
+def _pow2_warps(n: int, slots_per_warp: int) -> int:
+    """The fewest warps, a power of two up to 16, that give each of ``n``
+    slots a thread when a warp takes ``slots_per_warp`` of them."""
+    warps = 1
+    while warps < _MAX_WARPS and warps * slots_per_warp < n:
+        warps *= 2
+    return warps
 
 
 # -- the scalar table ----------------------------------------------------------
@@ -340,11 +344,10 @@ def _plain_sweep(pos, species, beta, energy, tab, w_disp, seed, t0, n_steps,
 # -- the CUDA kernels ------------------------------------------------------------
 
 def _cuda_sweep(kernel, mixed, pos, species, beta, energy, tab, seed, t0,
-                n_steps, bc, attr=("species", torch.int32), warps=None):
-    """Check the arguments and launch ``kernel``; ``attr`` names the
-    per-particle array (``species``, or the poly kernel's ``diam``) and its
-    dtype; ``warps`` is the block's warp count for a kernel that takes one
-    (the LJ kernels), None for one warp per chain (the poly kernel)."""
+                n_steps, bc, warps, attr=("species", torch.int32)):
+    """Check the arguments and launch ``kernel`` with blocks of ``warps``
+    warps per chain; ``attr`` names the per-particle array (``species``, or
+    the poly kernel's ``diam``) and its dtype."""
     for name, t, dtype in (("pos", pos, torch.float32),
                            (attr[0], species, attr[1]),
                            ("beta", beta, torch.float32),
@@ -386,8 +389,7 @@ def _cuda_sweep(kernel, mixed, pos, species, beta, energy, tab, seed, t0,
             stream = torch.cuda.current_stream().cuda_stream
             kernel.launch(pos.data_ptr(), species.data_ptr(), beta.data_ptr(),
                           energy.data_ptr(), tab.data_ptr(), *outs, m, n,
-                          *(() if warps is None else (warps,)), bc, seed, t0,
-                          n_steps, stream)
+                          warps, bc, seed, t0, n_steps, stream)
     if mixed:
         return pos_out, spc_out, e_out, acc, tot
     return pos_out, e_out, acc
@@ -410,7 +412,7 @@ def _sweep(mixed, pos, species, beta, energy, box, sigma, w_disp, seed, t0,
         raise ValueError(f"no LJ sweep kernel for device {pos.device}")
     kernel = LJ_MIXED_KERNEL if mixed else LJ_KERNEL
     return _cuda_sweep(kernel, mixed, pos, species, beta, energy, tab, seed,
-                       t0, n_steps, bc, warps=block_warps(pos.shape[1]))
+                       t0, n_steps, bc, block_warps(pos.shape[1]))
 
 
 def fused_lj_sweep(pos, species, beta, energy, box, sigma, seed, t0, n_steps,

@@ -9,16 +9,17 @@ chain grid; a displacement is a uniform pick and a 2-D Box–Muller step with
 j != i with ΔE from four rows, the i–j term cancelling.
 
 CUDA tensors launch the hand-written kernel in ``csrc/poly_sweep.cu`` (one
-warp per chain, the chain's positions and diameters in shared memory for
-the whole segment) or raise; CPU tensors and ``interpret=True`` take the
-plain torch version below.  Both draw from the reference's counter-hash
-stream with the reference's block geometry, so the plain version
-reproduces its interpret-mode results on the CPU (equal counts and
-diameters, positions within float32 ulps of log/cos/sin), and the kernel
-reproduces the plain version bit for bit on the card.  As in
-``ops/lj_sweep.py``, the pair terms use exact reciprocals, as the
-reference kernel does, and the row sums are taken in the CUDA kernel's lane
-order (:func:`~montecarlo_tpu_torch.ops.lj_sweep._lane_sum` for one warp).
+block of :func:`poly_block_warps` warps per chain, the chain's positions and
+diameters in shared memory for the whole segment, every draw made a batch
+of steps ahead) or raise; CPU tensors and ``interpret=True`` take the plain
+torch version below.  Both draw from the reference's counter-hash stream
+with the reference's block geometry, so the plain version reproduces its
+interpret-mode results on the CPU (equal counts and diameters, positions
+within float32 ulps of log/cos/sin), and the kernel reproduces the plain
+version bit for bit on the card.  As in ``ops/lj_sweep.py``, the pair terms
+use exact reciprocals, as the reference kernel does, and the row sums are
+taken in the CUDA kernel's thread order
+(:func:`~montecarlo_tpu_torch.ops.lj_sweep._lane_sum` for W warps).
 """
 
 from __future__ import annotations
@@ -31,15 +32,29 @@ import torch
 from ._cuda import CudaKernel
 from .fused_sweep import _GOLDEN, _MASK, _mul32
 from .lj_sweep import (_ARGS, _SHAPE, _TAIL, _cuda_sweep, _disp_step, _grid,
-                       _lane_sum, _run_steps, _table, _uniform)
+                       _lane_sum, _pow2_warps, _run_steps, _table, _uniform)
 
-__all__ = ["fused_poly_mixed_sweep", "POLY_KERNEL"]
+__all__ = ["fused_poly_mixed_sweep", "poly_block_warps", "POLY_KERNEL"]
 
 _LANES = 128
 _SWAP_TAG = 0x51AB
 
-POLY_KERNEL = CudaKernel("poly_sweep.cu", "mc_poly_mixed_sweep",
-                         _ARGS + [ctypes.c_void_p] * 5 + _SHAPE + _TAIL)
+POLY_KERNEL = CudaKernel(
+    "poly_sweep.cu", "mc_poly_mixed_sweep",
+    _ARGS + [ctypes.c_void_p] * 5 + _SHAPE + [ctypes.c_int] + _TAIL)
+
+
+def poly_block_warps(n: int) -> int:
+    """W, the warps of the block that serves one chain of ``n`` particles
+    in the polydisperse kernel, a power of two: one slot a thread up to 8
+    warps (N <= 256), then 8 warps while a thread has at most three slots
+    (N <= 768), then 16.  Timed on an H100 at 64 chains for every W and N
+    from 128 to 4096 (``chip_smoke.py``, ``poly_warp_times``): where the
+    LJ kernels' rule (:func:`~montecarlo_tpu_torch.ops.lj_sweep.block_warps`)
+    keeps 8 warps to N 1024, 16 warps were faster here at N 1024.  It
+    depends on N alone, because the row sums' order follows it: the plain
+    version and the kernel read it here."""
+    return max(_pow2_warps(n, 96), min(8, _pow2_warps(n, 32)))
 
 
 # -- the scalar table ----------------------------------------------------------
@@ -74,7 +89,7 @@ def _row_energy(tab, x, y, dia, xi, yi, d_i, excl):
     i6 = inv2 * inv2 * inv2
     u = i6 * i6 + c0 + c2 * x2 + c4 * x2 * x2
     u = torch.where((x2 < xc2) & ~excl, u, 0.0)
-    return _lane_sum(u)
+    return _lane_sum(u, poly_block_warps(u.shape[1]))
 
 
 def _swap_step(tab, x, y, dia, e, beta, seeds, lanes, col):
@@ -175,5 +190,6 @@ def fused_poly_mixed_sweep(pos, diam, beta, energy, box, sigma, w_disp, seed,
         raise ValueError(f"no polydisperse sweep kernel for device "
                          f"{pos.device}")
     return _cuda_sweep(POLY_KERNEL, True, pos, diam, beta, energy, tab, seed,
-                       t0, n_steps, bc, attr=("diam", torch.float32))
+                       t0, n_steps, bc, poly_block_warps(n),
+                       attr=("diam", torch.float32))
 

@@ -29,7 +29,8 @@ from montecarlo_tpu_torch.ops.lj_sweep import (LJ_KERNEL, LJ_MIXED_KERNEL,
                                                fused_lj_mixed_sweep,
                                                fused_lj_sweep)
 from montecarlo_tpu_torch.ops.poly_sweep import (POLY_KERNEL,
-                                                 fused_poly_mixed_sweep)
+                                                 fused_poly_mixed_sweep,
+                                                 poly_block_warps)
 
 pytestmark = pytest.mark.cuda
 
@@ -256,8 +257,9 @@ def _poly_sweep(st, n_steps, t0=5, **kw):
 
 @pytest.mark.parametrize("m,n,block_chains", [
     (64, 256, 256), (64, 1024, 256), (300, 128, 256), (20, 128, 8),
-    (32, 2, 256)])
+    (32, 2, 256), (16, 64, 256), (20, 100, 8), (4, 4648, 256)])
 def test_poly_kernel_matches_plain(cuda, m, n, block_chains):
+    """One warp (N 2) to sixteen (N 4648, N no multiple of 512)."""
     st = _poly(m, n, cuda)
     before = POLY_KERNEL.launches
     got = _poly_sweep(st, 201, block_chains=block_chains)
@@ -272,6 +274,16 @@ def test_poly_kernel_matches_plain(cuda, m, n, block_chains):
     torch.testing.assert_close(energy, full, rtol=3e-3, atol=8e-2)
     assert torch.equal(dia.sort(1).values, st.diam.sort(1).values)
     assert int(acc[:, 1].sum()) > 0 and torch.all(tot.sum(1) == 201)
+
+
+def test_poly_kernel_at_the_most_particles_a_block_holds(cuda):
+    """N = MAX_PARTICLES fills the block's shared memory to the byte."""
+    assert poly_block_warps(MAX_PARTICLES) == 16
+    st = _poly(2, MAX_PARTICLES, cuda)
+    got = _poly_sweep(st, 33)
+    want = _poly_sweep(st, 33, interpret=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_poly_kernel_is_segmentation_invariant(cuda):
@@ -377,12 +389,18 @@ def test_per_chain_gradients_on_cuda_equal_cpu(cuda, name):
     assert torch.equal(got.n.cpu(), want.n)
 
 
-def _lj_pgmc(device, path, sweeps=40, extra=()):
+def _particle_pgmc(device, path, sweeps=40, extra=(), model=lj):
     from montecarlo_tpu_torch import policy_guided as pg
-    pool = (lj.lj_displacement_move(0.1, weight=0.8),
-            lj.lj_swap_move(weight=0.2))
+    if model is lj:
+        pool = (lj.lj_displacement_move(0.1, weight=0.8),
+                lj.lj_swap_move(weight=0.2))
+        chains = _lj(32, 64, device)
+    else:
+        pool = (poly.displacement_move(0.1, weight=0.8),
+                poly.swap_move(weight=0.2))
+        chains = _poly(32, 64, device)
     sched = np.arange(10, sweeps + 1, 10)
-    return tmc.Simulation(lj.make_system(), _lj(32, 64, device), [
+    return tmc.Simulation(model.make_system(), chains, [
         dict(algorithm=tmc.Metropolis, pool=pool, sweepstep=64, seed=3),
         dict(algorithm=pg.PolicyGradientEstimator,
              dependencies=(tmc.Metropolis,),
@@ -392,7 +410,7 @@ def _lj_pgmc(device, path, sweeps=40, extra=()):
              dependencies=(pg.PolicyGradientEstimator,),
              scheduler=np.arange(8, sweeps + 1, 8)),
         dict(algorithm=tmc.StoreCallbacks,
-             callbacks=(lj.callback_energy_per_particle,
+             callbacks=(model.callback_energy_per_particle,
                         tmc.callback_acceptance), scheduler=sched),
         dict(algorithm=tmc.StoreParameters, dependencies=(tmc.Metropolis,),
              scheduler=sched),
@@ -400,31 +418,46 @@ def _lj_pgmc(device, path, sweeps=40, extra=()):
     ], sweeps, path=str(path))
 
 
-def test_hybrid_lj_pgmc_launches_once_per_segment(cuda, tmp_path):
+def _hybrid_pgmc_launches_once_per_segment(cuda, tmp_path, model, kernel):
     from montecarlo_tpu_torch.core.simulation import _select_advance
-    sim = _lj_pgmc(cuda, tmp_path)
+    sim = _particle_pgmc(cuda, tmp_path, model=model)
     assert "hybrid" in _select_advance(sim).__qualname__
     sync = {int(t) for s in sim.schedulers[1:] for t in s}
-    before = LJ_MIXED_KERNEL.launches
+    before = kernel.launches
     sim.run()
-    assert LJ_MIXED_KERNEL.launches - before == len(sync)
+    assert kernel.launches - before == len(sync)
     sigma = sim.device_state["params"][0]["sigma"]
     assert sigma.is_cuda and float(sigma) != np.float32(0.1)
     last = (tmp_path / "parameters" / "1" / "parameters.dat").read_text()
     assert last.splitlines()[-1] == f"40 [{float(sigma)!r}]"
     cnt = sim.device_state["metropolis"]["counters"]
     assert torch.all(cnt[..., 1].sum(1) == 40 * 64)
+    return sim
+
+
+def test_hybrid_lj_pgmc_launches_once_per_segment(cuda, tmp_path):
+    _hybrid_pgmc_launches_once_per_segment(cuda, tmp_path, lj,
+                                           LJ_MIXED_KERNEL)
+
+
+def test_hybrid_poly_pgmc_launches_once_per_segment(cuda, tmp_path):
+    """The poly pool (N 64: a block of two warps) under PGMC."""
+    sim = _hybrid_pgmc_launches_once_per_segment(cuda, tmp_path, poly,
+                                                 POLY_KERNEL)
+    final = sim.device_state["sys"]
+    full = poly.total_energy(final)
+    torch.testing.assert_close(final.energy, full, rtol=3e-3, atol=8e-2)
 
 
 def test_resume_on_cuda_is_bitwise_exact(cuda, tmp_path):
     from montecarlo_tpu_torch import checkpoint
     from montecarlo_tpu_torch.utils.tree import tree_leaves
-    ref = _lj_pgmc(cuda, tmp_path / "ref")
+    ref = _particle_pgmc(cuda, tmp_path / "ref")
     ref.run()
-    a = _lj_pgmc(cuda, tmp_path / "a", extra=(dict(
+    a = _particle_pgmc(cuda, tmp_path / "a", extra=(dict(
         algorithm=tmc.StoreBackups, scheduler=np.asarray([20])),))
     a.run()
-    b = _lj_pgmc(cuda, tmp_path / "b")
+    b = _particle_pgmc(cuda, tmp_path / "b")
     checkpoint.resume_state(b, str(tmp_path / "a" / "checkpoints" /
                                    "ckpt_t20.npz"))
     gen = b.device_state["pge"]["generator"]

@@ -9,7 +9,8 @@ parameter by 1.05, so the next segment's kernel reads a new sigma.  Both
 runs take the fused path's CPU stand-in (``fused='interpret'``) from the
 same chains (``interop``): the counters and sigma are equal, positions
 agree within 1e-5 and energies within the bounds of the LJ slice's
-end-to-end test (rtol 1e-5; the 1-D cache to float32 ulps).
+end-to-end test (rtol 1e-5; the 1-D cache to float32 ulps); the LJ
+species and the polydisperse diameters are equal.
 """
 
 import os
@@ -24,12 +25,14 @@ import montecarlo_tpu_torch as tmc
 from montecarlo_tpu.core.simulation import _select_advance as ref_select
 from montecarlo_tpu.models import lennard_jones as ref_lj
 from montecarlo_tpu.models import particle1d as ref_p1d
+from montecarlo_tpu.models import polydisperse as ref_poly
 from montecarlo_tpu_torch import interop
 from montecarlo_tpu_torch import policy_guided as pg
 from montecarlo_tpu_torch.core.simulation import _select_advance
 from montecarlo_tpu_torch.models import lennard_jones as lj
 from montecarlo_tpu_torch.models import particle1d as p1d
-from montecarlo_tpu_torch.ops import fused_sweep, lj_sweep
+from montecarlo_tpu_torch.models import polydisperse as poly
+from montecarlo_tpu_torch.ops import fused_sweep, lj_sweep, poly_sweep
 from montecarlo_tpu_torch.utils.tree import tree_leaves, tree_map
 
 SCALE_EVERY = 7
@@ -82,6 +85,13 @@ def _setup(kind, pkg, ref):
         pool = (mod.lj_displacement_move(0.1, weight=0.8),
                 mod.lj_swap_move(weight=0.2))
         sweepstep = n
+    elif kind == "poly":
+        n, m, sweeps = 64, 8, 40
+        mod = ref_poly if ref else poly
+        chains = ref_poly.init_chains(m, n, rho=0.9, beta=2.0, seed=42)
+        pool = (mod.displacement_move(0.1, weight=0.8),
+                mod.swap_move(weight=0.2))
+        sweepstep = n
     else:
         m, sweeps = 64, 400
         mod = ref_p1d if ref else p1d
@@ -108,7 +118,7 @@ def _simulation(kind, ref, path, fused="interpret"):
     ], sweeps, path=path)
 
 
-@pytest.fixture(scope="module", params=("lj", "p1d"))
+@pytest.fixture(scope="module", params=("lj", "poly", "p1d"))
 def hybrid_runs(request, tmp_path_factory):
     kind = request.param
     root = tmp_path_factory.mktemp(kind)
@@ -147,6 +157,13 @@ def test_hybrid_run_matches_reference(hybrid_runs):
                                       np.asarray(want.species))
         np.testing.assert_allclose(got.energy.numpy(),
                                    np.asarray(want.energy), rtol=1e-5)
+    elif kind == "poly":
+        np.testing.assert_allclose(got.pos.numpy(), np.asarray(want.pos),
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(got.diam.numpy(),
+                                      np.asarray(want.diam))
+        np.testing.assert_allclose(got.energy.numpy(),
+                                   np.asarray(want.energy), rtol=1e-5)
     else:
         np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x),
                                    rtol=0, atol=1e-5)
@@ -164,6 +181,7 @@ def test_hybrid_segments_launch_the_sweep_once_each(tmp_path, monkeypatch):
     the hybrid stepper makes one fused sweep call, and it never calls the
     Metropolis' generic step."""
     for kind, module, name in (("lj", lj_sweep, "fused_lj_mixed_sweep"),
+                               ("poly", poly_sweep, "fused_poly_mixed_sweep"),
                                ("p1d", fused_sweep, "fused_gaussian_sweep")):
         sim = _simulation(kind, False, str(tmp_path / kind))
         calls = []

@@ -105,6 +105,24 @@ def test_sweep_matches_reference(layout, n_steps):
         assert not torch.equal(dia, st.diam)
 
 
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("n", [64, 100])
+def test_sweep_matches_reference_with_several_warps(layout, n):
+    """N where the kernel's block has W > 1 warps, so the plain version
+    sums the rows in a block's thread order (N 100: no multiple of 32)."""
+    assert ops.poly_block_warps(n) > 1
+    m, bc = LAYOUTS[layout]
+    ref, st = _state(m, n)
+    pos_r, dia_r, e_r, acc_r, tot_r = _ref_sweep(ref, 250, bc=bc)
+    pos, dia, e, acc, tot = _sweep(st, 250, bc=bc)
+    np.testing.assert_array_equal(tot.numpy(), tot_r)
+    np.testing.assert_array_equal(acc.numpy(), acc_r)
+    np.testing.assert_array_equal(dia.numpy(), dia_r)
+    np.testing.assert_allclose(pos.numpy(), pos_r, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(e.numpy(), e_r, rtol=RTOL, atol=0)
+    assert (acc[:, 0].sum() > 0) and (acc[:, 1].sum() > 0)
+
+
 def test_gridded_blocks_draw_their_own_kinds():
     """With 3 blocks of 8 chains, steps where the blocks' kind draws differ
     exist, and each chain's attempts follow its own block."""
