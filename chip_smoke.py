@@ -69,7 +69,23 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
    end-to-end rates and breakdowns of config 2, config 4, the config-5 pool
    and the poly path, and where config 5's wall goes with PGMC; the poly
    kernel at every block width W (64 x N 256 and N 1024); each printed
-   beside the card's name and power limit.
+   beside the card's name and power limit;
+7. the checkerboard cell-MC path (plain torch, no kernel of its own):
+   7a. ``examples/cell_mc_large_n.py``'s LJ run at full width (32 chains x
+   N 32768, above what the row kernel holds; rho 1.2, beta 1/0.45, 20 % B,
+   sigma 0.08, sweepstep N/4, 40 steps, energy and acceptance every 10)
+   through ``Simulation.run`` with ``fused='auto'`` and no ``device=``: the
+   cell route taken (no row kernel launched), no overflow, acceptance, the
+   cache of 4 chains against an O(N^2) recompute, the ``Cell MC: enabled``
+   line; a segment and a refresh timed apart; 7b. the LJ species pool and the poly pair pool at 64 x
+   N 4096 with ``fused='cell'``, hard disks at 16 x N 16384 (eta 0.70):
+   composition, caches, no overlap; 7c. the LJ row kernel against the cell
+   path at 64 and 32 chains, N 2048 to 19114, a sweep a call, two passes, moves/s
+   and their ratio (what keeps ``'auto'`` on the row kernel wherever one
+   takes the pool), with the route ``'auto'`` picks at each N, the cell
+   path's launches per substep under ``torch.profiler``, and its two
+   neighbourhood layouts; 7d. one segment on the card and on the CPU from
+   the same draws, substep by substep.
 
 Prints its findings on lines before the last, a ``{"kernels": [...]}``
 line (``ms`` and ``plain_ms`` per call at the main path's segment of
@@ -79,6 +95,7 @@ Any failed check raises, so the script exits non-zero without the last
 line.
 
 Usage: python3 chip_smoke.py [--parent CSRC_DIR] [--kernels-only]
+[--cell-only]
 
 ``--parent CSRC_DIR`` names a directory with an earlier version of
 ``fused_sweep.cu``, ``lj_sweep.cu`` and ``poly_sweep.cu`` (and their
@@ -90,7 +107,7 @@ shapes (the poly kernel at 64 x N 256 and N 1024); the Gaussian and LJ
 kernels must equal the earlier ones bit for bit at every shape of phases 3
 and 4, the poly kernel where its block is one warp (N <= 32, the same sum
 order).  ``--kernels-only`` stops after phase 4b (and the comparison with
-``--parent``).
+``--parent``); ``--cell-only`` runs phase 7 alone after the build.
 """
 
 import argparse
@@ -151,6 +168,26 @@ PGMC_POOLS = dict(sweeps=100, eta=0.001, q=2, est_every=10, upd_every=20,
 # config 3's adaptation on the Gaussian kernel: sigma 0.2 climbs toward ~1.2
 PGMC3 = dict(chains=10 ** 4, beta=2.0, sigma0=0.2, eta=0.05, steps=4000,
              est_every=10, upd_every=20, stride=100)
+# the cell path (phase 7): examples/cell_mc_large_n.py's configuration (2-D
+# KA-LJ, rho 1.2, beta 1/0.45, 20 % B, sigma 0.08, sweepstep N/4, 40 steps)
+# at the largest N of the reference's record of it
+# (benchmarks/cell_large_n_r05.json: 32 chains x N 32768), callbacks every
+# 10 steps; 'auto' leaves smaller N to the row kernel on the card
+CELL_MAIN = dict(chains=32, n=32768, rho=1.2, beta=1.0 / 0.45, frac_b=0.2,
+                 sigma=0.08, steps=40, every=10)
+# phase 7b: the species and pair pools at N 4096 x 64 with fused='cell';
+# hard disks at N 16384 x 16, eta 0.70, delta 0.12
+CELL_POOLS = dict(chains=64, n=4096, w_disp=0.8, sweeps=1)
+CELL_HD = dict(chains=16, n=16384, eta=0.70, delta=0.12, sweeps=2)
+# phase 7c: the row kernel against the cell path, one sweep a call, up to
+# the largest N the row kernel holds (ops/lj_sweep.py: MAX_PARTICLES), at
+# 64 chains and at 32 (the row kernel gives a chain one SM; the cell path's
+# host time a substep does not depend on the chains)
+CROSSOVER_N = (2048, 4096, 8192, 16384, 19114)
+CROSSOVER_CHAINS = (64, 32)
+PROFILED_N = (2048, 16384)      # the cell path profiled, layouts timed
+# phase 7d: one segment on the card and on the CPU from the same draws
+CELL_TWIN = dict(chains=8, n=4096, w_disp=0.7, substeps=60, seed=5)
 
 
 _ONCE = {}
@@ -1490,6 +1527,423 @@ def sweep_times(device, card):
     return out
 
 
+def cell_main(tmc, device, path, card):
+    """Phase 7a: ``examples/cell_mc_large_n.py``'s LJ run at full width
+    through ``Simulation.run`` with ``fused='auto'`` and no ``device=``:
+    the cell route, on the card, its cache against an O(N^2) recompute;
+    then a segment and a refresh of the run timed apart by CUDA events."""
+    import torch
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    cfg = CELL_MAIN
+    m, n, steps, every = cfg["chains"], cfg["n"], cfg["steps"], cfg["every"]
+    chains = lj.init_chains(m, n, rho=cfg["rho"], beta=cfg["beta"],
+                            frac_b=cfg["frac_b"], seed=42)
+    sim = tmc.Simulation(lj.make_system(), chains, [
+        dict(algorithm=tmc.Metropolis,
+             pool=(lj.lj_displacement_move(cfg["sigma"]),), seed=7,
+             sweepstep=n // 4, fused="auto"),
+        dict(algorithm=tmc.StoreCallbacks,
+             callbacks=(lj.callback_energy_per_particle,
+                        tmc.callback_acceptance),
+             scheduler=np.arange(every, steps + 1, every))], steps,
+        path=path)
+    met = sim.device_algos[0]
+    check(met._use_cell and met.supports_fused,
+          "the large-N LJ run did not take the cell path under 'auto'")
+    print(f"cell main path: N {n} x {m} chains, plan {met._cell_plan!r}")
+    torch.cuda.synchronize()
+    wall = timed_run(sim)
+    return sim, wall
+
+
+def cell_main_checks(sim, path, wall, card):
+    import torch
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    cfg = CELL_MAIN
+    m, n, steps, every = cfg["chains"], cfg["n"], cfg["steps"], cfg["every"]
+    met = sim.device_algos[0]
+    slc = sim.device_state["metropolis"]
+    st = sim.device_state["sys"]
+    cnt = slc["counters"]
+    att = int(cnt[..., 1].sum())
+    rate = float(cnt[..., 0].sum()) / att
+    # the run's parts timed apart: a segment of `every` steps and a refresh
+    # (the run ends on a refresh, so the cache is checked one segment on)
+    ds = sim.device_state
+    seg_ms = cuda_time(lambda: met.fused_advance(ds, every), 2, warm=False)
+    ref_ms = cuda_time(lambda: sim.system.refresh(ds["sys"]), 2, warm=False)
+    after = met.fused_advance(ds, every)["sys"]
+    st4 = dataclasses.replace(after, **{f.name: getattr(after, f.name)[:4]
+                                        for f in dataclasses.fields(after)})
+    full = lj.total_energy(st4, lj.LJParams(), row_batch=256)
+    err = float(((st4.energy - full).abs()
+                 - LJ_CACHE["rtol"] * full.abs()).max())
+    with open(os.path.join(path, "summary.log")) as f:
+        summary = f.read()
+    e = np.loadtxt(os.path.join(path, "energy_per_particle.dat"))
+    print(f"cell main path: {att} attempts ({att / m!r} a chain, requested "
+          f"{steps * n // 4}) in {wall!r} s wall ({att / wall!r} moves/s "
+          f"with recorders), acceptance {rate!r}, state on "
+          f"{st.pos.device.type}, overflow {bool(slc['cell_overflow'])}, "
+          f"energy per particle {float(e[0, 1])!r} -> {float(e[-1, 1])!r}, "
+          f"max |E - E(N^2)| over 4 chains one segment on "
+          f"{float((st4.energy - full).abs().max())!r} [{card}]")
+    check(st.pos.device.type == "cuda",
+          "the cell path's chains are not on the card")
+    check(not bool(slc["cell_overflow"]), "the cell path overflowed")
+    check(0.05 < rate < 0.98, f"cell main path acceptance {rate}")
+    check(bool(torch.isfinite(st.energy).all()) and err <= LJ_CACHE["atol"],
+          f"cell main path cached energy off the O(N^2) energy ({err})")
+    check(f"Cell MC: enabled ({met._cell_plan!r})" in summary,
+          "summary.log lacks the Cell MC: enabled line")
+    check(e.shape == (steps // every + 1, 2) and np.all(np.isfinite(e[:, 1])),
+          "cell main path energy_per_particle.dat")
+    per = met._cell_plan.nc ** 2 // 4
+    check(abs(att / m - steps * n // 4) <= per,
+          "cell main path: attempts off the requested count by more than "
+          "one substep")
+    n_seg = steps // every
+    print(f"time: cell main path breakdown: {n_seg} segments x {seg_ms!r} ms "
+          f"= {n_seg * seg_ms / 1e3!r} s, {n_seg} refreshes (O(N^2), "
+          f"row-batched) x {ref_ms!r} ms = {n_seg * ref_ms / 1e3!r} s, of "
+          f"{wall!r} s wall; the rest {wall - n_seg * (seg_ms + ref_ms) / 1e3!r}"
+          f" s is the host: start-up, recorders [{card}]")
+
+
+def cell_routes(tmc, root, card):
+    """Phase 7b: the LJ species pool and the poly pair pool at N 4096 x 64
+    with ``fused='cell'``, hard disks at N 16384 x 16, about a sweep each:
+    composition conserved, caches within bounds, hard disks overlap-free."""
+    import torch
+    from montecarlo_tpu_torch.models import hard_disks as hd
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    cfg = CELL_POOLS
+    m, n, wd = cfg["chains"], cfg["n"], cfg["w_disp"]
+    runs = {
+        "LJ species pool": (
+            lj, lj.init_chains(m, n, rho=1.2, beta=1.0 / 0.45, frac_b=0.2,
+                               seed=43),
+            (lj.lj_displacement_move(0.08, weight=wd),
+             lj.lj_swap_move(weight=1.0 - wd)), n, cfg["sweeps"], LJ_CACHE),
+        "poly pair pool": (
+            poly, poly.init_chains(m, n, rho=POLY["rho"], beta=POLY["beta"],
+                                   seed=44),
+            (poly.displacement_move(POLY["sigma"], weight=wd),
+             poly.swap_move(weight=1.0 - wd)), n, cfg["sweeps"], POLY_CACHE),
+        "hard disks": (
+            hd, hd.init_chains(CELL_HD["chains"], CELL_HD["n"],
+                               eta=CELL_HD["eta"], seed=45),
+            (hd.displacement_move(CELL_HD["delta"]),), CELL_HD["n"],
+            CELL_HD["sweeps"], None)}
+    for label, (mod, chains, pool, sweep, sweeps, bounds) in runs.items():
+        sim = tmc.Simulation(mod.make_system(), chains, [
+            dict(algorithm=tmc.Metropolis, pool=pool, seed=9,
+                 sweepstep=sweep, fused="cell")], sweeps,
+            path=os.path.join(root, label.replace(" ", "_")))
+        met = sim.device_algos[0]
+        torch.cuda.synchronize()
+        wall = timed_run(sim)
+        slc = sim.device_state["metropolis"]
+        # the run ends on a refresh: check the state one segment on
+        st = met.fused_advance(sim.device_state, 1)["sys"]
+        cnt = slc["counters"].sum(0).double()
+        rates = (cnt[:, 0] / cnt[:, 1]).tolist()
+        st4 = dataclasses.replace(st, **{f.name: getattr(st, f.name)[:4]
+                                         for f in dataclasses.fields(st)})
+        line = (f"cell route: {label}, {chains.pos.shape[0]} chains x N "
+                f"{chains.pos.shape[1]}, plan {met._cell_plan!r}, "
+                f"{int(cnt[:, 1].sum())} attempts in {wall!r} s wall, "
+                f"acceptance per move {rates}")
+        check(met._use_cell and not bool(slc["cell_overflow"]),
+              f"{label}: not on the cell path, or overflowed")
+        check(st.pos.device.type == "cuda",
+              f"{label}: chains not on the card")
+        check(all(0.01 < r < 0.99 for r in rates), f"{label}: acceptance "
+              f"{rates}")
+        if bounds is None:
+            dmin = hd.min_pair_distance(st4)
+            print(f"{line}; min pair distance over 4 chains "
+                  f"{float(dmin.min())!r} [{card}]")
+            check(bool(hd.overlap_free(st4).all()),
+                  "hard disks overlap after the cell path")
+            continue
+        if mod is lj:
+            full = lj.total_energy(st4, lj.LJParams(), row_batch=256)
+            kept = torch.equal(st.species.sum(1), chains.species.sum(1))
+        else:
+            full = poly.total_energy(st4, poly.PolyParams(), row_batch=256)
+            kept = torch.equal(torch.sort(st.diam, 1).values,
+                               torch.sort(chains.diam, 1).values)
+        err = float(((st4.energy - full).abs() - bounds["rtol"]
+                     * full.abs()).max())
+        print(f"{line}; composition kept {kept}, max |E - E(N^2)| over 4 "
+              f"chains {float((st4.energy - full).abs().max())!r} [{card}]")
+        check(kept, f"{label}: composition changed")
+        check(err <= bounds["atol"], f"{label}: cached energy off ({err})")
+
+
+def crossover(tmc, device, card):
+    """Phase 7c: the LJ displacement row kernel (#2) against the cell path
+    at 64 chains (and at 32), rho 1.2, sigma 0.08, one sweep a call,
+    N 2048 to 19114, by CUDA events, two passes in turns (row, cell, cell,
+    row); at 64 chains the cell path's launches per substep under
+    ``torch.profiler`` and the two neighbourhood layouts; at each N,
+    ``'auto'`` must pick the row kernel."""
+    import torch
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.ops import cell_mc
+    from montecarlo_tpu_torch.ops.lj_sweep import fused_lj_sweep
+    params = lj.LJParams()
+    pe, rc2, rcut = lj.cell_closures(params)
+    sigma = card_scalar(CELL_MAIN["sigma"], device)
+    for n in CROSSOVER_N:
+        chains = lj.init_chains(max(CROSSOVER_CHAINS), n,
+                                rho=CELL_MAIN["rho"], beta=CELL_MAIN["beta"],
+                                frac_b=CELL_MAIN["frac_b"], seed=46,
+                                device=device)
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke-",
+                                         dir=ROOT) as tmp:
+            met = tmc.Simulation(lj.make_system(), chains, [
+                dict(algorithm=tmc.Metropolis,
+                     pool=(lj.lj_displacement_move(CELL_MAIN["sigma"]),))],
+                1, path=tmp).device_algos[0]
+        check(met.supports_fused and not met._use_cell,
+              f"'auto' at N {n}: not the row kernel")
+        for m in CROSSOVER_CHAINS:
+            st = dataclasses.replace(chains, **{
+                f.name: getattr(chains, f.name)[:m]
+                for f in dataclasses.fields(chains)})
+            box = host_box(st)
+            grid = cell_mc.plan_grid(n, box, rcut, max_occupancy=int(
+                _occupancy(st, cell_mc.plan_grid(n, box, rcut).nc)))
+            a_att = grid.nc ** 2 // 4
+            n_sub = -(-n // a_att)       # a sweep, rounded up to substeps
+            gen = torch.Generator(device=device).manual_seed(1)
+            attempts = []
+
+            def row():
+                return fused_lj_sweep(st.pos, st.species, st.beta, st.energy,
+                                      box, sigma, SEED, 0, n, params=params)
+
+            def cell():
+                res = cell_mc.cell_mc_segment(
+                    grid, pe, rc2, st.pos, st.species.float(), st.beta,
+                    st.energy, sigma, cell_mc.GeneratorDraws(gen, 1, 0),
+                    n_sub, box=st.box)
+                attempts.append(res[3])
+                return res
+
+            row()
+            cell()                       # warm both
+            times = {"row": [], "cell": []}
+            for name in ("row", "cell", "cell", "row"):
+                times[name].append(cuda_time(row if name == "row" else cell,
+                                             1, warm=False))
+            cell_att = int(attempts[-1][:, 0].sum())
+            row_rate = [m * n / (t / 1e3) for t in times["row"]]
+            cell_rate = [cell_att / (t / 1e3) for t in times["cell"]]
+            print(f"crossover: N {n} x {m} chains, one sweep a call: row "
+                  f"kernel {times['row']} ms ({row_rate} moves/s), cell path "
+                  f"{times['cell']} ms for {n_sub} substeps of {grid!r} "
+                  f"({cell_rate} moves/s, {cell_att} attempts), cell / row "
+                  f"{np.mean(cell_rate) / np.mean(row_rate)!r}; 'auto' "
+                  f"takes the row kernel [{card}]")
+            if n in PROFILED_N and m == max(CROSSOVER_CHAINS):
+                cell_profile(grid, pe, rc2, st, sigma, card)
+                layouts(grid, st, card)
+
+
+def _occupancy(st, nc):
+    from montecarlo_tpu_torch.core.metropolis import _max_cell_occupancy
+    return _max_cell_occupancy(st, nc, 2)
+
+
+def cell_profile(grid, pe, rc2, st, sigma, card, n_sub=20):
+    """Launches and device time per substep of the cell path under
+    ``torch.profiler``: the runtime's kernel launches counted on the host
+    rows, the kernels' device time on the card's rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from montecarlo_tpu_torch.ops import cell_mc
+    gen = torch.Generator(device=st.pos.device).manual_seed(2)
+    args = (grid, pe, rc2, st.pos, st.species.float(), st.beta, st.energy,
+            sigma)
+    cell_mc.cell_mc_segment(*args, cell_mc.GeneratorDraws(gen, 2, 0), n_sub,
+                            box=st.box)
+    torch.cuda.synchronize()
+    counts = {}
+    for k in (0, n_sub):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            cell_mc.cell_mc_segment(*args, cell_mc.GeneratorDraws(gen, 2, 0),
+                                    k, box=st.box)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = busy = 0
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                busy += getattr(evt, "self_device_time_total",
+                                getattr(evt, "self_cuda_time_total", 0))
+            elif evt.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                             "cudaLaunchKernelExC", "cuLaunchKernelEx"):
+                launches += evt.count
+        counts[k] = (launches, busy / 1e3, wall * 1e3)
+    (l0, b0, w0), (l1, b1, w1) = counts[0], counts[n_sub]
+    print(f"profile: cell path at N {st.pos.shape[1]} x {st.pos.shape[0]} "
+          f"chains, {grid!r}: {(l1 - l0) / n_sub!r} kernel launches a "
+          f"substep ({l0} for the bind and unbind alone), the card busy "
+          f"{(b1 - b0) / n_sub!r} ms a substep of {(w1 - w0) / n_sub!r} ms "
+          f"wall under the profiler ({100 * (b1 - b0) / (w1 - w0)!r} % "
+          f"busy) [{card}]")
+    check(l1 > l0 and b1 > 0, "the profiler saw no cell-path launches")
+
+
+def layouts(grid, st, card):
+    """The two neighbourhood layouts of the reference's substep on the
+    same packed cells: one gather of the packed fields (the port's) and a
+    torus roll of the full grid per offset, sliced to the active cells and
+    concatenated (the reference's large-grid layout); equal, and timed."""
+    import torch
+    from montecarlo_tpu_torch.ops import cell_mc
+    s = torch.remainder(st.pos / st.box[:, None, None], 1.0)
+    P = cell_mc._pack(cell_mc.bind_cells(grid, s, st.species))
+    m, f, nc, cap = P.shape[0], P.shape[1], grid.nc, grid.cap
+    h, parity = nc // 2, (1, 0)
+    flat, _ = cell_mc._geometry(nc, 2, parity, str(P.device))
+
+    def gather():
+        return P.reshape(m, f, nc * nc, cap).index_select(2, flat).reshape(
+            m, f, h, h, 9 * cap)
+
+    def rolls():
+        return torch.cat([
+            torch.roll(P, (-dx, -dy), (2, 3))[:, :, parity[0]::2,
+                                               parity[1]::2]
+            for dx in (-1, 0, 1) for dy in (-1, 0, 1)], dim=-1)
+
+    same = torch.equal(gather(), rolls())
+    t_g = cuda_time(gather, 50)
+    t_r = cuda_time(rolls, 50)
+    print(f"layouts: {grid!r}, {m} chains: one gather {t_g!r} ms, nine rolls "
+          f"+ slices + a concat {t_r!r} ms, equal {same} [{card}]")
+    check(same, "the two neighbourhood layouts differ")
+
+
+def card_vs_cpu(device, card):
+    """Phase 7d: one segment of the LJ species pool (both kinds of substep)
+    on the card and on the CPU from the same cells and the same draws, made
+    once on the CPU; substep by substep, the accept decisions, counts and
+    cells compared.  A decision that differs (a flip) is allowed only where
+    both sides sit at the threshold within float32 rounding of the
+    neighbourhood sums; the card's cells are then set to the CPU's.
+    Returns the largest position difference at the end."""
+    import torch
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.ops import cell_mc
+    cfg = CELL_TWIN
+    m, n = cfg["chains"], cfg["n"]
+    pe, rc2, rcut = lj.cell_closures(lj.LJParams())
+    st = lj.init_chains(m, n, rho=1.2, beta=1.0 / 0.45, frac_b=0.2, seed=47,
+                        device="cpu")
+    grid = cell_mc.plan_grid(n, float(st.box[0]), rcut,
+                             max_occupancy=_occupancy(st, cell_mc.plan_grid(
+                                 n, float(st.box[0]), rcut).nc))
+    variants, _ = cell_mc._make_substep(grid, pe, rc2, "species")
+    draws = cell_mc.GeneratorDraws(torch.Generator().manual_seed(cfg["seed"]),
+                                   cfg["seed"], 0)
+    seq = draws.variants(cfg["substeps"], 4, cfg["w_disp"], True)
+    shift = draws.shift(m, 2, "cpu")
+    s = torch.remainder(st.pos / st.box[:, None, None] + shift[:, None, :],
+                        1.0)
+    s = torch.where(s >= 1.0, 0.0, s)
+    cpu = cell_mc.bind_cells(grid, s, st.species)
+    gpu = cell_mc.bind_cells(grid, s.to(device), st.species.to(device))
+    check(all(torch.equal(cpu[k], gpu[k].cpu()) for k in cpu),
+          "the card's bind differs from the CPU's")
+    P_c, P_g = cell_mc._pack(cpu), cell_mc._pack(gpu)
+    box_g, beta_g = st.box.to(device), st.beta.to(device)
+    sigma = torch.tensor(0.08)
+    seen = []
+    orig = cell_mc._chain_sums
+
+    def spy(d_e, attempted, accept):
+        seen.append((d_e, accept))
+        return orig(d_e, attempted, accept)
+
+    cell_mc._chain_sums = spy
+    flips = worst_margin = 0
+    try:
+        for i, (kind, color) in enumerate(seq.tolist()):
+            d = draws.substep(i, kind, m, grid.nc // 2, grid.cap, 2,
+                              "gaussian", "cpu")
+            seen.clear()
+            _, att_c, acc_c = variants[kind][color](P_c, st.box, sigma,
+                                                    st.beta, *d)
+            _, att_g, acc_g = variants[kind][color](
+                P_g, box_g, sigma.to(device), beta_g,
+                *(x.to(device) for x in d))
+            (de_c, a_c), (de_g, a_g) = seen[0], seen[1]
+            check(torch.equal(att_c, att_g.cpu()),
+                  f"substep {i}: attempts differ between card and CPU")
+            diff = a_c != a_g.cpu()
+            if bool(diff.any()):
+                log_u = torch.log(d[-1])
+                beta = st.beta.view(-1, 1, 1)
+                for de in (de_c, de_g.cpu()):
+                    margin = (log_u + beta * de).abs()[diff]
+                    bound = 1e-5 * (1.0 + (beta * de).abs()[diff])
+                    worst_margin = max(worst_margin, float(margin.max()))
+                    check(bool((margin <= bound).all()),
+                          f"substep {i}: an accept flip away from the "
+                          f"threshold ({margin.tolist()})")
+                flips += int(diff.sum())
+                P_g.copy_(P_c.to(device))
+            check(int((acc_c - acc_g.cpu()).abs().sum()) <= int(diff.sum()),
+                  f"substep {i}: accept counts differ beyond the flips")
+    finally:
+        cell_mc._chain_sums = orig
+
+    def positions(P, idx, box):
+        s_out, attr = cell_mc.unbind_cells(
+            {"crd": P[:, :2], "attr": P[:, 2], "idx": idx}, n)
+        frac = torch.remainder(s_out.cpu() - shift[:, None, :], 1.0)
+        return frac * st.box[:, None, None], attr.cpu()
+
+    pos_c, attr_c = positions(P_c, cpu["idx"], st.box)
+    pos_g, attr_g = positions(P_g, gpu["idx"], box_g)
+    dpos = float((pos_c - pos_g).abs().max())
+    same = torch.equal(attr_c, attr_g) and torch.equal(P_c[:, 3],
+                                                       P_g[:, 3].cpu())
+    print(f"card vs CPU: {len(seq)} substeps ({int((seq[:, 0] == 1).sum())} "
+          f"swaps) of {grid!r} at {m} chains x N {n}: {flips} accept flips "
+          f"(largest |log u + beta dE| at one {worst_margin!r}), max "
+          f"|position difference| {dpos!r}, species and occupancy equal "
+          f"{same} [{card}]")
+    check(dpos <= 1e-5 and same, "the card's segment differs from the CPU's")
+    return dpos
+
+
+def cell_phases(tmc, device, kernels, card):
+    """Phase 7: the cell path's main path (7a, reading every kernel's
+    launches: the cell route launches none), its other routes (7b), the
+    crossover with the row kernel (7c) and the card against the CPU
+    (7d)."""
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as tmp:
+        path = os.path.join(tmp, "cell_main")
+        (sim, wall), counts = counted(
+            kernels, lambda: cell_main(tmc, device, path, card))
+        print(f"main path: the cell path's run launches {counts}")
+        check(sum(counts.values()) == 0,
+              "the cell path's run launched a row kernel")
+        cell_main_checks(sim, path, wall, card)
+        del sim
+        cell_routes(tmc, tmp, card)
+    crossover(tmc, device, card)
+    card_vs_cpu(device, card)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", metavar="CSRC_DIR", default=None,
@@ -1497,6 +1951,9 @@ def main():
                              "to compare and time against")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the kernels' checks (phase 4)")
+    parser.add_argument("--cell-only", action="store_true",
+                        help="after the build, run only the cell path's "
+                             "phase 7")
     opts = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1530,6 +1987,11 @@ def main():
         print(f"build: {k.symbol} from {k.library_path()} "
               f"(nvcc wall {k.build_seconds!r} s)")
     print(f"build: all kernels ready in {time.perf_counter() - t0!r} s")
+
+    if opts.cell_only:
+        cell_phases(tmc, device, kernels, card)
+        print("chip_smoke: --cell-only: stopping after phase 7")
+        return 0
 
     parent = None
     if opts.parent is not None:
@@ -1697,6 +2159,9 @@ def main():
           f"{wall_poly!r} s wall, "
           f"{POLY['chains'] * POLY['n'] * POLY['sweeps'] / wall_poly!r}"
           f" moves/s with recorders [{card}]")
+    # 7. the cell path: no kernel of its own, the row kernels not launched
+    cell_phases(tmc, device, kernels, card)
+
     m2 = CONFIG2_CHAINS
     specs = [(
         "fused_gaussian_sweep", "fused_sweep.cu",

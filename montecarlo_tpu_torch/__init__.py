@@ -6,7 +6,12 @@ PyTorch, with the JAX package's hot-path Pallas kernels rewritten by hand in
 CUDA C++ for NVIDIA Hopper (``csrc/``).  Importing it needs neither ``jax``
 nor ``nvcc``: each kernel is compiled at its first launch.
 
-The public names are the ported subset of ``montecarlo_tpu``'s.
+The public names are the ported subset of ``montecarlo_tpu``'s.  The model
+families are ``montecarlo_tpu_torch.models`` (particle-1d, 2-D Lennard-Jones,
+2-D polydisperse soft spheres, 2-D hard disks); the checkerboard cell-MC
+path for large N is ``montecarlo_tpu_torch.ops.cell_mc``, which
+``Metropolis(fused='cell')`` (or ``'auto'`` at large N) drives, in plain
+PyTorch.
 """
 
 from .core.moves import Move, MoveDef, Policy, generic_apply, tree_select
@@ -22,6 +27,7 @@ from .core.simulation import Simulation, build_schedule, run
 from .utils.observability import Throughput
 from . import checkpoint
 from . import interop
+from . import models
 from . import policy_guided
 
 __version__ = "0.1.0"

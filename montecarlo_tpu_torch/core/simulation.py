@@ -18,6 +18,9 @@ work and syncs only where the host needs values:
   enqueued (a one-deep pipeline).
 - Host algorithms and short runs use the per-event path: advance, pull,
   write.
+- Every sync point checks the device state (``validate_state``) before its
+  records are written; an auto-selected cell-MC path whose bind overflowed
+  falls back and resumes from the last committed state (:func:`_execute`).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from __future__ import annotations
 import datetime
 import os
 import time
+import warnings
 from typing import Any, Dict, List
 
 import numpy as np
@@ -187,7 +191,7 @@ def run(simulation: Simulation):
         if sim.verbose:
             print("\033[1;32m\nRUNNING SIMULATION...\033[0m")
         t_start = time.perf_counter()
-        _execute_inner(sim)
+        _execute(sim)
         device_sync(sim.device_state)
         sim_time = time.perf_counter() - t_start
         if sim.verbose:
@@ -335,8 +339,41 @@ def _select_advance(sim: Simulation):
     return _make_advance(algos, always_on)
 
 
+def _execute(sim: Simulation):
+    """Run the time loop, falling back (and resuming from the last committed
+    sync point, whose records are all that was written) when an
+    auto-selected cell-MC bind overflows.  The generator is not rewound:
+    the segments after the fallback draw on from where the dropped ones
+    left it."""
+    from .metropolis import Metropolis
+    while True:
+        try:
+            return _execute_inner(sim)
+        except Metropolis.CellBindInvalid as e:
+            e.alg.disable_cell_path()
+            slc = sim.device_state.get(e.alg.state_key)
+            if isinstance(slc, dict) and "cell_overflow" in slc:
+                sim.device_state = {
+                    **sim.device_state,
+                    e.alg.state_key: {**slc, "cell_overflow": torch.zeros_like(
+                        slc["cell_overflow"])}}
+            warnings.warn(
+                "cell-MC bind exceeded the planned cell capacity at "
+                f"t={sim.t}; falling back to the row or generic path for the "
+                "rest of the run (raise cell_opts={'cap_slack': ...} to keep "
+                "the fast path)", RuntimeWarning, stacklevel=2)
+
+
 def _execute_inner(sim: Simulation):
     advance = _select_advance(sim)
+
+    def check_state(ds):
+        # surface latched device-side flags (an invalid cell bind) at every
+        # host sync point, before that point's records are written
+        for a in sim.device_algos:
+            validate = getattr(a, "validate_state", None)
+            if validate is not None:
+                validate(ds)
 
     # cache revalidation at observation points (SystemDef.refresh)
     if sim.system.refresh is not None:
@@ -396,8 +433,10 @@ def _execute_inner(sim: Simulation):
             recs = [sim.algorithms[i] for i in obs_ids]
 
             def flush(bufs, ds_after, ts):
-                # commit a chunk: copy its buffer to the host (by now the
-                # next chunk is already enqueued) and write it out
+                # commit a chunk: check its state, copy its buffer to the
+                # host (by now the next chunk is already enqueued) and write
+                # it out; a chunk whose state fails the check is dropped
+                check_state(ds_after)
                 vals = to_numpy(bufs)
                 for r, v in zip(recs, vals):
                     r.write_batch(sim, ts, v)
@@ -424,6 +463,7 @@ def _execute_inner(sim: Simulation):
             for t in times:
                 if t > sim.t:
                     ds = advance_r(ds, masks, t - sim.t)
+                    check_state(ds)
                     sim.t = t
                     sim.device_state = ds
                 if obs_ids:
@@ -442,6 +482,7 @@ def _execute_inner(sim: Simulation):
 
     if sim.t < sim.steps:
         ds = advance_r(ds, masks, sim.steps - sim.t)
+        check_state(ds)
         sim.t = sim.steps
     sim.device_state = ds
 

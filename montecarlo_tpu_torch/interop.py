@@ -5,10 +5,10 @@ both from the same state, one's chains are carried over to the other as
 numpy arrays.  Nothing here imports ``jax``: the JAX side converts its
 arrays with ``np.asarray``.
 
-Three families are carried: particle-1d (``x``, ``beta``, ``e``), 2-D
-Lennard-Jones (``pos``, ``species``, ``beta``, ``energy``, ``box``) and 2-D
+Four families are carried: particle-1d (``x``, ``beta``, ``e``), 2-D
+Lennard-Jones (``pos``, ``species``, ``beta``, ``energy``, ``box``), 2-D
 polydisperse soft spheres (``pos``, ``diam``, ``beta``, ``energy``,
-``box``).
+``box``) and 2-D hard disks (``pos``, ``box``).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .models.hard_disks import HardDiskState
 from .models.lennard_jones import LJState
 from .models.particle1d import Particle1DState
 from .models.polydisperse import PolyState
@@ -27,7 +28,8 @@ __all__ = ["chains_from_reference", "chains_to_reference"]
 
 _FIELDS = {Particle1DState: ("x", "beta", "e"),
            LJState: ("pos", "species", "beta", "energy", "box"),
-           PolyState: ("pos", "diam", "beta", "energy", "box")}
+           PolyState: ("pos", "diam", "beta", "energy", "box"),
+           HardDiskState: ("pos", "box")}
 _INT_FIELDS = ("species",)
 
 
@@ -36,8 +38,10 @@ def chains_from_reference(np_state, device=None):
     attributes) of chain-stacked arrays, as this package's state on
     ``device`` (the card, ``cuda``, when None), told apart by their fields: a
     :class:`PolyState` when there is a ``diam`` field, an :class:`LJState`
-    when there is a ``species`` field, else a :class:`Particle1DState`.
-    Labels stay int32, everything else becomes float32."""
+    when there is a ``species`` field, a :class:`HardDiskState` when there
+    is a ``pos`` field and neither of those, else a
+    :class:`Particle1DState`.  Labels stay int32, everything else becomes
+    float32."""
     if isinstance(np_state, Mapping):
         get, has = np_state.__getitem__, np_state.__contains__
     else:
@@ -45,7 +49,7 @@ def chains_from_reference(np_state, device=None):
         has = lambda k: hasattr(np_state, k)
     device = resolve_device(device)
     cls = (PolyState if has("diam") else LJState if has("species")
-           else Particle1DState)
+           else HardDiskState if has("pos") else Particle1DState)
     return cls(**{
         k: torch.as_tensor(np.array(get(k), dtype=np.int32
                                     if k in _INT_FIELDS else np.float32),
@@ -55,7 +59,7 @@ def chains_from_reference(np_state, device=None):
 
 def chains_to_reference(state) -> dict:
     """The inverse: the state's fields as numpy arrays, for the JAX
-    package's ``Particle1DState(**...)``, ``LJState(**...)`` or
-    ``PolyState(**...)``."""
+    package's ``Particle1DState(**...)``, ``LJState(**...)``,
+    ``PolyState(**...)`` or ``HardDiskState(**...)``."""
     return {k: getattr(state, k).detach().cpu().numpy()
             for k in _FIELDS[type(state)]}

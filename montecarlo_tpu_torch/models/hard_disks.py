@@ -1,0 +1,239 @@
+"""2-D hard disks: uniform measure over non-overlapping configurations.
+
+Port of the 2-D NVT subset of ``montecarlo_tpu/models/hard_disks.py``:
+disks of diameter 1 in a periodic square box, sampled by the generic
+Metropolis path (:func:`displacement_move`: a uniform square proposal, any
+overlap a certain rejection) or, at large N, by the checkerboard cell-MC
+path (:func:`cell_closures`: the hard core as an infinite energy wall).
+Every function works on all chains at once: positions are one (M, N, 2)
+tensor.
+
+Volume moves, event-chain MC (``ecmc_model``, ``ecmc_pressure``) and 3-D
+hard spheres are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.moves import Move, MoveDef, Policy
+from ..core.system import SystemDef
+from ..utils.device import resolve_device
+
+__all__ = [
+    "HardDiskState",
+    "make_system",
+    "init_chains",
+    "displacement_move",
+    "min_pair_distance",
+    "overlap_free",
+    "callback_min_distance",
+    "psi6",
+    "callback_psi6",
+    "cell_closures",
+]
+
+_DIAM = 1.0          # disk diameter (unit of length)
+_ROW_BATCH = 256     # rows per pass of the O(N^2) observables above N 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class HardDiskState:
+    """Chain-batched state."""
+    pos: torch.Tensor    # (M, N, 2) centers in [0, L)
+    box: torch.Tensor    # (M,) box edge L
+
+
+def make_system() -> SystemDef:
+    def log_target(state: HardDiskState):
+        # uniform over valid configurations; the moves enforce the hard core
+        return torch.zeros(state.pos.shape[0], dtype=torch.float32,
+                           device=state.pos.device)
+
+    def frame(state: HardDiskState):
+        return state.pos
+
+    def format_frame(t, pos):
+        n, d = pos.shape
+        lines = [f"{t} {n}"]
+        for k in range(n):
+            lines.append(" ".join(repr(float(pos[k, a]))
+                                  for a in range(d)))
+        return "\n".join(lines)
+
+    return SystemDef(name="HardDisks2D", log_target=log_target, frame=frame,
+                     format_frame=format_frame)
+
+
+def init_chains(n_chains: int, n_disks: int, eta: float, seed: int = 42,
+                device=None) -> HardDiskState:
+    """Square-lattice start at area fraction ``eta`` (< pi/4 ~ 0.785, so the
+    lattice has no overlap), each disk jittered uniformly by up to 0.45 of
+    the lattice's free spacing.  The jitter comes from a ``torch.Generator``
+    seeded with ``seed`` — a different stream than the JAX package's, so
+    ``interop.chains_from_reference`` carries its chains over instead.  The
+    chains are made on ``device``, the card (``cuda``) when it is None."""
+    device = resolve_device(device)
+    box = float((n_disks * np.pi * (_DIAM / 2) ** 2 / eta) ** 0.5)
+    side = int(np.ceil(n_disks ** 0.5))
+    spacing = box / side
+    if spacing < _DIAM:
+        raise ValueError(f"eta={eta} too dense for a lattice start")
+    grid = np.stack(np.meshgrid(np.arange(side), np.arange(side)),
+                    axis=-1).reshape(-1, 2)[:n_disks]
+    base = (grid + 0.5) * spacing
+    jit_amp = 0.45 * (spacing - _DIAM)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    jitter = jit_amp * (2.0 * torch.rand((n_chains, n_disks, 2),
+                                         generator=gen, device=device) - 1.0)
+    pos = torch.remainder(
+        torch.as_tensor(base, dtype=torch.float32, device=device)[None]
+        + jitter, box)
+    return HardDiskState(pos=pos, box=torch.full(
+        (n_chains,), box, dtype=torch.float32, device=device))
+
+
+# -- geometry ---------------------------------------------------------------
+
+def _rows_d(state: HardDiskState, rows):
+    """(M, R, N, 2) min-image displacements from particles ``rows`` to all."""
+    b = state.box[:, None, None, None]
+    d = state.pos[:, rows, None, :] - state.pos[:, None, :, :]
+    return d - b * torch.round(d / b)
+
+
+def _row_slices(n: int, row_batch):
+    if row_batch is None and n > 1024:
+        row_batch = _ROW_BATCH
+    step = n if row_batch is None or row_batch >= n else row_batch
+    return [slice(s, min(s + step, n)) for s in range(0, n, step)]
+
+
+def min_pair_distance(state: HardDiskState, row_batch: int = None):
+    """(M,) minimum min-image center distance over all pairs of each chain.
+
+    ``row_batch`` bounds peak memory to ``M x row_batch x N`` pair terms;
+    it defaults to 256 rows beyond N = 1024, as in the reference."""
+    n = state.pos.shape[1]
+    cols = torch.arange(n, device=state.pos.device)
+    best = None
+    for rows in _row_slices(n, row_batch):
+        d = _rows_d(state, rows)
+        r2 = torch.sum(d * d, dim=-1)
+        r2 = torch.where(cols[rows, None] == cols[None, :], torch.inf, r2)
+        m = torch.amin(r2, dim=(1, 2))
+        best = m if best is None else torch.minimum(best, m)
+    return torch.sqrt(best)
+
+
+def overlap_free(state: HardDiskState, tol: float = 1e-5):
+    """(M,) True where no two disks of the chain overlap."""
+    return min_pair_distance(state) >= _DIAM - tol
+
+
+def callback_min_distance(view):
+    return torch.mean(min_pair_distance(view.sys))
+
+
+def psi6(state: HardDiskState, r_nbr: float = 1.4, row_batch: int = None):
+    """(M,) global bond-orientational order |<psi6>| of each chain.
+
+    ``psi6_j = mean_k exp(6 i theta_jk)`` over neighbours within ``r_nbr``;
+    returns ``|mean_j psi6_j|`` (Bernard & Krauth 2011).  Row-batched
+    beyond N = 1024 like :func:`min_pair_distance`."""
+    n = state.pos.shape[1]
+    pc, ps = [], []
+    for rows in _row_slices(n, row_batch):
+        d = _rows_d(state, rows)
+        r2 = torch.sum(d * d, dim=-1)
+        # self-pairs have r2 == 0 exactly; exclude them by distance
+        nbr = (r2 < r_nbr * r_nbr) & (r2 > 1e-12)
+        theta = torch.atan2(d[..., 1], d[..., 0])
+        c = torch.where(nbr, torch.cos(6.0 * theta), 0.0)
+        s = torch.where(nbr, torch.sin(6.0 * theta), 0.0)
+        cnt = torch.clamp(torch.sum(nbr, dim=2), min=1)
+        pc.append(torch.sum(c, dim=2) / cnt)
+        ps.append(torch.sum(s, dim=2) / cnt)
+    return torch.sqrt(torch.mean(torch.cat(pc, 1), dim=1) ** 2
+                      + torch.mean(torch.cat(ps, 1), dim=1) ** 2)
+
+
+def callback_psi6(view):
+    """Chain-mean |psi6| (the slow orientational observable)."""
+    return torch.mean(psi6(view.sys))
+
+
+def cell_closures():
+    """(pair_energy, rcut2_of, rcut_max) for the checkerboard cell-MC path
+    (``ops/cell_mc.py``).
+
+    The hard core is an INFINITE energy wall: an overlapping proposal has
+    ``-beta dE = -inf``, and ``log(u) < -inf`` is False for every uniform
+    draw, the exact 0.0 included (whose ``log`` is also ``-inf``; a finite
+    wall such as 1e30 would accept there, about once per 2^23 attempts).
+    The current configuration is overlap-free, so the old energy is exactly
+    0 and no NaN arises.  Attributes are unused (pass zeros)."""
+
+    def pair_energy(r2, a_i, a_j):
+        return torch.full_like(r2, torch.inf)
+
+    def rcut2_of(a_i, a_j):
+        return _DIAM * _DIAM
+
+    return pair_energy, rcut2_of, _DIAM
+
+
+# -- Metropolis displacement move ------------------------------------------
+
+class UniformSquare(Policy):
+    """Uniform particle pick + uniform square displacement (symmetric)."""
+
+    def sample(self, params, generator, state):
+        m, n, d = state.pos.shape
+        dev = state.pos.device
+        i = torch.randint(0, n, (m,), generator=generator, device=dev)
+        delta = params["delta"][..., None] * (2.0 * torch.rand(
+            (m, d), generator=generator, device=dev) - 1.0)
+        return {"i": i, "delta": delta}
+
+    def log_density(self, params, action, state):
+        m, n, dim = state.pos.shape
+        d = params["delta"]
+        return (-dim * torch.log(2.0 * d)
+                - torch.log(torch.tensor(float(n), dtype=d.dtype))
+                ).expand(m)
+
+
+def displacement_move(delta: float, weight: float = 1.0) -> Move:
+    """Local move with hard-core rejection: overlap => dlogp = -inf."""
+
+    def apply(state: HardDiskState, action):
+        i, dlt = action["i"], action["delta"]
+        n = state.pos.shape[1]
+        mask = torch.arange(n, device=state.pos.device)[None, :] == i[:, None]
+        old = torch.sum(torch.where(mask[..., None], state.pos, 0.0), dim=1)
+        new = torch.remainder(old + dlt, state.box[:, None])
+        b = state.box[:, None, None]
+        d = state.pos - new[:, None, :]
+        d = d - b * torch.round(d / b)
+        r2 = torch.sum(d * d, dim=-1)
+        overlap = torch.any(~mask & (r2 < _DIAM * _DIAM), dim=1)
+        pos = torch.where(mask[..., None], new[:, None, :], state.pos)
+        dlogp = torch.where(overlap, -torch.inf, 0.0)
+        return dataclasses.replace(state, pos=pos), dlogp
+
+    def invert(action, new_state):
+        return {"i": action["i"], "delta": -action["delta"]}
+
+    def reward(action, new_state):
+        return torch.sum(action["delta"] ** 2, dim=-1)
+
+    md = MoveDef(name="HardDiskDisplacement", policy=UniformSquare(),
+                 apply=apply, invert=invert, reward=reward,
+                 kind="hard_disk_displacement_2d")
+    return Move(move=md,
+                params={"delta": torch.tensor(delta, dtype=torch.float32)},
+                weight=weight)

@@ -3,16 +3,18 @@
 Port of the 2-D subset of ``montecarlo_tpu/models/lennard_jones.py``: the
 binary Kob-Andersen mixture with truncated-and-shifted pair energies, the
 local displacement move and the species-swap move, each with an O(N)
-incremental ΔE against the energy cached in the state.  Every function works
-on all chains at once: positions are one (M, N, 2) tensor.
+incremental ΔE against the energy cached in the state, and the closures the
+checkerboard cell-MC path takes (:func:`cell_closures`).  Every function
+works on all chains at once: positions are one (M, N, 2) tensor.
 
-Volume moves, the virial pressure, event-chain MC, the cell-MC closures and
-3-D states are not ported yet.
+Volume moves, the virial pressure, event-chain MC and 3-D states are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -30,6 +32,7 @@ __all__ = [
     "lj_swap_move",
     "total_energy",
     "callback_energy_per_particle",
+    "cell_closures",
 ]
 
 
@@ -377,3 +380,22 @@ def lj_swap_move(weight: float = 1.0,
 def callback_energy_per_particle(view):
     n = view.sys.pos.shape[-2]
     return torch.mean(view.sys.energy) / n
+
+
+@functools.lru_cache(maxsize=None)
+def cell_closures(params: LJParams):
+    """(pair_energy, rcut2_of, rcut_max) for the checkerboard cell-MC path
+    (``ops/cell_mc.py``): the pair energy of :func:`total_energy` on the
+    species labels as float32 attributes; the caller gates the cutoff with
+    ``rcut2_of``."""
+
+    def pair_energy(r2, s_i, s_j):
+        eps, sig = params.coeffs(s_i, s_j)
+        return _pair_energy(r2, eps, sig, params.rcut)
+
+    def rcut2_of(s_i, s_j):
+        _, sig = params.coeffs(s_i, s_j)
+        return (params.rcut * sig) ** 2
+
+    rcut_max = params.rcut * float(np.max(np.asarray(params.sig)))
+    return pair_energy, rcut2_of, rcut_max

@@ -7,16 +7,18 @@ cutoff at ``r = x_c sigma_ij`` and the non-additive cross diameter
 ``sigma_ij = (d_i + d_j) / 2 * (1 - eps |d_i - d_j|)``, diameters drawn from
 ``P(d) ~ d^-3``, the local displacement move and the diameter-swap move
 (Ninarello, Berthier & Coslovich 2017), each with an O(N) incremental ΔE
-against the energy cached in the state.  Every function works on all chains
-at once: positions are one (M, N, 2) tensor.
+against the energy cached in the state, and the closures the checkerboard
+cell-MC path takes (:func:`cell_closures`).  Every function works on all
+chains at once: positions are one (M, N, 2) tensor.
 
-Volume moves, the density callback, the cell-MC closures, event-chain MC
-and 3-D states are not ported yet.
+Volume moves, the density callback, event-chain MC and 3-D states are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -37,6 +39,7 @@ __all__ = [
     "swap_move",
     "total_energy",
     "callback_energy_per_particle",
+    "cell_closures",
 ]
 
 
@@ -319,3 +322,21 @@ def swap_move(weight: float = 1.0,
 def callback_energy_per_particle(view):
     n = view.sys.pos.shape[-2]
     return torch.mean(view.sys.energy) / n
+
+
+@functools.lru_cache(maxsize=None)
+def cell_closures(params: PolyParams):
+    """(pair_energy, rcut2_of, rcut_max) for the checkerboard cell-MC path
+    (``ops/cell_mc.py``); the attributes are the particle diameters."""
+    coeffs = params.coeffs()
+
+    def pair_energy(r2, d_i, d_j):
+        return _pair_energy(r2, _sigma_ij(d_i, d_j, params.eps), params,
+                            *coeffs)
+
+    def rcut2_of(d_i, d_j):
+        return (params.xc * _sigma_ij(d_i, d_j, params.eps)) ** 2
+
+    # sigma_ij <= max(d_i, d_j): the non-additive term only shrinks it
+    rcut_max = params.xc * params.d_max
+    return pair_energy, rcut2_of, rcut_max

@@ -1,0 +1,557 @@
+"""Checkerboard cell-list Monte Carlo for large-N particle systems (2-D, NVT).
+
+Port of ``montecarlo_tpu/ops/cell_mc.py``.  The row kernels (``lj_sweep``,
+``poly_sweep``) cost O(N) a move, and a chain's moves are sequential.  Here
+the box is divided into an ``nc x nc`` grid of cells (``nc`` even, >= 4) of
+width ``w = box / nc >= rcut + 2 d_cap``, colored in a 2 x 2 checkerboard:
+
+- In one *substep* every cell of one color proposes a move for ONE
+  uniformly picked occupant.  Two active cells are never adjacent, and a
+  particle stays within ``d_cap`` of its storage cell for the whole segment
+  (a move leaving the ``+/- d_cap`` halo is rejected: a symmetric
+  restriction of the proposal set), so the simultaneous moves do not
+  interact and the substep is a product of independent MH updates.
+- A particle's partners within ``rcut`` lie in its 3 x 3 cell
+  neighbourhood, gathered once per substep.
+- Positions are stored as fractions of the box, and the grid's origin is
+  shifted by a fresh uniform offset per chain at every bind, which keeps
+  the halo coverage position-independent across segments.
+- Between segments the particles are binned anew (one stable argsort per
+  chain).
+
+Substeps draw their random numbers from a *draws* object
+(:class:`GeneratorDraws` by default): the substep-shared variant (kind,
+color) sequence on the host, so each substep runs one branch and the host
+never waits for the card inside a segment, and the per-cell uniforms and
+proposals as tensors.  A test can feed the JAX package's own draws instead.
+
+This is plain PyTorch on the chains' device; there is no hand-written kernel
+here, as the reference has no Pallas kernel here.
+"""
+
+from __future__ import annotations
+
+import functools
+import itertools
+import math
+
+import numpy as np
+import torch
+
+__all__ = ["CellGrid", "plan_grid", "bind_cells", "unbind_cells",
+           "cell_total_energy", "cell_mc_segment", "GeneratorDraws"]
+
+
+class CellGrid:
+    """Static cell-decomposition plan (hashable).
+
+    ``box`` is the *planning* box (used only to choose ``nc``); a chain's
+    own box must be at least ``box_min = nc * (rcut + 2 d_cap)``.
+    """
+
+    def __init__(self, nc: int, cap: int, box: float, d_cap: float,
+                 rcut: float, dim: int = 2):
+        self.nc = int(nc)
+        self.cap = int(cap)
+        self.box = float(box)
+        self.dim = int(dim)
+        self.w = self.box / self.nc          # planning-box cell width
+        self.d_cap = float(d_cap)
+        self.rcut = float(rcut)
+        self.wmin = self.rcut + 2.0 * self.d_cap
+        self.box_min = self.nc * self.wmin   # smallest valid box edge
+
+    def __repr__(self):
+        return (f"CellGrid(nc={self.nc}, cap={self.cap}, box={self.box}, "
+                f"d_cap={self.d_cap}, rcut={self.rcut}, dim={self.dim})")
+
+    def _key(self):
+        return (self.nc, self.cap, self.box, self.d_cap, self.rcut, self.dim)
+
+    def __hash__(self):
+        return hash(self._key())
+
+    def __eq__(self, other):
+        return isinstance(other, CellGrid) and self._key() == other._key()
+
+
+def plan_grid(n_particles: int, box: float, rcut: float,
+              d_cap: float = 0.45, cap_slack: float = 2.0, dim: int = 2,
+              max_occupancy: int = None, box_margin: float = 0.0) -> CellGrid:
+    """Choose the largest even cell grid with ``w >= rcut + 2 d_cap``.
+
+    ``box_margin`` shrinks the box used for planning by that fraction.
+    ``cap`` (slots per cell) is the larger of ``mean occupancy x
+    cap_slack`` and ``max_occupancy + 2`` (the observed initial per-cell
+    maximum, when the caller measured one), rounded up to a multiple of 8.
+    Raises if the box only fits a grid smaller than 4 cells per axis (the
+    3^dim neighbourhood must hold distinct cells).
+    """
+    plan_box = box * (1.0 - box_margin)
+    nc = int(plan_box / (rcut + 2.0 * d_cap))
+    nc -= nc % 2
+    if nc < 4:
+        raise ValueError(
+            f"box {box:.3g} too small for cell MC with rcut {rcut}, "
+            f"d_cap {d_cap} and margin {box_margin}: need >= 4 cells per "
+            f"axis")
+    mean_occ = n_particles / (nc ** dim)
+    cap = mean_occ * cap_slack
+    if max_occupancy is not None:
+        cap = max(cap, max_occupancy + 2.0)
+    cap = max(8, int(math.ceil(cap / 8.0)) * 8)
+    return CellGrid(nc=nc, cap=cap, box=box, d_cap=d_cap, rcut=rcut,
+                    dim=dim)
+
+
+# ---------------------------------------------------------------------------
+# Binding: (M, N, ...) particle tensors <-> (M, ..., nc, ..., C) cell tensors
+# ---------------------------------------------------------------------------
+
+def bind_cells(grid: CellGrid, s, attr):
+    """Bin every chain's particles (fractional coordinates) into cell slots.
+
+    Args:
+      s: (M, N, dim) fractional positions in [0, 1).
+      attr: (M, N) per-particle attribute (species label or diameter).
+
+    Returns a dict: ``crd`` (M, dim, nc, ..., C) fractional coordinates,
+    ``attr`` (M, nc, ..., C) float32, ``occ`` (bool) and ``idx`` (int32,
+    the particle's index, N where the slot is empty), each (M, nc, ..., C),
+    and ``overflow`` (M,) bool: some cell of the chain holds more than C
+    particles (the caller must treat the chain's segment as invalid).  In
+    an overflowing cell the slot C - 1 holds its last particle, as the
+    reference's last-write-wins scatter leaves it.
+    """
+    m, n, dim = s.shape
+    nc, cap = grid.nc, grid.cap
+    dev = s.device
+    ci = torch.clamp((s * nc).to(torch.int32), 0, nc - 1)
+    cid = ci[..., 0]
+    for a in range(1, dim):
+        cid = cid * nc + ci[..., a]
+    order = torch.argsort(cid, dim=1, stable=True)
+    cid_s = torch.gather(cid, 1, order)
+    r = torch.arange(n, device=dev)
+    step = cid_s[:, 1:] != cid_s[:, :-1]
+    edge = torch.ones((m, 1), dtype=torch.bool, device=dev)
+    is_new = torch.cat([edge, step], dim=1)
+    is_last = torch.cat([step, edge], dim=1)
+    seg_start = torch.cummax(torch.where(is_new, r, 0), dim=1).values
+    rank = r - seg_start
+    overflow = torch.any(rank >= cap, dim=1)
+    n_slots = nc ** dim * cap
+    # one writer per slot: a spare column takes the particles the
+    # reference's scatter overwrites, so the card's scatter is deterministic
+    write = (rank < cap - 1) | is_last
+    slot = torch.where(write, cid_s.long() * cap + torch.clamp(rank, max=cap - 1),
+                       n_slots)
+    shape = (m,) + (nc,) * dim + (cap,)
+
+    def scatter(src, fill):
+        out = torch.full((m, n_slots + 1), fill, dtype=src.dtype, device=dev)
+        out.scatter_(1, slot, torch.gather(src, 1, order))
+        return out[:, :n_slots].reshape(shape)
+
+    return {
+        "crd": torch.stack([scatter(s[..., a], 0.0) for a in range(dim)],
+                           dim=1),
+        "attr": scatter(attr.to(torch.float32), 0.0),
+        "occ": scatter(torch.ones((m, n), dtype=torch.bool, device=dev),
+                       False),
+        "idx": scatter(r.to(torch.int32).expand(m, n), n),
+        "overflow": overflow,
+    }
+
+
+def unbind_cells(cells, n: int):
+    """Inverse of :func:`bind_cells`: (M, N, dim) fractional positions and
+    (M, N) attributes in the ORIGINAL particle order (via ``idx``)."""
+    crd = cells["crd"]
+    m, dim = crd.shape[:2]
+    idx = cells["idx"].reshape(m, -1).long()
+
+    def gather_back(src):
+        out = torch.zeros((m, n + 1), dtype=torch.float32, device=crd.device)
+        out.scatter_(1, idx, src.reshape(m, -1))
+        return out[:, :n]
+
+    s = torch.stack([gather_back(crd[:, a]) for a in range(dim)], dim=-1)
+    return s, gather_back(cells["attr"])
+
+
+# ---------------------------------------------------------------------------
+# The substep
+# ---------------------------------------------------------------------------
+# Inside a segment the cells are one packed float32 tensor P of shape
+# (M, dim + 2, nc, ..., C): the fractional coordinates, the attribute and
+# the occupancy (1.0 / 0.0), so that one gather builds a color's whole
+# neighbourhood.
+
+@functools.lru_cache(maxsize=None)
+def _geometry(nc: int, dim: int, parity: tuple, device: str):
+    """A color's static geometry: the flat cell index of each active cell's
+    3^dim neighbours, (h^dim * 3^dim,) in active-cell order and the
+    reference's offset order; and the active cells' fractional origins
+    (dim, h, ..., h) (float32, divided as the reference divides)."""
+    h = nc // 2
+    offsets = list(itertools.product((-1, 0, 1), repeat=dim))
+    active = np.stack(np.meshgrid(*[np.arange(h)] * dim, indexing="ij"),
+                      axis=-1) * 2 + np.asarray(parity)     # (h, ..., dim)
+    nb = (active[..., None, :] + np.asarray(offsets)) % nc  # (..., 3^d, dim)
+    flat = np.zeros(nb.shape[:-1], np.int64)
+    for a in range(dim):
+        flat = flat * nc + nb[..., a]
+    origin = np.moveaxis(active.astype(np.float32) / np.float32(nc), -1, 0)
+    return (torch.as_tensor(flat.reshape(-1), device=device),
+            torch.as_tensor(np.ascontiguousarray(origin), device=device))
+
+
+def _active(P, parity):
+    """View of the active color's cells: (M, F, h, ..., h, C)."""
+    return P[(slice(None), slice(None))
+             + tuple(slice(p, None, 2) for p in parity)]
+
+
+def _make_substep(grid: CellGrid, pair_energy, rcut2_of, swap_mode=None):
+    """Build the one-color multi-move MH substeps over all chains.
+
+    ``pair_energy(r2, a_i, a_j) -> u`` and ``rcut2_of(a_i, a_j) -> rc^2``
+    define the model (attributes are the species labels or diameters).
+
+    Returns ``(variants, total_energy)``: ``variants[kind][color]`` is a
+    function ``(P, box, sigma, beta, *draws) -> (dE, n_att, n_acc)`` that
+    updates the packed cells ``P`` in place and returns per-chain sums;
+    kind 0 is the displacement, kind 1 (when ``swap_mode`` is set) the
+    within-cell attribute swap: ``"species"`` exchanges the labels of one A
+    and one B occupant, ``"pair"`` the diameters of an ordered pair of
+    distinct occupants.  Both keep the pick probabilities of the reverse
+    swap, and swapped particles never move, so same-color swaps are
+    independent by the displacement's geometry.
+    """
+    nc, cap, dim = grid.nc, grid.cap, grid.dim
+    d_cap = grid.d_cap
+    h = nc // 2
+    n_off = 3 ** dim
+    centre = n_off // 2
+    w_f = 1.0 / nc
+    parities = tuple(itertools.product((0, 1), repeat=dim))
+
+    def neighbourhood(P, parity):
+        """The active cells' 3^dim neighbourhoods, one gather of the packed
+        fields: (M, F, h, ..., h, 3^dim * C), offset-major along the slots,
+        as the reference concatenates them (on an H100 the gather took
+        ~1/14 the time of the reference's large-grid layout, a torus roll
+        per offset: ``chip_smoke.py`` phase 7c)."""
+        flat, _ = _geometry(nc, dim, parity, str(P.device))
+        m, f = P.shape[:2]
+        nb = P.reshape(m, f, nc ** dim, cap).index_select(2, flat)
+        return nb.reshape((m, f) + (h,) * dim + (n_off * cap,))
+
+    def excl_centre(occ9, sel):
+        """``occ9`` with ``sel`` (M, h, ..., C) masked out of the centre
+        block (the mover's or the swappers' own slots), in place."""
+        blk = occ9[..., centre * cap:(centre + 1) * cap]
+        blk &= ~sel
+        return occ9
+
+    def dist2(pc, crd9, box2):
+        """Squared min-image distances from probes ``pc`` (M, dim, h.., 1)
+        to the neighbourhood, scaled to real units once after the sum."""
+        d = crd9 - pc
+        d = d - torch.round(d)
+        d = d * d
+        r2 = d[:, 0]
+        for a in range(1, dim):
+            r2 = r2 + d[:, a]
+        return r2 * box2
+
+    def energy(r2, pa, as9, ok9):
+        u = pair_energy(r2, pa, as9)
+        ok = ok9 & (r2 < rcut2_of(pa, as9))
+        return torch.sum(torch.where(ok, u, 0.0), dim=-1)
+
+    def pick(sel_idx, act):
+        """The fields of each active cell's picked slot: (M, F, h.., 1)."""
+        idx = sel_idx.unsqueeze(1).expand(act.shape[:-1] + (1,))
+        return torch.gather(act, -1, idx)
+
+    def gumbel_pick(u, mask):
+        """One-hot uniform pick among ``mask`` slots (all False where the
+        mask is empty), the lowest slot breaking float ties, and the picked
+        slot's index."""
+        score = torch.where(mask, u, -1.0)
+        k = torch.argmax(score, dim=-1, keepdim=True)
+        slots = torch.arange(cap, device=u.device)
+        return (slots == k) & mask, k
+
+    def chain_view(x):
+        return x.reshape((-1,) + (1,) * dim)
+
+    def make_color(parity):
+        def color_substep(P, box, sigma, beta, u_pick, draw, u_acc):
+            _, origin = _geometry(nc, dim, parity, str(P.device))
+            act = _active(P, parity)              # (M, F, h.., C)
+            occ_a = act[:, dim + 1] > 0.5
+            sel, k = gumbel_pick(u_pick, occ_a)
+            has = torch.any(occ_a, dim=-1)
+            picked = pick(k, act)
+            pi = picked[:, :dim]                  # (M, dim, h.., 1)
+            ai = picked[:, dim]                   # (M, h.., 1)
+            # fractional displacement, then the anchor halo: the new
+            # position must stay within d_cap of the storage cell
+            delta = chain_view(sigma / box)[..., None] * draw
+            pn = pi + torch.movedim(delta, -1, 1)[..., None]
+            d_cap_f = chain_view(torch.full_like(box, d_cap) / box)
+            inbox = None
+            for a in range(dim):
+                lo = origin[a] - d_cap_f
+                hi = (origin[a] + w_f) + d_cap_f
+                x = pn[:, a, ..., 0]
+                ok = (x >= lo) & (x < hi)
+                inbox = ok if inbox is None else inbox & ok
+            nb = neighbourhood(P, parity)
+            crd9, as9 = nb[:, :dim], nb[:, dim]
+            ok9 = excl_centre(nb[:, dim + 1] > 0.5, sel)
+            box2 = chain_view(box * box)[..., None]
+            d_e = (energy(dist2(pn, crd9, box2), ai, as9, ok9)
+                   - energy(dist2(pi, crd9, box2), ai, as9, ok9))
+            accept = has & inbox & (torch.log(u_acc)
+                                    < chain_view(-beta) * d_e)
+            upd = (sel & accept[..., None]).unsqueeze(1)
+            crd_a = act[:, :dim]
+            crd_a.copy_(torch.where(upd, pn, crd_a))
+            return _chain_sums(d_e, has, accept)
+
+        return color_substep
+
+    def make_color_swap(parity):
+        def swap_substep(P, box, sigma, beta, u_i, u_j, u_acc):
+            act = _active(P, parity)
+            occ_a = act[:, dim + 1] > 0.5
+            attr_a = act[:, dim]
+            if swap_mode == "species":
+                is_b = attr_a > 0.5
+                sel_i, k_i = gumbel_pick(u_i, occ_a & ~is_b)
+                sel_j, k_j = gumbel_pick(u_j, occ_a & is_b)
+            else:                       # "pair": ordered distinct pair
+                sel_i, k_i = gumbel_pick(u_i, occ_a)
+                sel_j, k_j = gumbel_pick(u_j, occ_a & ~sel_i)
+            valid = torch.any(sel_i, dim=-1) & torch.any(sel_j, dim=-1)
+            p_i, p_j = pick(k_i, act), pick(k_j, act)
+            nb = neighbourhood(P, parity)
+            crd9, as9 = nb[:, :dim], nb[:, dim]
+            # both swappers excluded: their own pair term is symmetric under
+            # the exchange and cancels in dE
+            ok9 = excl_centre(nb[:, dim + 1] > 0.5, sel_i | sel_j)
+            box2 = chain_view(box * box)[..., None]
+            r2_i = dist2(p_i[:, :dim], crd9, box2)
+            r2_j = dist2(p_j[:, :dim], crd9, box2)
+            ai, aj = p_i[:, dim], p_j[:, dim]
+            e_old = energy(r2_i, ai, as9, ok9) + energy(r2_j, aj, as9, ok9)
+            e_new = energy(r2_i, aj, as9, ok9) + energy(r2_j, ai, as9, ok9)
+            d_e = e_new - e_old
+            accept = valid & (torch.log(u_acc) < chain_view(-beta) * d_e)
+            upd_i = sel_i & accept[..., None]
+            upd_j = sel_j & accept[..., None]
+            attr_a.copy_(torch.where(upd_i, aj,
+                                     torch.where(upd_j, ai, attr_a)))
+            return _chain_sums(d_e, valid, accept)
+
+        return swap_substep
+
+    def total_energy(P, box):
+        """(M,) full energy of the bound configurations: one all-cells
+        3^dim-neighbourhood pass."""
+        m = P.shape[0]
+        crd, attr, occ = P[:, :dim], P[:, dim], P[:, dim + 1] > 0.5
+        box2 = (box * box).reshape((m,) + (1,) * (dim + 2))
+        spatial = tuple(range(1, dim + 1))
+        e = None
+        for off in itertools.product((-1, 0, 1), repeat=dim):
+            shift = tuple(-o for o in off)
+            crd_n = torch.roll(crd, shift, tuple(s + 1 for s in spatial))
+            attr_n = torch.roll(attr, shift, spatial)
+            occ_n = torch.roll(occ, shift, spatial)
+            r2 = 0.0
+            for a in range(dim):
+                d = crd_n[:, a][..., None, :] - crd[:, a][..., :, None]
+                d = d - torch.round(d)
+                r2 = r2 + d * d                    # (M, nc.., C, C)
+            r2 = r2 * box2
+            a_i = attr[..., :, None]
+            a_j = attr_n[..., None, :]
+            ok = (occ[..., :, None] & occ_n[..., None, :]
+                  & (r2 < rcut2_of(a_i, a_j)))
+            if off == (0,) * dim:
+                ok = ok & ~torch.eye(cap, dtype=torch.bool, device=P.device)
+            u = pair_energy(r2, a_i, a_j)
+            s = torch.sum(torch.where(ok, u, 0.0).reshape(m, -1), dim=1)
+            e = s if e is None else e + s
+        return 0.5 * e
+
+    variants = [[make_color(p) for p in parities]]
+    if swap_mode is not None:
+        variants.append([make_color_swap(p) for p in parities])
+    return variants, total_energy
+
+
+def _chain_sums(d_e, attempted, accept):
+    """Per-chain (accepted dE, attempts, accepts) of one substep."""
+    axes = tuple(range(1, d_e.dim()))
+    return (torch.sum(torch.where(accept, d_e, 0.0), dim=axes),
+            torch.sum(attempted, dim=axes), torch.sum(accept, dim=axes))
+
+
+def _pack(cells):
+    return torch.cat([cells["crd"], cells["attr"][:, None],
+                      cells["occ"][:, None].to(torch.float32)], dim=1)
+
+
+def _chain_box(box, m, device, default):
+    if box is None:
+        box = default
+    return torch.as_tensor(box, dtype=torch.float32,
+                           device=device).reshape(-1).expand(m)
+
+
+def cell_total_energy(grid: CellGrid, pair_energy, rcut2_of, pos, attr,
+                      box):
+    """(M,) full energies of chain-stacked configurations (positions
+    (M, N, dim) in real units, box (M,) or a scalar) through the cell
+    decomposition."""
+    m = pos.shape[0]
+    box = _chain_box(box, m, pos.device, grid.box)
+    s = torch.remainder(pos / box[:, None, None], 1.0)
+    _, total = _make_substep(grid, pair_energy, rcut2_of)
+    return total(_pack(bind_cells(grid, s, attr)), box)
+
+
+# ---------------------------------------------------------------------------
+# Draws
+# ---------------------------------------------------------------------------
+
+class GeneratorDraws:
+    """A segment's draws (the protocol :func:`cell_mc_segment` takes).
+
+    - ``variants(n_substeps, n_colors, w_disp, swap)``: a host (n, 2) int
+      array of each substep's (kind, color), shared by all chains, from a
+      counter-based generator keyed by (``seed``, ``micro_t0``), the
+      segment's absolute first micro-step: it holds no state, so a resumed
+      run draws the same sequence;
+    - ``shift(m, dim, device)``: the (M, dim) uniform grid origins;
+    - ``substep(i, kind, m, h, cap, dim, proposal, device)``: substep
+      ``i``'s tensors, ``(u_pick, draw, u_acc)`` for a displacement (the
+      draw (M, h.., dim): standard normal for the ``"gaussian"`` proposal,
+      uniform in [-1, 1) for the ``"square"`` one) and ``(u_i, u_j,
+      u_acc)`` for a swap; the uniforms are in [0, 1).
+
+    Here the tensors come from ``generator`` on the chains' device.
+    """
+
+    def __init__(self, generator, seed: int, micro_t0: int):
+        self.generator = generator
+        self.seed = int(seed)
+        self.micro_t0 = int(micro_t0)
+
+    def variants(self, n_substeps, n_colors, w_disp, swap):
+        key = np.array([self.seed & (2 ** 64 - 1), self.micro_t0], np.uint64)
+        rng = np.random.Generator(np.random.Philox(key=key))
+        color = rng.integers(0, n_colors, size=n_substeps)
+        u = rng.random(n_substeps, dtype=np.float32)
+        kind = (u >= np.float32(w_disp)).astype(np.int64) if swap \
+            else np.zeros(n_substeps, np.int64)
+        return np.stack([kind, color], axis=1)
+
+    def _rand(self, shape, device):
+        return torch.rand(shape, generator=self.generator, device=device)
+
+    def shift(self, m, dim, device):
+        return self._rand((m, dim), device)
+
+    def substep(self, i, kind, m, h, cap, dim, proposal, device):
+        cells = (m,) + (h,) * dim
+        first = self._rand(cells + (cap,), device)
+        if kind == 0:
+            shape = cells + (dim,)
+            prop = (torch.randn(shape, generator=self.generator,
+                                device=device)
+                    if proposal == "gaussian"
+                    else 2.0 * self._rand(shape, device) - 1.0)
+            return first, prop, self._rand(cells, device)
+        return first, self._rand(cells + (cap,), device), \
+            self._rand(cells, device)
+
+
+# ---------------------------------------------------------------------------
+# Segment driver
+# ---------------------------------------------------------------------------
+
+def cell_mc_segment(grid: CellGrid, pair_energy, rcut2_of, pos, attr, beta,
+                    energy, sigma, draws, n_substeps: int,
+                    w_disp: float = 1.0, swap_mode=None, box=None,
+                    proposal: str = "gaussian"):
+    """Run ``n_substeps`` checkerboard substeps on chain-stacked state.
+
+    Args:
+      grid: the :class:`CellGrid` plan.
+      pair_energy / rcut2_of: the model's closures on (r2, attr_i, attr_j).
+      pos: (M, N, dim) real-space positions; attr: (M, N);
+      beta, energy: (M,); box: (M,) per-chain box edges, or a scalar.
+      sigma: proposal width (real units): a Gaussian's standard deviation,
+        or the square proposal's half-width.
+      draws: the segment's draws (:class:`GeneratorDraws`'s protocol).
+      n_substeps: host int; a substep attempts ~nc^dim / 2^dim moves per
+        chain.
+      w_disp: the probability that a substep is a displacement (the rest
+        are swaps; 1 without ``swap_mode``).
+      swap_mode: None, ``"species"`` or ``"pair"``.
+      proposal: ``"gaussian"`` or ``"square"`` (the hard-disk convention).
+
+    Returns ``(pos', attr', energy', attempts, accepts, invalid)`` with
+    attempts/accepts (M, 2) int32 (columns: displacement, swap) and invalid
+    (M,) bool: the chain's bind overflowed a cell, or its box is below the
+    grid's validity floor.  Invalid chains pass through UNCHANGED with zero
+    counters; the caller must surface the flag.  The host does not wait for
+    the device anywhere in here.
+    """
+    m, n, dim = pos.shape
+    if dim != grid.dim:
+        raise ValueError(f"grid is {grid.dim}-D but positions are {dim}-D")
+    dev = pos.device
+    variants, _ = _make_substep(grid, pair_energy, rcut2_of, swap_mode)
+    box = _chain_box(box, m, dev, grid.box)
+    sigma = torch.as_tensor(sigma, dtype=torch.float32, device=dev)
+    seq = draws.variants(int(n_substeps), 2 ** dim,
+                         w_disp if swap_mode is not None else 1.0,
+                         swap_mode is not None)
+    shift = draws.shift(m, dim, dev)                      # (M, dim)
+    s = torch.remainder(pos / box[:, None, None] + shift[:, None, :], 1.0)
+    s = torch.where(s >= 1.0, 0.0, s)   # f32 mod of -eps can return 1.0
+    cells = bind_cells(grid, s, attr)
+    invalid = cells["overflow"] | (box < grid.box_min)
+    P = _pack(cells)
+    e = energy
+    att = torch.zeros((m, 2), dtype=torch.int32, device=dev)
+    acc = torch.zeros((m, 2), dtype=torch.int32, device=dev)
+    h = grid.nc // 2
+    for i, (kind, color) in enumerate(seq.tolist()):
+        d = draws.substep(i, kind, m, h, grid.cap, dim, proposal, dev)
+        d_e, n_att, n_acc = variants[kind][color](P, box, sigma, beta, *d)
+        e = e + d_e
+        att[:, kind] += n_att.to(torch.int32)
+        acc[:, kind] += n_acc.to(torch.int32)
+    s_out, attr_out = unbind_cells(
+        {"crd": P[:, :dim], "attr": P[:, dim], "idx": cells["idx"]}, n)
+    frac = torch.remainder(s_out - shift[:, None, :], 1.0)
+    frac = torch.where(frac >= 1.0, 0.0, frac)  # keep pos strictly in [0, box)
+    pos_out = frac * box[:, None, None]
+    # invalid chains: the whole segment is a no-op (their bind dropped
+    # particles), counters zeroed so the corruption cannot leak
+    pos_out = torch.where(invalid[:, None, None], pos, pos_out)
+    attr_out = torch.where(invalid[:, None], attr.to(torch.float32),
+                           attr_out)
+    e = torch.where(invalid, energy, e)
+    att = torch.where(invalid[:, None], 0, att)
+    acc = torch.where(invalid[:, None], 0, acc)
+    return pos_out, attr_out, e, att, acc, invalid

@@ -16,6 +16,7 @@ import torch
 import montecarlo_tpu_torch as tmc
 from montecarlo_tpu_torch import interop
 from montecarlo_tpu_torch import policy_guided as pg
+from montecarlo_tpu_torch.models import hard_disks as hd
 from montecarlo_tpu_torch.models import lennard_jones as lj
 from montecarlo_tpu_torch.models import particle1d as p1d
 from montecarlo_tpu_torch.models import polydisperse as poly
@@ -33,6 +34,8 @@ ENTRY_POINTS = {
     "polydisperse.init_chains":
         lambda **kw: poly.init_chains(2, 9, rho=0.9, beta=2.0, seed=1,
                                       **kw).pos,
+    "hard_disks.init_chains":
+        lambda **kw: hd.init_chains(2, 9, eta=0.5, seed=1, **kw).pos,
     "interop.chains_from_reference":
         lambda **kw: interop.chains_from_reference(_NP_P1D, **kw).x,
     "init_gradient_data":

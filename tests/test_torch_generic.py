@@ -119,7 +119,7 @@ def test_metropolis_rejects_bad_options(tmp_path):
         build(pool=())
     with pytest.raises(ValueError):
         build(pool=(p1d.displacement_move(0.5),), fused="fast")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="fused='cell' requested but"):
         build(pool=(p1d.displacement_move(0.5),), fused="cell")
     with pytest.raises(ValueError):
         build(pool=(p1d.displacement_move(0.5, weight=0.0),))

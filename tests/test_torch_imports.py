@@ -22,6 +22,8 @@ def test_port_imports_without_jax():
         "import montecarlo_tpu_torch.models.lennard_jones\n"
         "import montecarlo_tpu_torch.ops.poly_sweep\n"
         "import montecarlo_tpu_torch.models.polydisperse\n"
+        "import montecarlo_tpu_torch.ops.cell_mc\n"
+        "import montecarlo_tpu_torch.models.hard_disks\n"
         "import montecarlo_tpu_torch.policy_guided\n"
         "import montecarlo_tpu_torch.checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -52,3 +54,21 @@ def test_policy_guided_exports_follow_reference():
         assert getattr(pg, name).__name__ == getattr(ref_pg, name).__name__
     assert tmc.checkpoint.__all__ == mc.checkpoint.__all__
     assert {"StoreBackups", "checkpoint", "policy_guided"} <= set(tmc.__all__)
+
+
+def test_cell_mc_and_hard_disk_exports_follow_reference():
+    """The ported modules keep the reference's names: every public name of
+    the port's ``ops/cell_mc.py``, ``models/hard_disks.py`` and the models'
+    ``cell_closures`` is the reference's, bar the port's draws class."""
+    from montecarlo_tpu.models import hard_disks as ref_hd
+    from montecarlo_tpu.ops import cell_mc as ref_cell
+    from montecarlo_tpu_torch import models
+    from montecarlo_tpu_torch.models import hard_disks
+    from montecarlo_tpu_torch.ops import cell_mc
+    assert set(cell_mc.__all__) - {"GeneratorDraws"} == set(ref_cell.__all__)
+    assert set(hard_disks.__all__) <= set(ref_hd.__all__)
+    assert {"hard_disks", "lennard_jones", "particle1d",
+            "polydisperse"} <= set(models.__all__)
+    assert set(models.__all__) <= set(mc.models.__all__)
+    for name in ("lennard_jones", "polydisperse"):
+        assert "cell_closures" in getattr(models, name).__all__

@@ -131,7 +131,10 @@ def test_summary_log_matches_reference(runs):
             continue
         assert a == b
     port = open(os.path.join(sim.path, "summary.log")).read()
-    assert "\t\tCell MC: unavailable — not ported" in port
+    cell = [[ln for ln in open(os.path.join(s.path, "summary.log"))
+             .read().splitlines() if ln.startswith("\t\tCell MC: ")]
+            for s in runs]
+    assert cell[1] == cell[0] and "unavailable — box" in cell[0][0]
     assert "\t\tpos: shape (32, 2) dtype float32" in port
 
 
