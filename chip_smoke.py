@@ -85,7 +85,24 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
    takes the pool), with the route ``'auto'`` picks at each N, the cell
    path's launches per substep under ``torch.profiler``, and its two
    neighbourhood layouts; 7d. one segment on the card and on the CPU from
-   the same draws, substep by substep.
+   the same draws, substep by substep;
+8. NPT and 3-D (plain torch on the cell and generic paths, no kernel of
+   their own, every row kernel's launches read and held at 0): 8a.
+   ``tools/bench_cell3d_npt.py``'s 3-D LJ (16 x N 4096) on the generic
+   path against the 3-D cell path through ``Simulation.run``, moves/s and
+   their ratio, the cache and composition; 8b. its polydisperse NPT pool
+   (16 x N 2048, displacement + swap + volume) with ``fused='off'`` against
+   ``'auto'`` (the cell route with volume substeps): volume moves accepted,
+   boxes above the grid's floor, diameters kept, the cache; 8c. the NPT
+   swap-MC glass protocol of ``benchmarks/glass_protocol_r05.json`` (128 x
+   N 2048, T 0.4, P 4.0, ~100 sweeps, BIN store) gated on the record's
+   density and acceptances; 8d. hard spheres under NPT on the 3-D cell path
+   (16 x N 4096): no overlap, boxes moved; 8e. an NPT and a 3-D segment on
+   the card and on the CPU from the same draws: no accept difference,
+   boxes and fractional positions within 1e-6; 8f.
+   a 3-D displacement substep and a volume substep in ms and launches under
+   ``torch.profiler``, and the ideal-gas gate <V> = (N + 1) / (beta P) on
+   the generic path on the card in 2-D and 3-D.
 
 Prints its findings on lines before the last, a ``{"kernels": [...]}``
 line (``ms`` and ``plain_ms`` per call at the main path's segment of
@@ -95,7 +112,7 @@ Any failed check raises, so the script exits non-zero without the last
 line.
 
 Usage: python3 chip_smoke.py [--parent CSRC_DIR] [--kernels-only]
-[--cell-only]
+[--cell-only] [--npt-only]
 
 ``--parent CSRC_DIR`` names a directory with an earlier version of
 ``fused_sweep.cu``, ``lj_sweep.cu`` and ``poly_sweep.cu`` (and their
@@ -107,7 +124,8 @@ shapes (the poly kernel at 64 x N 256 and N 1024); the Gaussian and LJ
 kernels must equal the earlier ones bit for bit at every shape of phases 3
 and 4, the poly kernel where its block is one warp (N <= 32, the same sum
 order).  ``--kernels-only`` stops after phase 4b (and the comparison with
-``--parent``); ``--cell-only`` runs phase 7 alone after the build.
+``--parent``); ``--cell-only`` runs phase 7 alone after the build,
+``--npt-only`` phase 8.
 """
 
 import argparse
@@ -188,6 +206,28 @@ CROSSOVER_CHAINS = (64, 32)
 PROFILED_N = (2048, 16384)      # the cell path profiled, layouts timed
 # phase 7d: one segment on the card and on the CPU from the same draws
 CELL_TWIN = dict(chains=8, n=4096, w_disp=0.7, substeps=60, seed=5)
+# phase 8: NPT and 3-D.  8a and 8b: tools/bench_cell3d_npt.py's two
+# configurations, each path with its (sweepstep, steps)
+NPT_LJ3D = dict(chains=16, n=4096, rho=1.0, beta=1.0 / 0.45, frac_b=0.2,
+                sigma=0.06, off=(64, 4), cell=(512, 16))
+NPT_POLY = dict(chains=16, n=2048, rho=1.0, beta=1.0 / 0.4, pressure=4.0,
+                sigma=0.08, w=(0.75, 0.2, 0.05), dlnv=0.002, off=(64, 4),
+                auto=(512, 16))
+# 8c: benchmarks/glass_protocol_r05.json's configuration, 100 sweeps as 400
+# steps of N/4 with records every 10 steps (41 records, as the record's);
+# the record gives no proposal widths: sigma 0.08 and dlnv 0.01 are those
+# with which the reference reproduces its acceptances
+# (tools/glass_protocol_widths.py); the gate is its physics columns, never
+# its speed
+GLASS = dict(chains=128, n=2048, T=0.4, P=4.0, w=(0.798, 0.2, 0.002),
+             sigma=0.08, dlnv=0.01, sweepstep=512, steps=400, every=10)
+GLASS_RECORD = dict(density=0.9004, density_band=0.015,
+                    acc=(0.487, 0.277, 0.374), acc_band=0.03)
+# 8d: tests/test_npt.py's hard-sphere NPT cell run at 16 chains
+NPT_HS = dict(chains=16, n=4096, eta=0.30, beta_p=3.0, dlnv=0.002,
+              delta=0.12, sweepstep=512, steps=12)
+# 8e: an NPT and a 3-D segment on the card and on the CPU, same draws
+NPT_TWIN = dict(chains=8, n2=4096, n3=4096, substeps=60, seed=6)
 
 
 _ONCE = {}
@@ -210,6 +250,12 @@ def card_scalar(value, device):
     if key not in _ONCE:
         _ONCE[key] = torch.tensor(value, dtype=torch.float32, device=device)
     return _ONCE[key]
+
+
+def _first(st, k):
+    """The first ``k`` chains of a chain-stacked state."""
+    return dataclasses.replace(st, **{f.name: getattr(st, f.name)[:k]
+                                      for f in dataclasses.fields(st)})
 
 
 def check(ok, what):
@@ -1189,8 +1235,12 @@ def pgmc5_sim(tmc, device, path, adaptive=True, extra=()):
 
 
 def timed_run(sim):
+    """Wall seconds of ``sim.run()``, from an idle card to an idle card."""
+    import torch
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     sim.run()
+    torch.cuda.synchronize()
     return time.perf_counter() - t0
 
 
@@ -1572,9 +1622,7 @@ def cell_main_checks(sim, path, wall, card):
     ds = sim.device_state
     seg_ms = cuda_time(lambda: met.fused_advance(ds, every), 2, warm=False)
     ref_ms = cuda_time(lambda: sim.system.refresh(ds["sys"]), 2, warm=False)
-    after = met.fused_advance(ds, every)["sys"]
-    st4 = dataclasses.replace(after, **{f.name: getattr(after, f.name)[:4]
-                                        for f in dataclasses.fields(after)})
+    st4 = _first(met.fused_advance(ds, every)["sys"], 4)
     full = lj.total_energy(st4, lj.LJParams(), row_batch=256)
     err = float(((st4.energy - full).abs()
                  - LJ_CACHE["rtol"] * full.abs()).max())
@@ -1649,8 +1697,7 @@ def cell_routes(tmc, root, card):
         st = met.fused_advance(sim.device_state, 1)["sys"]
         cnt = slc["counters"].sum(0).double()
         rates = (cnt[:, 0] / cnt[:, 1]).tolist()
-        st4 = dataclasses.replace(st, **{f.name: getattr(st, f.name)[:4]
-                                         for f in dataclasses.fields(st)})
+        st4 = _first(st, 4)
         line = (f"cell route: {label}, {chains.pos.shape[0]} chains x N "
                 f"{chains.pos.shape[1]}, plan {met._cell_plan!r}, "
                 f"{int(cnt[:, 1].sum())} attempts in {wall!r} s wall, "
@@ -1711,9 +1758,7 @@ def crossover(tmc, device, card):
         check(met.supports_fused and not met._use_cell,
               f"'auto' at N {n}: not the row kernel")
         for m in CROSSOVER_CHAINS:
-            st = dataclasses.replace(chains, **{
-                f.name: getattr(chains, f.name)[:m]
-                for f in dataclasses.fields(chains)})
+            st = _first(chains, m)
             box = host_box(st)
             grid = cell_mc.plan_grid(n, box, rcut, max_occupancy=int(
                 _occupancy(st, cell_mc.plan_grid(n, box, rcut).nc)))
@@ -1731,7 +1776,7 @@ def crossover(tmc, device, card):
                     grid, pe, rc2, st.pos, st.species.float(), st.beta,
                     st.energy, sigma, cell_mc.GeneratorDraws(gen, 1, 0),
                     n_sub, box=st.box)
-                attempts.append(res[3])
+                attempts.append(res[4])
                 return res
 
             row()
@@ -1759,6 +1804,21 @@ def _occupancy(st, nc):
     return _max_cell_occupancy(st, nc, 2)
 
 
+def _launches_and_busy(prof):
+    """Kernel launches counted on a ``torch.profiler`` run's host rows, and
+    the kernels' device time (microseconds) on its card rows."""
+    import torch
+    launches = busy = 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            busy += getattr(evt, "self_device_time_total",
+                            getattr(evt, "self_cuda_time_total", 0))
+        elif evt.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                         "cudaLaunchKernelExC", "cuLaunchKernelEx"):
+            launches += evt.count
+    return launches, busy
+
+
 def cell_profile(grid, pe, rc2, st, sigma, card, n_sub=20):
     """Launches and device time per substep of the cell path under
     ``torch.profiler``: the runtime's kernel launches counted on the host
@@ -1781,14 +1841,7 @@ def cell_profile(grid, pe, rc2, st, sigma, card, n_sub=20):
                                     k, box=st.box)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        launches = busy = 0
-        for evt in prof.key_averages():
-            if evt.device_type == torch.autograd.DeviceType.CUDA:
-                busy += getattr(evt, "self_device_time_total",
-                                getattr(evt, "self_cuda_time_total", 0))
-            elif evt.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                             "cudaLaunchKernelExC", "cuLaunchKernelEx"):
-                launches += evt.count
+        launches, busy = _launches_and_busy(prof)
         counts[k] = (launches, busy / 1e3, wall * 1e3)
     (l0, b0, w0), (l1, b1, w1) = counts[0], counts[n_sub]
     print(f"profile: cell path at N {st.pos.shape[1]} x {st.pos.shape[0]} "
@@ -1853,7 +1906,8 @@ def card_vs_cpu(device, card):
     variants, _ = cell_mc._make_substep(grid, pe, rc2, "species")
     draws = cell_mc.GeneratorDraws(torch.Generator().manual_seed(cfg["seed"]),
                                    cfg["seed"], 0)
-    seq = draws.variants(cfg["substeps"], 4, cfg["w_disp"], True)
+    seq = draws.variants(cfg["substeps"], 4, cfg["w_disp"],
+                         1.0 - cfg["w_disp"], True, False)
     shift = draws.shift(m, 2, "cpu")
     s = torch.remainder(st.pos / st.box[:, None, None] + shift[:, None, :],
                         1.0)
@@ -1944,6 +1998,449 @@ def cell_phases(tmc, device, kernels, card):
     card_vs_cpu(device, card)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: NPT and 3-D (plain torch on the cell and generic paths)
+# ---------------------------------------------------------------------------
+
+def _attempts(sim):
+    """Attempts over all chains and moves, and the (accepted, attempted)
+    sums per move, of a run's counters."""
+    cnt = sim.device_state["metropolis"]["counters"].sum(0).double()
+    return int(cnt[:, 1].sum()), cnt
+
+
+def lj3d_generic_vs_cell(tmc, kernels, root, card):
+    """Phase 8a: ``tools/bench_cell3d_npt.py``'s 3-D LJ at full width (16 x
+    N 4096, rho 1.0, beta 1/0.45, 20 % B, sigma 0.06) through
+    ``Simulation.run``: the generic path (``fused='off'``, sweepstep 64,
+    4 steps) against the 3-D cell path (``fused='cell'``, sweepstep 512,
+    16 steps), each run twice from the same chains; moves/s of the second
+    runs and their ratio; the cache of 4 chains against an O(N^2)
+    recompute and the composition after the cell run."""
+    import torch
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    cfg = NPT_LJ3D
+    m, n = cfg["chains"], cfg["n"]
+    chains = lj.init_chains(m, n, rho=cfg["rho"], beta=cfg["beta"],
+                            frac_b=cfg["frac_b"], seed=42, dim=3)
+    rates, out = {}, {}
+    for mode, (sweep, steps) in (("off", cfg["off"]), ("cell", cfg["cell"])):
+        walls = []
+        for rep in range(2):
+            sim = tmc.Simulation(lj.make_system(), chains, [
+                dict(algorithm=tmc.Metropolis,
+                     pool=(lj.lj_displacement_move(cfg["sigma"]),), seed=7,
+                     sweepstep=sweep, fused=mode)], steps,
+                path=os.path.join(root, f"lj3d_{mode}_{rep}"))
+            met = sim.device_algos[0]
+            wall, counts = counted(kernels, lambda: timed_run(sim))
+            check(sum(counts.values()) == 0,
+                  f"8a {mode}: a row kernel was launched ({counts})")
+            walls.append(wall)
+        att, cnt = _attempts(sim)
+        if mode == "off":
+            check(not met.supports_fused, "8a: 'off' took a fast path")
+        else:
+            check(met._use_cell and met._cell_plan.dim == 3,
+                  "8a: the 3-D LJ run did not take the cell path")
+            print(f"8a: 3-D plan {met._cell_plan!r}")
+        rates[mode] = att / walls[1]
+        acc = float(cnt[:, 0].sum() / cnt[:, 1].sum())
+        out[mode] = sim
+        print(f"8a: 3-D LJ {m} x N {n}, {mode}: {att} attempts in "
+              f"{walls!r} s (second run {rates[mode]!r} moves/s), "
+              f"acceptance {acc!r} [{card}]")
+        check(0.05 < acc < 0.98, f"8a {mode}: acceptance {acc}")
+    sim = out["cell"]
+    st = sim.device_state["sys"]
+    check(not bool(sim.device_state["metropolis"]["cell_overflow"]),
+          "8a: the cell path overflowed")
+    st4 = _first(st, 4)
+    full = lj.total_energy(st4, lj.LJParams(), row_batch=256)
+    err = float(((st4.energy - full).abs()
+                 - LJ_CACHE["rtol"] * full.abs()).max())
+    kept = torch.equal(st.species.sum(1), chains.species.sum(1))
+    print(f"8a: cell / generic {rates['cell'] / rates['off']!r}; max "
+          f"|E - E(N^2)| over 4 chains "
+          f"{float((st4.energy - full).abs().max())!r}, composition kept "
+          f"{kept}, state on {st.pos.device.type} [{card}]")
+    check(st.pos.device.type == "cuda", "8a: chains not on the card")
+    check(err <= LJ_CACHE["atol"], f"8a: cached energy off ({err})")
+    check(kept, "8a: composition changed")
+    return out["cell"], chains
+
+
+def poly_npt_generic_vs_auto(tmc, kernels, root, card):
+    """Phase 8b: ``tools/bench_cell3d_npt.py``'s polydisperse NPT at full
+    width (16 x N 2048, rho 1.0, beta 1/0.4, P 4.0; displacement 0.08 w
+    0.75, swap w 0.2, volume dlnv 0.002 w 0.05): ``fused='off'`` (sweepstep
+    64, 4 steps) against ``'auto'`` (sweepstep 512, 16 steps), twice each;
+    under ``'auto'`` the cell route with no row kernel launched; volume
+    moves attempted and accepted, boxes above the grid's floor, diameters
+    kept, the cache within the reference's poly bounds."""
+    import torch
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    cfg = NPT_POLY
+    m, n = cfg["chains"], cfg["n"]
+    chains = poly.init_chains(m, n, rho=cfg["rho"], beta=cfg["beta"],
+                              seed=42)
+    wd, ws, wv = cfg["w"]
+    pool = (poly.displacement_move(cfg["sigma"], weight=wd),
+            poly.swap_move(weight=ws),
+            poly.volume_move(dlnv=cfg["dlnv"], pressure=cfg["pressure"],
+                             weight=wv))
+    rates, out = {}, {}
+    for mode, (sweep, steps) in (("off", cfg["off"]), ("auto", cfg["auto"])):
+        walls = []
+        for rep in range(2):
+            sim = tmc.Simulation(poly.make_system(), chains, [
+                dict(algorithm=tmc.Metropolis, pool=pool, seed=7,
+                     sweepstep=sweep, fused=mode)], steps,
+                path=os.path.join(root, f"polynpt_{mode}_{rep}"))
+            met = sim.device_algos[0]
+            wall, counts = counted(kernels, lambda: timed_run(sim))
+            check(sum(counts.values()) == 0,
+                  f"8b {mode}: a row kernel was launched ({counts})")
+            walls.append(wall)
+        att, cnt = _attempts(sim)
+        rates[mode] = att / walls[1]
+        out[mode] = sim
+        if mode == "auto":
+            check(met._use_cell and met._cell_model[6] == 2,
+                  "8b: 'auto' did not take the cell path with volume "
+                  "substeps")
+            print(f"8b: NPT plan {met._cell_plan!r}")
+        accs = (cnt[:, 0] / cnt[:, 1]).tolist()
+        print(f"8b: poly NPT {m} x N {n}, {mode}: {att} attempts in "
+              f"{walls!r} s (second run {rates[mode]!r} moves/s), volume "
+              f"{int(cnt[2, 1])} attempted, {int(cnt[2, 0])} accepted, "
+              f"acceptance per move {accs} [{card}]")
+        check(cnt[2, 1] > 0 and cnt[2, 0] > 0,
+              f"8b {mode}: no volume move attempted or accepted")
+    sim = out["auto"]
+    met = sim.device_algos[0]
+    st = sim.device_state["sys"]
+    check(not bool(sim.device_state["metropolis"]["cell_overflow"]),
+          "8b: the cell path overflowed")
+    check(bool((st.box >= np.float32(met._cell_plan.box_min)).all()),
+          "8b: a box below the grid's floor")
+    check(torch.equal(torch.sort(st.diam, 1).values,
+                      torch.sort(chains.diam, 1).values),
+          "8b: diameters changed")
+    st4 = _first(st, 4)
+    full = poly.total_energy(st4, poly.PolyParams(), row_batch=256)
+    err = float(((st4.energy - full).abs()
+                 - POLY_CACHE["rtol"] * full.abs()).max())
+    print(f"8b: cell / generic {rates['auto'] / rates['off']!r}; boxes "
+          f"{float(chains.box[0])!r} -> {st.box.min().item()!r} .. "
+          f"{st.box.max().item()!r} (floor {met._cell_plan.box_min!r}); "
+          f"max |E - E(N^2)| over 4 chains "
+          f"{float((st4.energy - full).abs().max())!r} [{card}]")
+    check(err <= POLY_CACHE["atol"], f"8b: cached energy off ({err})")
+    return sim
+
+
+def glass_protocol(tmc, kernels, root, card):
+    """Phase 8c: the NPT swap-MC glass protocol of
+    ``benchmarks/glass_protocol_r05.json`` (128 x N 2048, T 0.4, P 4.0,
+    displacement 0.798 + swap 0.2 + volume 0.002, about 100 sweeps on the
+    cell path with the BIN store), gated on the record's physics columns:
+    the density 1.0 -> 0.9004 and the acceptances per move, each within its
+    band; moves/s with recorders beside the card."""
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    cfg = GLASS
+    m, n, steps, every = cfg["chains"], cfg["n"], cfg["steps"], cfg["every"]
+    chains = poly.init_chains(m, n, rho=1.0, beta=1.0 / cfg["T"], seed=42)
+    wd, ws, wv = cfg["w"]
+    pool = (poly.displacement_move(cfg["sigma"], weight=wd),
+            poly.swap_move(weight=ws),
+            poly.volume_move(dlnv=cfg["dlnv"], pressure=cfg["P"],
+                             weight=wv))
+    sched = np.arange(every, steps + 1, every)
+    path = os.path.join(root, "glass")
+    sim = tmc.Simulation(poly.make_system(), chains, [
+        dict(algorithm=tmc.Metropolis, pool=pool, seed=11,
+             sweepstep=cfg["sweepstep"]),
+        dict(algorithm=tmc.StoreCallbacks,
+             callbacks=(poly.callback_energy_per_particle,
+                        poly.callback_density, tmc.callback_acceptance),
+             scheduler=sched),
+        dict(algorithm=tmc.StoreTrajectories, fmt=tmc.BIN(),
+             scheduler=sched)], steps, path=path)
+    met = sim.device_algos[0]
+    check(met._use_cell, "8c: the glass protocol is not on the cell path")
+    wall, counts = counted(kernels, lambda: timed_run(sim))
+    check(sum(counts.values()) == 0, f"8c: a row kernel ran ({counts})")
+    att, cnt = _attempts(sim)
+    acc = (cnt[:, 0] / cnt[:, 1]).tolist()
+    rho = np.loadtxt(os.path.join(path, "density.dat"))
+    e = np.loadtxt(os.path.join(path, "energy_per_particle.dat"))
+    from montecarlo_tpu_torch.core.algorithms import (
+        load_chain_major_trajectories)
+    times, fields = load_chain_major_trajectories(path)
+    st = sim.device_state["sys"]
+    st4 = _first(st, 4)
+    full = poly.total_energy(st4, poly.PolyParams(), row_batch=256)
+    print(f"8c: glass protocol {m} x N {n}, {met._cell_plan!r}: {att} "
+          f"attempted moves ({att / (m * n)!r} sweeps) in {wall!r} s, "
+          f"{att / wall!r} moves/s with recorders; density "
+          f"{float(rho[0, 1])!r} -> {float(rho[-1, 1])!r} (record "
+          f"{GLASS_RECORD['density']!r}), acceptance disp/swap/vol {acc} "
+          f"(record {GLASS_RECORD['acc']!r}), e/N {float(e[-1, 1])!r}, "
+          f"{len(times)} BIN records of {fields['pos'].shape[1]} chains, "
+          f"max |E - E(N^2)| over 4 chains "
+          f"{float((st4.energy - full).abs().max())!r} [{card}]")
+    check(not bool(sim.device_state["metropolis"]["cell_overflow"]),
+          "8c: the cell path overflowed")
+    check(abs(float(rho[-1, 1]) - GLASS_RECORD["density"])
+          <= GLASS_RECORD["density_band"],
+          f"8c: final density {float(rho[-1, 1])} outside "
+          f"{GLASS_RECORD['density']} +- {GLASS_RECORD['density_band']}")
+    for name, got, want in zip(("disp", "swap", "vol"), acc,
+                               GLASS_RECORD["acc"]):
+        check(abs(got - want) <= GLASS_RECORD["acc_band"],
+              f"8c: {name} acceptance {got} outside {want} +- "
+              f"{GLASS_RECORD['acc_band']}")
+    check(len(times) == len(sched) + 1 and fields["pos"].shape[1] == m,
+          "8c: BIN records")
+    err = float(((st4.energy - full).abs()
+                 - POLY_CACHE["rtol"] * full.abs()).max())
+    check(err <= POLY_CACHE["atol"], f"8c: cached energy off ({err})")
+    return wall
+
+
+def hard_spheres_npt(tmc, kernels, root, card):
+    """Phase 8d: hard spheres under NPT on the 3-D cell path at 16 x
+    N 4096 (eta 0.30, beta P 3.0, dlnv 0.002 w 0.05, displacement 0.12,
+    sweepstep 512, 12 steps: ``tests/test_npt.py``'s test at 16 chains):
+    no overlap, the boxes moved, no overflow."""
+    from montecarlo_tpu_torch.models import hard_disks as hd
+    cfg = NPT_HS
+    m, n = cfg["chains"], cfg["n"]
+    chains = hd.init_chains(m, n, eta=cfg["eta"], seed=9, dim=3)
+    pool = (hd.displacement_move(cfg["delta"], weight=0.95),
+            hd.volume_move(dlnv=cfg["dlnv"], beta_pressure=cfg["beta_p"],
+                           weight=0.05))
+    sim = tmc.Simulation(hd.make_system(), chains, [
+        dict(algorithm=tmc.Metropolis, pool=pool, seed=5,
+             sweepstep=cfg["sweepstep"])], cfg["steps"],
+        path=os.path.join(root, "hs_npt"))
+    met = sim.device_algos[0]
+    check(met._use_cell and met._cell_plan.dim == 3,
+          "8d: hard spheres not on the 3-D cell path")
+    wall, counts = counted(kernels, lambda: timed_run(sim))
+    check(sum(counts.values()) == 0, f"8d: a row kernel ran ({counts})")
+    att, cnt = _attempts(sim)
+    st = sim.device_state["sys"]
+    free = hd.overlap_free(st)
+    dmin = float(hd.min_pair_distance(st).min())
+    print(f"8d: hard spheres {m} x N {n}, {met._cell_plan!r}: {att} "
+          f"attempts in {wall!r} s, acceptance per move "
+          f"{(cnt[:, 0] / cnt[:, 1]).tolist()}, boxes "
+          f"{float(chains.box[0])!r} -> {st.box.min().item()!r} .. "
+          f"{st.box.max().item()!r}, min pair distance {dmin!r} [{card}]")
+    check(not bool(sim.device_state["metropolis"]["cell_overflow"]),
+          "8d: the cell path overflowed")
+    check(bool(free.all()), "8d: hard spheres overlap")
+    check(bool((st.box != chains.box).all()), "8d: a box did not move")
+    check(cnt[1, 0] > 0, "8d: no volume move accepted")
+
+
+class _Replay:
+    """The draws of a CPU :class:`GeneratorDraws`, moved to ``device``: one
+    segment's numbers for the card, made as the CPU's run makes them."""
+
+    def __init__(self, draws, device):
+        self.draws, self.device = draws, device
+
+    def variants(self, *args):
+        return self.draws.variants(*args)
+
+    def shift(self, m, dim, device):
+        return self.draws.shift(m, dim, "cpu").to(self.device)
+
+    def substep(self, *args):
+        return tuple(x.to(self.device)
+                     for x in self.draws.substep(*args[:-1], "cpu"))
+
+    def volume(self, i, m, device):
+        return tuple(x.to(self.device) for x in self.draws.volume(i, m,
+                                                                  "cpu"))
+
+
+def npt_card_vs_cpu(device, card):
+    """Phase 8e: one NPT segment (2-D poly: displacement, swap and volume
+    substeps) and one 3-D segment (LJ species pool) on the card and on the
+    CPU from the same draws, made on the CPU: 0 accept flips (equal
+    counters), attributes equal, boxes within 1e-6 relative and fractional
+    positions (position / box) within 1e-6: the card's ``exp`` of a volume
+    step may round its last bit the other way, and a position scales with
+    its box."""
+    import torch
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    from montecarlo_tpu_torch.ops import cell_mc
+    from montecarlo_tpu_torch.core.metropolis import _max_cell_occupancy
+    cfg = NPT_TWIN
+    m = cfg["chains"]
+    cases = {
+        "2-D poly NPT": (
+            poly.init_chains(m, cfg["n2"], rho=1.0, beta=1.0 / 0.4, seed=48,
+                             device="cpu"),
+            poly.cell_closures(poly.PolyParams()), "diam",
+            dict(w_disp=0.6, w_swap=0.2, swap_mode="pair",
+                 vol=(cfg["n2"], 4.0), dlnv=0.002), 0.15),
+        "3-D LJ": (
+            lj.init_chains(m, cfg["n3"], rho=1.0, beta=1.0 / 0.45,
+                           frac_b=0.2, seed=49, device="cpu", dim=3),
+            lj.cell_closures(lj.LJParams()), "species",
+            dict(w_disp=0.6, w_swap=0.4, swap_mode="species"), 0.0)}
+    for label, (st, (pe, rc2, rcut), field, kw, margin) in cases.items():
+        n, dim = st.pos.shape[1:]
+        box = float(st.box[0])
+        plan0 = cell_mc.plan_grid(n, box, rcut, dim=dim, box_margin=margin)
+        occ = _max_cell_occupancy(st, plan0.nc, dim)
+        grid = cell_mc.plan_grid(n, box, rcut, dim=dim, box_margin=margin,
+                                 max_occupancy=int(np.ceil(
+                                     occ * (box / plan0.box_min) ** dim)))
+        attr = getattr(st, field).to(torch.float32)
+        args = (grid, pe, rc2)
+        res = {}
+        for where in ("cpu", "card"):
+            gen = torch.Generator().manual_seed(cfg["seed"])
+            draws = cell_mc.GeneratorDraws(gen, cfg["seed"], 0)
+            if where == "cpu":
+                x = (st.pos, attr, st.beta, st.energy, st.box)
+            else:
+                draws = _Replay(draws, device)
+                x = tuple(t.to(device) for t in (st.pos, attr, st.beta,
+                                                 st.energy, st.box))
+            out = cell_mc.cell_mc_segment(
+                *args, *x[:4], torch.tensor(0.08), draws, cfg["substeps"],
+                box=x[4], **kw)
+            res[where] = [t.cpu() for t in out]
+        c, g = res["cpu"], res["card"]
+        flips = int((c[5] - g[5]).abs().sum())
+        dpos = float((c[0] - g[0]).abs().max())
+        dfrac = float((c[0] / c[3][:, None, None]
+                       - g[0] / g[3][:, None, None]).abs().max())
+        dbox = float(((c[3] - g[3]).abs() / c[3]).max())
+        seq = cell_mc.GeneratorDraws(None, cfg["seed"], 0).variants(
+            cfg["substeps"], 2 ** dim, kw["w_disp"], kw.get("w_swap", 0.0),
+            True, "vol" in kw)
+        kinds = np.bincount(seq[:, 0], minlength=3).tolist()
+        print(f"8e: card vs CPU, {label}, {m} chains x N {n}, {grid!r}: "
+              f"{cfg['substeps']} substeps (kinds {kinds}), {flips} accept "
+              f"differences, max |position difference| {dpos!r} (of the "
+              f"fractional positions {dfrac!r}), max box difference "
+              f"{dbox!r} relative, attributes equal "
+              f"{torch.equal(c[1], g[1])}, attempts "
+              f"{c[4].sum(0).tolist()} [{card}]")
+        check(torch.equal(c[4], g[4]) and flips == 0,
+              f"8e {label}: the card's accept decisions differ")
+        check(dfrac <= 1e-6 and dbox <= 1e-6 and torch.equal(c[1], g[1]),
+              f"8e {label}: the card's segment differs from the CPU's")
+        check(not bool(c[6].any()), f"8e {label}: invalid bind")
+
+
+def substep_profile(label, fn, n_calls, card):
+    """Launches, the card's busy time and wall per call of ``fn`` (one
+    substep) under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_calls
+    launches, busy = _launches_and_busy(prof)
+    busy = busy / 1e3 / n_calls
+    ms = cuda_time(fn, n_calls)
+    print(f"8f: {label}: {launches / n_calls!r} launches, the card busy "
+          f"{busy!r} ms of {wall * 1e3!r} ms wall a call under the profiler "
+          f"({100 * busy / (wall * 1e3)!r} %), {ms!r} ms a call by CUDA "
+          f"events without it [{card}]")
+    check(launches > 0 and busy > 0, f"8f {label}: the profiler saw nothing")
+    return ms
+
+
+def substep_times(lj3d_sim, poly_sim, card):
+    """Phase 8f: a 3-D displacement substep (8a's cell run's state) and a
+    volume substep (8b's), each timed and profiled on its bound state."""
+    import torch
+    from montecarlo_tpu_torch.ops import cell_mc
+    for label, sim, field, kind in (
+            ("3-D LJ displacement substep", lj3d_sim, "species", 0),
+            ("poly NPT volume substep", poly_sim, "diam", 2)):
+        met = sim.device_algos[0]
+        grid = met._cell_plan
+        pe, rc2 = met._cell_model[:2]
+        st = sim.device_state["sys"]
+        m, n, dim = st.pos.shape
+        vol = (n, met._cell_model[7]) if kind == 2 else None
+        variants, _ = cell_mc._make_substep(grid, pe, rc2, None, vol)
+        s = torch.remainder(st.pos / st.box[:, None, None], 1.0)
+        P = cell_mc._pack(cell_mc.bind_cells(
+            grid, s, getattr(st, field).to(torch.float32)))
+        gen = torch.Generator(device=st.pos.device).manual_seed(3)
+        draws = cell_mc.GeneratorDraws(gen, 3, 0)
+        if kind == 0:
+            d = draws.substep(0, 0, m, grid.nc // 2, grid.cap, dim,
+                              "gaussian", st.pos.device)
+            sigma = torch.tensor(0.06, device=st.pos.device)
+            fn = lambda: variants[0][1](P, st.box, sigma, st.beta, *d)
+        else:
+            d = draws.volume(0, m, st.pos.device)
+            dlnv = torch.tensor(0.002, device=st.pos.device)
+            fn = lambda: variants[2][0](P, st.box, st.energy, dlnv, st.beta,
+                                        *d)
+        substep_profile(f"{label}, {m} chains x N {n}, {grid!r}", fn, 20,
+                        card)
+
+
+def ideal_gas_on_card(tmc, root, card):
+    """Phase 8f: the ideal-gas gate on the generic path on the card: 128 x
+    N 16, 4,000 steps, <V> = (N + 1) / (beta P) within 6 % in 2-D and
+    3-D."""
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    ideal = lj.LJParams(eps=((0.0, 0.0), (0.0, 0.0)))
+    n, beta, pressure, steps = 16, 1.0, 0.5, 4000
+    for dim in (2, 3):
+        chains = lj.init_chains(128, n, rho=0.5, beta=beta, seed=3,
+                                params=ideal, dim=dim)
+        sim = tmc.Simulation(lj.make_system(ideal), chains, [
+            dict(algorithm=tmc.Metropolis,
+                 pool=(lj.lj_volume_move(0.3, pressure, params=ideal),),
+                 seed=7)], steps, path=os.path.join(root, f"ideal{dim}"))
+        wall = timed_run(sim)
+        v = sim.device_state["sys"].box.double().cpu().numpy() ** dim
+        want = (n + 1) / (beta * pressure)
+        print(f"8f: ideal gas {dim}-D on the generic path, 128 x N {n}, "
+              f"{steps} steps in {wall!r} s: <V> {float(v.mean())!r} "
+              f"against (N + 1) / (beta P) = {want!r} "
+              f"({100 * (float(v.mean()) / want - 1)!r} %) [{card}]")
+        check(abs(float(v.mean()) / want - 1) <= 0.06,
+              f"8f: ideal gas {dim}-D <V> {float(v.mean())}")
+
+
+def npt_phases(tmc, device, kernels, card):
+    """Phase 8: NPT and 3-D on the card (8a-8f); every run reads the row
+    kernels' launches, which must stay at 0."""
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as tmp:
+        lj3d_sim, _ = lj3d_generic_vs_cell(tmc, kernels, tmp, card)
+        poly_sim = poly_npt_generic_vs_auto(tmc, kernels, tmp, card)
+        substep_times(lj3d_sim, poly_sim, card)
+        del lj3d_sim, poly_sim
+        glass_protocol(tmc, kernels, tmp, card)
+        hard_spheres_npt(tmc, kernels, tmp, card)
+        npt_card_vs_cpu(device, card)
+        ideal_gas_on_card(tmc, tmp, card)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", metavar="CSRC_DIR", default=None,
@@ -1954,6 +2451,9 @@ def main():
     parser.add_argument("--cell-only", action="store_true",
                         help="after the build, run only the cell path's "
                              "phase 7")
+    parser.add_argument("--npt-only", action="store_true",
+                        help="after the build, run only phase 8 (NPT and "
+                             "3-D)")
     opts = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1991,6 +2491,10 @@ def main():
     if opts.cell_only:
         cell_phases(tmc, device, kernels, card)
         print("chip_smoke: --cell-only: stopping after phase 7")
+        return 0
+    if opts.npt_only:
+        npt_phases(tmc, device, kernels, card)
+        print("chip_smoke: --npt-only: stopping after phase 8")
         return 0
 
     parent = None
@@ -2161,6 +2665,8 @@ def main():
           f" moves/s with recorders [{card}]")
     # 7. the cell path: no kernel of its own, the row kernels not launched
     cell_phases(tmc, device, kernels, card)
+    # 8. NPT and 3-D: the cell and generic paths, no kernel launched
+    npt_phases(tmc, device, kernels, card)
 
     m2 = CONFIG2_CHAINS
     specs = [(

@@ -211,13 +211,16 @@ class Metropolis(DeviceAlgorithm):
     - ``'off'``: always the generic path;
     - ``'interpret'``: the fused path through the kernel's plain torch
       version, on any device (CPU tests);
-    - ``'cell'``: the checkerboard cell-MC path (``ops/cell_mc.py``), plain
-      torch on any device.  ``'auto'`` takes it too for a plannable 2-D
+    - ``'cell'``: the checkerboard cell-MC path (``ops/cell_mc.py``, 2-D
+      or 3-D, with volume substeps for a pool that carries a volume move),
+      plain torch on any device.  ``'auto'`` takes it too for a plannable
       pool at N >= :data:`CELL_AUTO_MIN_N` that no row kernel takes.
 
     ``cell_opts`` tunes the cell-MC plan: ``d_cap`` (the anchor halo, real
-    units, default 0.45) and ``cap_slack`` (the cell capacity as a multiple
-    of the mean occupancy, default 2.0).
+    units, default 0.45), ``cap_slack`` (the cell capacity as a multiple
+    of the mean occupancy, default 2.0) and ``box_margin`` (NPT compression
+    headroom as a fraction of the box, default 0.15 when the pool carries a
+    volume move, else 0).
     """
 
     state_key = "metropolis"
@@ -238,10 +241,10 @@ class Metropolis(DeviceAlgorithm):
                 "'interpret' (force the fused path through the kernel's "
                 "plain torch version — CPU testing), or 'cell' (force the "
                 "checkerboard cell-MC path for large-N particle systems)")
-        unknown = set(cell_opts or {}) - {"d_cap", "cap_slack"}
+        unknown = set(cell_opts or {}) - {"d_cap", "cap_slack", "box_margin"}
         if unknown:
-            raise ValueError(f"cell_opts takes 'd_cap' and 'cap_slack', not "
-                             f"{sorted(unknown)}")
+            raise ValueError(f"cell_opts takes 'd_cap', 'cap_slack' and "
+                             f"'box_margin', not {sorted(unknown)}")
         self.fused = fused
         self.pool = tuple(pool)
         self.movedefs = tuple(m.move for m in self.pool)
@@ -297,20 +300,22 @@ class Metropolis(DeviceAlgorithm):
 
     #: kind tag -> (family, role): a pool maps onto the cell path when it is
     #: one displacement move of a single family, optionally + the matching
-    #: swap (the 2-D NVT subset of the reference's table)
+    #: swap and/or volume move
     _CELL_KINDS = {
         "lj_displacement_2d": ("lj", "disp"),
         "lj_swap": ("lj", "swap"),
+        "lj_volume": ("lj", "vol"),
         "poly_displacement_2d": ("poly", "disp"),
         "poly_swap": ("poly", "swap"),
+        "poly_volume": ("poly", "vol"),
         "hard_disk_displacement_2d": ("hd", "disp"),
+        "hard_disk_volume": ("hd", "vol"),
     }
-    _CELL_VOLUME_KINDS = ("lj_volume", "poly_volume", "hard_disk_volume")
 
     def _plan_cell_mc(self, sim, opts):
         """Plan the checkerboard cell-MC decomposition (``ops/cell_mc.py``):
-        per-move cost O(3^dim C) instead of O(N), ~N/4 moves in parallel per
-        substep in 2-D.  ``opts`` is ``cell_opts``."""
+        per-move cost O(3^dim C) instead of O(N), ~N/2^dim moves in parallel
+        per substep, 2-D and 3-D.  ``opts`` is ``cell_opts``."""
         self._cell_plan = None
         self._cell_model = None
         self._cell_plan_error = None
@@ -322,17 +327,11 @@ class Metropolis(DeviceAlgorithm):
             if self.fused == "cell":
                 raise ValueError(f"fused='cell' requested but {reason}")
 
-        if self._pos_dim not in (None, 2):
+        if self._pos_dim not in (None, 2, 3):
             return unsupported(
-                f"the port's cell decomposition is 2-D only (state has "
-                f"{self._pos_dim}-D positions; 3-D comes with ROADMAP.md "
-                f"queue 1, item 2: NPT and 3-D)")
+                f"the cell decomposition is 2-D/3-D only (state has "
+                f"{self._pos_dim}-D positions)")
         kinds = tuple(m.move.kind for m in self.pool)
-        if any(k in self._CELL_VOLUME_KINDS for k in kinds):
-            return unsupported(
-                f"the pool kinds {kinds} carry a volume move, and the port's "
-                f"cell path is NVT only (volume substeps come with "
-                f"ROADMAP.md queue 1, item 2: NPT and 3-D)")
         if not kinds or any(k not in self._CELL_KINDS for k in kinds):
             return unsupported(
                 f"the pool kinds {kinds} have no cell-MC mapping (need a "
@@ -341,7 +340,7 @@ class Metropolis(DeviceAlgorithm):
         families = {self._CELL_KINDS[k][0] for k in kinds}
         roles = [self._CELL_KINDS[k][1] for k in kinds]
         if len(families) != 1 or roles.count("disp") != 1 \
-                or roles.count("swap") > 1:
+                or roles.count("swap") > 1 or roles.count("vol") > 1:
             return unsupported(
                 f"the pool kinds {kinds} have no cell-MC mapping (need "
                 f"one family with one displacement move, at most one swap "
@@ -349,6 +348,7 @@ class Metropolis(DeviceAlgorithm):
         family = families.pop()
         disp_idx = roles.index("disp")
         swap_idx = roles.index("swap") if "swap" in roles else None
+        vol_idx = roles.index("vol") if "vol" in roles else None
         swap_mode = {"lj": "species", "poly": "pair", "hd": None}[family] \
             if swap_idx is not None else None
         proposal = "square" if family == "hd" else "gaussian"
@@ -357,6 +357,15 @@ class Metropolis(DeviceAlgorithm):
             return unsupported(
                 "the displacement and swap moves carry different "
                 "interaction tables (no shared cell geometry)")
+        pressure = None
+        if vol_idx is not None:
+            vaux = self.pool[vol_idx].move.aux
+            if (not isinstance(vaux, tuple) or len(vaux) != 2
+                    or vaux[0] != self.pool[disp_idx].move.aux):
+                return unsupported(
+                    "the volume move carries a different interaction table "
+                    "than the displacement move (no shared cell geometry)")
+            pressure = float(vaux[1])
         try:
             from ..ops.cell_mc import plan_grid
             state0 = sim.chains0
@@ -373,19 +382,23 @@ class Metropolis(DeviceAlgorithm):
             else:
                 from ..models.hard_disks import cell_closures
                 pe, rc2, rcut_max = cell_closures()
-            d_cap = float(opts.get("d_cap", 0.45))
-            cap_slack = float(opts.get("cap_slack", 2.0))
-            plan0 = plan_grid(n_particles, box0, rcut_max, d_cap=d_cap,
-                              cap_slack=cap_slack)
+            dim = self._pos_dim
+            kw = dict(d_cap=float(opts.get("d_cap", 0.45)),
+                      cap_slack=float(opts.get("cap_slack", 2.0)), dim=dim,
+                      box_margin=float(opts.get(
+                          "box_margin", 0.15 if vol_idx is not None else 0.0)))
+            plan0 = plan_grid(n_particles, box0, rcut_max, **kw)
             # capacity from the initial configuration's observed maximum
             # per-cell occupancy (a mean multiple under-sizes clustered
-            # states)
-            max_occ = _max_cell_occupancy(state0, plan0.nc, 2)
-            self._cell_plan = plan_grid(
-                n_particles, box0, rcut_max, d_cap=d_cap,
-                cap_slack=cap_slack, max_occupancy=max_occ)
+            # states), scaled for the compression volume moves may bring
+            max_occ = _max_cell_occupancy(state0, plan0.nc, dim)
+            if vol_idx is not None:
+                max_occ = int(np.ceil(
+                    max_occ * (box0 / plan0.box_min) ** dim))
+            self._cell_plan = plan_grid(n_particles, box0, rcut_max,
+                                        max_occupancy=max_occ, **kw)
             self._cell_model = (pe, rc2, family, swap_mode, disp_idx,
-                                swap_idx, proposal)
+                                swap_idx, vol_idx, pressure, proposal)
             self._cell_n = n_particles
         except (ValueError, AttributeError) as e:
             self._cell_plan = None  # box too small / no geometry
@@ -584,23 +597,27 @@ class Metropolis(DeviceAlgorithm):
         params = dstate[self.params_key]
         t0 = dstate["t"]
         plan = self._cell_plan
-        pe, rc2, family, swap_mode, disp_idx, swap_idx, proposal = \
-            self._cell_model
+        (pe, rc2, family, swap_mode, disp_idx, swap_idx, vol_idx, pressure,
+         proposal) = self._cell_model
         sigma = tree_leaves(params[disp_idx])[0]
         wsum = float(self.weights.sum())
-        w_d = float(self.weights[disp_idx]) / wsum
-        w_s = (float(self.weights[swap_idx]) / wsum
-               if swap_idx is not None else 0.0)
-        # a substep delivers ~a_att attempts per chain; z substeps per
-        # requested move, the fractional remainder carried in cell_debt
-        # (float32, as the reference computes it) so fine recorder strides
-        # do not round every segment up to a whole substep
+        w = [float(self.weights[i]) / wsum if i is not None else 0.0
+             for i in (disp_idx, swap_idx, vol_idx)]
+        # a displacement or swap substep delivers ~a_att attempts per chain,
+        # a volume substep one; z substeps per requested move, the
+        # fractional remainder carried in cell_debt (float32, as the
+        # reference computes it) so fine recorder strides do not round
+        # every segment up to a whole substep
         a_att = plan.nc ** plan.dim // 2 ** plan.dim
-        z = (w_d + w_s) / a_att
+        z = (w[0] + w[1]) / a_att + w[2]
         want = (np.float32(int(n_steps) * self.sweepstep) * np.float32(z)
                 + slc["cell_debt"].numpy())
         substeps = int(np.floor(want))
         new_debt = want - np.float32(substeps)
+        if vol_idx is not None:
+            vol, dlnv = (self._cell_n, pressure), params[vol_idx]["dlnv"]
+        else:
+            vol, dlnv = None, 0.0
         if family == "lj":
             attr = sys.species.to(torch.float32)
         elif family == "poly":
@@ -616,23 +633,23 @@ class Metropolis(DeviceAlgorithm):
             energy = torch.zeros_like(beta)
         draws = GeneratorDraws(slc["generator"], self.seed,
                                t0 * self.sweepstep)
-        pos, attr_out, energy, att, acc, ovf = cell_mc_segment(
+        pos, attr_out, energy, box, att, acc, ovf = cell_mc_segment(
             plan, pe, rc2, sys.pos, attr, beta, energy, sigma, draws,
-            substeps, w_disp=(w_d / a_att) / z, swap_mode=swap_mode,
-            box=sys.box, proposal=proposal)
+            substeps, w_disp=(w[0] / a_att) / z, w_swap=(w[1] / a_att) / z,
+            swap_mode=swap_mode, box=sys.box, proposal=proposal, vol=vol,
+            dlnv=dlnv)
+        upd = {"pos": pos}
+        if vol_idx is not None:
+            upd["box"] = box   # an NVT pool keeps the box as given (0-d too)
         if family == "lj":
-            new_sys = dataclasses.replace(
-                sys, pos=pos, species=attr_out.to(sys.species.dtype),
-                energy=energy)
+            upd.update(species=attr_out.to(sys.species.dtype), energy=energy)
         elif family == "poly":
-            new_sys = dataclasses.replace(sys, pos=pos, diam=attr_out,
-                                          energy=energy)
-        else:
-            new_sys = dataclasses.replace(sys, pos=pos)
+            upd.update(diam=attr_out, energy=energy)
+        new_sys = dataclasses.replace(sys, **upd)
         inc = torch.zeros_like(slc["counters"])
-        inc[:, disp_idx] = torch.stack([acc[:, 0], att[:, 0]], dim=-1)
-        if swap_idx is not None:
-            inc[:, swap_idx] = torch.stack([acc[:, 1], att[:, 1]], dim=-1)
+        for col, idx in enumerate((disp_idx, swap_idx, vol_idx)):
+            if idx is not None:
+                inc[:, idx] = torch.stack([acc[:, col], att[:, col]], dim=-1)
         out_slc = {**slc, "counters": slc["counters"] + inc,
                    "cell_debt": torch.tensor(new_debt, dtype=torch.float32),
                    "cell_overflow": slc["cell_overflow"] | torch.any(ovf)}

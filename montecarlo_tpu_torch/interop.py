@@ -5,10 +5,11 @@ both from the same state, one's chains are carried over to the other as
 numpy arrays.  Nothing here imports ``jax``: the JAX side converts its
 arrays with ``np.asarray``.
 
-Four families are carried: particle-1d (``x``, ``beta``, ``e``), 2-D
-Lennard-Jones (``pos``, ``species``, ``beta``, ``energy``, ``box``), 2-D
+Four families are carried: particle-1d (``x``, ``beta``, ``e``),
+Lennard-Jones (``pos``, ``species``, ``beta``, ``energy``, ``box``),
 polydisperse soft spheres (``pos``, ``diam``, ``beta``, ``energy``,
-``box``) and 2-D hard disks (``pos``, ``box``).
+``box``) and hard disks or spheres (``pos``, ``box``); the particle
+families in 2-D or 3-D, the dimension being the last axis of ``pos``.
 """
 
 from __future__ import annotations

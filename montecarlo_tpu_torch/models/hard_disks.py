@@ -1,15 +1,16 @@
-"""2-D hard disks: uniform measure over non-overlapping configurations.
+"""Hard disks (2-D) and hard spheres (3-D): uniform measure over
+non-overlapping configurations.
 
-Port of the 2-D NVT subset of ``montecarlo_tpu/models/hard_disks.py``:
-disks of diameter 1 in a periodic square box, sampled by the generic
+Port of ``montecarlo_tpu/models/hard_disks.py``: disks or spheres of
+diameter 1 in a periodic square or cubic box, sampled by the generic
 Metropolis path (:func:`displacement_move`: a uniform square proposal, any
-overlap a certain rejection) or, at large N, by the checkerboard cell-MC
-path (:func:`cell_closures`: the hard core as an infinite energy wall).
-Every function works on all chains at once: positions are one (M, N, 2)
-tensor.
+overlap a certain rejection; :func:`volume_move`: the hard-core NPT ln-V
+move) or, at large N, by the checkerboard cell-MC path
+(:func:`cell_closures`: the hard core as an infinite energy wall).  Every
+function works on all chains at once: positions are one (M, N, dim) tensor.
+:func:`psi6` stays 2-D, as in the reference.
 
-Volume moves, event-chain MC (``ecmc_model``, ``ecmc_pressure``) and 3-D
-hard spheres are not ported yet.
+Event-chain MC (``ecmc_model``, ``ecmc_pressure``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,12 +23,14 @@ import torch
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
 from ..utils.device import resolve_device
+from .lennard_jones import UniformLogVolume, _jittered, _lattice
 
 __all__ = [
     "HardDiskState",
     "make_system",
     "init_chains",
     "displacement_move",
+    "volume_move",
     "min_pair_distance",
     "overlap_free",
     "callback_min_distance",
@@ -43,7 +46,7 @@ _ROW_BATCH = 256     # rows per pass of the O(N^2) observables above N 1024
 @dataclasses.dataclass(frozen=True)
 class HardDiskState:
     """Chain-batched state."""
-    pos: torch.Tensor    # (M, N, 2) centers in [0, L)
+    pos: torch.Tensor    # (M, N, dim) centers in [0, L)
     box: torch.Tensor    # (M,) box edge L
 
 
@@ -69,29 +72,27 @@ def make_system() -> SystemDef:
 
 
 def init_chains(n_chains: int, n_disks: int, eta: float, seed: int = 42,
-                device=None) -> HardDiskState:
-    """Square-lattice start at area fraction ``eta`` (< pi/4 ~ 0.785, so the
-    lattice has no overlap), each disk jittered uniformly by up to 0.45 of
-    the lattice's free spacing.  The jitter comes from a ``torch.Generator``
-    seeded with ``seed`` — a different stream than the JAX package's, so
-    ``interop.chains_from_reference`` carries its chains over instead.  The
-    chains are made on ``device``, the card (``cuda``) when it is None."""
+                device=None, dim: int = 2) -> HardDiskState:
+    """Square (``dim=2``) or cubic (``dim=3``: hard spheres) lattice start
+    at packing fraction ``eta`` (area fraction in 2-D, volume fraction in
+    3-D; the lattice must have no overlap: eta < pi/4 ~ 0.785 in 2-D,
+    < pi/6 ~ 0.524 in 3-D), each particle jittered uniformly by up to 0.45
+    of the lattice's free spacing.  The jitter comes from a
+    ``torch.Generator`` seeded with ``seed`` — a different stream than the
+    JAX package's, so ``interop.chains_from_reference`` carries its chains
+    over instead.  The chains are made on ``device``, the card (``cuda``)
+    when it is None."""
     device = resolve_device(device)
-    box = float((n_disks * np.pi * (_DIAM / 2) ** 2 / eta) ** 0.5)
-    side = int(np.ceil(n_disks ** 0.5))
-    spacing = box / side
+    if dim == 2:
+        content = n_disks * np.pi * (_DIAM / 2) ** 2
+    else:
+        content = n_disks * (np.pi / 6.0) * _DIAM ** 3
+    box = float((content / eta) ** (1.0 / dim))
+    base, spacing = _lattice(n_disks, box, dim)
     if spacing < _DIAM:
         raise ValueError(f"eta={eta} too dense for a lattice start")
-    grid = np.stack(np.meshgrid(np.arange(side), np.arange(side)),
-                    axis=-1).reshape(-1, 2)[:n_disks]
-    base = (grid + 0.5) * spacing
-    jit_amp = 0.45 * (spacing - _DIAM)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    jitter = jit_amp * (2.0 * torch.rand((n_chains, n_disks, 2),
-                                         generator=gen, device=device) - 1.0)
-    pos = torch.remainder(
-        torch.as_tensor(base, dtype=torch.float32, device=device)[None]
-        + jitter, box)
+    pos = _jittered(base, 0.45 * (spacing - _DIAM), n_chains,
+                    box, seed, device)
     return HardDiskState(pos=pos, box=torch.full(
         (n_chains,), box, dtype=torch.float32, device=device))
 
@@ -99,7 +100,8 @@ def init_chains(n_chains: int, n_disks: int, eta: float, seed: int = 42,
 # -- geometry ---------------------------------------------------------------
 
 def _rows_d(state: HardDiskState, rows):
-    """(M, R, N, 2) min-image displacements from particles ``rows`` to all."""
+    """(M, R, N, dim) min-image displacements from particles ``rows`` to
+    all."""
     b = state.box[:, None, None, None]
     d = state.pos[:, rows, None, :] - state.pos[:, None, :, :]
     return d - b * torch.round(d / b)
@@ -236,4 +238,42 @@ def displacement_move(delta: float, weight: float = 1.0) -> Move:
                  kind="hard_disk_displacement_2d")
     return Move(move=md,
                 params={"delta": torch.tensor(delta, dtype=torch.float32)},
+                weight=weight)
+
+
+# -- NPT volume move ------------------------------------------------------
+
+def volume_move(dlnv: float, beta_pressure: float,
+                weight: float = 1.0) -> Move:
+    """Isotropic ln-V volume move of the hard-core NPT ensemble (constant-
+    pressure hard disks or spheres).  Only the product beta P enters:
+
+        dlog pi = -betaP dV + (N + 1) delta,   overlap => -inf.
+
+    On the cell path it runs as a volume substep: the infinite energy wall
+    makes the cell energy at the proposed box exactly 0 (valid) or +inf
+    (overlap: a certain rejection)."""
+
+    def apply(state: HardDiskState, delta):
+        n, d = state.pos.shape[-2:]
+        scale = torch.exp(delta / d)
+        new = dataclasses.replace(state, pos=state.pos * scale[:, None, None],
+                                  box=state.box * scale)
+        overlap = min_pair_distance(new) < _DIAM
+        d_v = state.box ** d * (torch.exp(delta) - 1.0)
+        dlogp = torch.where(overlap, -torch.inf,
+                            -beta_pressure * d_v + (n + 1) * delta)
+        return new, dlogp
+
+    def invert(delta, new_state):
+        return -delta
+
+    def reward(delta, new_state):
+        return delta * delta
+
+    md = MoveDef(name="HardDiskVolume", policy=UniformLogVolume(),
+                 apply=apply, invert=invert, reward=reward,
+                 kind="hard_disk_volume", aux=(None, float(beta_pressure)))
+    return Move(move=md,
+                params={"dlnv": torch.tensor(dlnv, dtype=torch.float32)},
                 weight=weight)

@@ -1,14 +1,16 @@
-"""2-D Lennard-Jones particle system (ParticlesMC-style).
+"""Lennard-Jones particle system in 2-D or 3-D (ParticlesMC-style).
 
-Port of the 2-D subset of ``montecarlo_tpu/models/lennard_jones.py``: the
-binary Kob-Andersen mixture with truncated-and-shifted pair energies, the
-local displacement move and the species-swap move, each with an O(N)
-incremental ΔE against the energy cached in the state, and the closures the
-checkerboard cell-MC path takes (:func:`cell_closures`).  Every function
-works on all chains at once: positions are one (M, N, 2) tensor.
+Port of ``montecarlo_tpu/models/lennard_jones.py``: the binary Kob-Andersen
+mixture with truncated-and-shifted pair energies, the local displacement
+move and the species-swap move, each with an O(N) incremental ΔE against
+the energy cached in the state, the isotropic ln-V volume move of the NPT
+ensemble with its observables (virial pressure, density), and the closures
+the checkerboard cell-MC path takes (:func:`cell_closures`).  Every
+function works on all chains at once: positions are one (M, N, dim) tensor,
+and the spatial dimension is read from it (``init_chains(dim=3)`` gives
+3-D states).
 
-Volume moves, the virial pressure, event-chain MC and 3-D states are not
-ported yet.
+Event-chain MC is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,8 +32,12 @@ __all__ = [
     "init_chains",
     "lj_displacement_move",
     "lj_swap_move",
+    "lj_volume_move",
     "total_energy",
+    "virial_pressure",
     "callback_energy_per_particle",
+    "callback_pressure",
+    "callback_density",
     "cell_closures",
 ]
 
@@ -39,7 +45,7 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class LJState:
     """Chain-batched state."""
-    pos: torch.Tensor       # (M, N, 2) positions in [0, L)
+    pos: torch.Tensor       # (M, N, dim) positions in [0, L)
     species: torch.Tensor   # (M, N) int32 species labels (0=A, 1=B)
     beta: torch.Tensor      # (M,) inverse temperature
     energy: torch.Tensor    # (M,) cached total potential energy
@@ -86,7 +92,7 @@ def _pair_energy(r2, eps, sig, rcut):
 
 def _min_image_r2(pos, x, box):
     """(M, N) squared min-image distances from each chain's point ``x``
-    (M, 2) to its particles."""
+    (M, dim) to its particles."""
     d = pos - x[:, None, :]
     b = box[:, None, None]
     d = d - b * torch.round(d / b)
@@ -94,7 +100,7 @@ def _min_image_r2(pos, x, box):
 
 
 def _row_energy(state: LJState, x, s_i, mask, params: LJParams):
-    """(M,) interaction energy of a (virtual) particle at ``x`` (M, 2) with
+    """(M,) interaction energy of a (virtual) particle at ``x`` (M, dim) with
     species ``s_i`` (M,) against each chain's particles (slots where ``mask``
     (M, N) is True excluded)."""
     r2 = _min_image_r2(state.pos, x, state.box)
@@ -126,7 +132,7 @@ def total_energy(state: LJState, params: LJParams, row_batch: int = None):
     rows = []
     for start in range(0, n, row_batch):
         idx = cols[start:start + row_batch]
-        d = pos[:, None, :, :] - pos[:, idx, None, :]         # (M, R, N, 2)
+        d = pos[:, None, :, :] - pos[:, idx, None, :]       # (M, R, N, dim)
         b = box[:, None, None, None]
         d = d - b * torch.round(d / b)
         r2 = torch.sum(d * d, dim=-1)
@@ -183,35 +189,58 @@ def make_system(params: LJParams = LJParams()) -> SystemDef:
                      refresh=refresh)
 
 
+def _lattice(n_particles: int, box: float, dim: int):
+    """(N, dim) centres of the square or cubic lattice that fills ``box``
+    row by row, as the reference lays it out (``np.meshgrid``'s default
+    indexing), and the lattice spacing."""
+    side = int(np.ceil(n_particles ** (1.0 / dim)))
+    spacing = box / side
+    axes = [np.arange(side)] * dim
+    grid = np.stack(np.meshgrid(*axes), axis=-1).reshape(-1, dim)
+    return (grid[:n_particles] + 0.5) * spacing, spacing
+
+
+def _jittered(base, spacing_amp, n_chains, box, seed, device):
+    """(M, N, dim) lattice ``base`` plus a uniform jitter in
+    ``[-spacing_amp, spacing_amp)`` per coordinate, from a
+    ``torch.Generator`` seeded with ``seed``, wrapped into the box."""
+    n, dim = base.shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    jitter = spacing_amp * (2.0 * torch.rand(
+        (n_chains, n, dim), generator=gen, device=device) - 1.0)
+    return (torch.as_tensor(base, dtype=torch.float32, device=device)[None]
+            + jitter) % box
+
+
+def _full_batching(n: int):
+    """(row_batch, pair_budget) of a full energy pass outside the refresh
+    (initial energies, volume moves): dense up to N 1024, else 256 rows a
+    pass, ~1.3e8 pair terms a chain batch, as the reference sizes its
+    initial energies."""
+    return (None if n <= 1024 else 256), 2 ** 27
+
+
 def init_chains(n_chains: int, n_particles: int, rho: float, beta: float,
                 frac_b: float = 0.0, seed: int = 42,
-                params: LJParams = LJParams(), device=None) -> LJState:
-    """Chain-stacked initial state: square lattice + small jitter (avoids
-    overlaps), species assigned round-robin to hit ``frac_b``.  The jitter
-    comes from a ``torch.Generator`` seeded with ``seed`` — a different
-    stream than the JAX package's, so ``interop.chains_from_reference``
-    carries its chains over instead.  The chains are made on ``device``, the
-    card (``cuda``) when it is None."""
+                params: LJParams = LJParams(), device=None,
+                dim: int = 2) -> LJState:
+    """Chain-stacked initial state: square (``dim=2``) or cubic (``dim=3``)
+    lattice + small jitter (avoids overlaps), species assigned round-robin
+    to hit ``frac_b``.  The jitter comes from a ``torch.Generator`` seeded
+    with ``seed`` — a different stream than the JAX package's, so
+    ``interop.chains_from_reference`` carries its chains over instead.  The
+    chains are made on ``device``, the card (``cuda``) when it is None."""
     device = resolve_device(device)
-    box = float((n_particles / rho) ** (1.0 / 2))
-    side = int(np.ceil(n_particles ** (1.0 / 2)))
-    spacing = box / side
-    grid = np.stack(np.meshgrid(np.arange(side), np.arange(side)),
-                    axis=-1).reshape(-1, 2)[:n_particles]
-    base = (grid + 0.5) * spacing
+    box = float((n_particles / rho) ** (1.0 / dim))
+    base, spacing = _lattice(n_particles, box, dim)
 
     n_b = int(round(frac_b * n_particles))
     species = np.zeros(n_particles, np.int32)
     if n_b:
         species[np.linspace(0, n_particles - 1, n_b).astype(int)] = 1
 
-    gen = torch.Generator(device=device).manual_seed(seed)
-    jitter = (0.1 * spacing) * (2.0 * torch.rand(
-        (n_chains, n_particles, 2), generator=gen, device=device) - 1.0)
-    pos = (torch.as_tensor(base, dtype=torch.float32, device=device)[None]
-           + jitter) % box
     state = LJState(
-        pos=pos,
+        pos=_jittered(base, 0.1 * spacing, n_chains, box, seed, device),
         species=torch.as_tensor(species, device=device).expand(
             n_chains, n_particles).contiguous(),
         beta=torch.full((n_chains,), beta, dtype=torch.float32,
@@ -219,9 +248,8 @@ def init_chains(n_chains: int, n_particles: int, rho: float, beta: float,
         energy=torch.zeros((n_chains,), dtype=torch.float32, device=device),
         box=torch.full((n_chains,), box, dtype=torch.float32, device=device),
     )
-    rb = None if n_particles <= 1024 else 256
     return dataclasses.replace(
-        state, energy=_energies(state, params, rb, 2 ** 27))
+        state, energy=_energies(state, params, *_full_batching(n_particles)))
 
 
 # ---------------------------------------------------------------------------
@@ -399,3 +427,112 @@ def cell_closures(params: LJParams):
 
     rcut_max = params.rcut * float(np.max(np.asarray(params.sig)))
     return pair_energy, rcut2_of, rcut_max
+
+
+def virial_pressure(state: LJState, params: LJParams = LJParams(),
+                    row_batch: int = None):
+    """(M,) instantaneous virial pressure of each chain (any dimension d).
+
+    ``P = rho / beta + W / (d V)`` with the pair virial
+    ``w(r) = -r du/dr = 24 eps [2 (sig/r)^12 - (sig/r)^6]`` summed over the
+    pairs inside the cutoff: exact for the truncated-and-shifted potential
+    the sampler targets (no impulsive cutoff term, no tail correction).
+    ``row_batch`` bounds peak memory to ``M x row_batch x N`` pair terms.
+    """
+    pos, spc, box = state.pos, state.species, state.box
+    m, n, dim = pos.shape
+    cols = torch.arange(n, device=pos.device)
+    step = n if row_batch is None or row_batch >= n else row_batch
+    w_sum = 0.0
+    for start in range(0, n, step):
+        idx = cols[start:start + step]
+        d = pos[:, None, :, :] - pos[:, idx, None, :]       # (M, R, N, dim)
+        b = box.reshape(-1, 1, 1, 1)
+        d = d - b * torch.round(d / b)
+        r2 = torch.sum(d * d, dim=-1)
+        eps, sig = params.coeffs(spc[:, idx, None], spc[:, None, :])
+        rc2 = (params.rcut * sig) ** 2
+        inv = sig * sig / torch.clamp(r2, min=1e-12)
+        i6 = inv * inv * inv
+        w = torch.where(r2 < rc2, 24.0 * eps * (2.0 * i6 * i6 - i6), 0.0)
+        w = torch.where(idx[:, None] == cols[None, :], 0.0, w)
+        w_sum = w_sum + torch.sum(w, dim=(1, 2))
+    v = box ** dim
+    return (n / v) / state.beta + 0.5 * w_sum / (dim * v)
+
+
+def callback_pressure(view, params: LJParams = LJParams()):
+    """Mean instantaneous virial pressure over chains (NVT observable),
+    row-batched beyond N 1024."""
+    n = view.sys.pos.shape[-2]
+    rb = None if n <= 1024 else 256
+    return torch.mean(virial_pressure(view.sys, params, row_batch=rb))
+
+
+# ---------------------------------------------------------------------------
+# NPT ensemble: volume moves
+# ---------------------------------------------------------------------------
+
+class UniformLogVolume(Policy):
+    """Symmetric uniform step in ln V (the standard NPT volume proposal)."""
+
+    def sample(self, params, generator, state):
+        m = state.pos.shape[0]
+        dlnv = params["dlnv"]
+        return dlnv * (2.0 * torch.rand(
+            (m,), generator=generator, dtype=dlnv.dtype,
+            device=state.pos.device) - 1.0)
+
+    def log_density(self, params, action, state):
+        return (-torch.log(2.0 * params["dlnv"])).expand(action.shape)
+
+
+def _volume_move(name, kind, total, dlnv, pressure, weight, params):
+    """An isotropic ln-V move whose full energy is ``total(state, params,
+    row_batch)``: the box edge and every position scale by
+    ``exp(delta / dim)``, the energy is recomputed in full (O(N^2): volume
+    moves are scheduled rarely), and
+
+        dlog pi = -beta (dE + P dV) + (N + 1) delta.
+
+    ``aux`` carries (interaction table, pressure): the cell-MC planner needs
+    the pressure for its volume substeps."""
+
+    def apply(state, delta):
+        n, dim = state.pos.shape[-2:]
+        scale = torch.exp(delta / dim)
+        new = dataclasses.replace(state, pos=state.pos * scale[:, None, None],
+                                  box=state.box * scale)
+        e_new = _energies(new, params, *_full_batching(n), total=total)
+        d_e = e_new - state.energy
+        d_v = state.box ** dim * (torch.exp(delta) - 1.0)
+        dlogp = -state.beta * (d_e + pressure * d_v) + (n + 1) * delta
+        return dataclasses.replace(new, energy=e_new), dlogp
+
+    def invert(delta, new_state):
+        return -delta
+
+    def reward(delta, new_state):
+        return delta * delta
+
+    md = MoveDef(name=name, policy=UniformLogVolume(), apply=apply,
+                 invert=invert, reward=reward, kind=kind,
+                 aux=(params, float(pressure)))
+    return Move(move=md,
+                params={"dlnv": torch.tensor(dlnv, dtype=torch.float32)},
+                weight=weight)
+
+
+def lj_volume_move(dlnv: float, pressure: float, weight: float = 1.0,
+                   params: LJParams = LJParams()) -> Move:
+    """Isotropic volume-scaling move: the NPT ensemble (``_volume_move``).
+    In the ideal-gas limit (eps = 0) ``<V> = (N + 1) / (beta P)``
+    exactly."""
+    return _volume_move("LJVolume", "lj_volume", total_energy, dlnv,
+                        pressure, weight, params)
+
+
+def callback_density(view):
+    """Mean number density N / V over chains (NPT observable)."""
+    n, d = view.sys.pos.shape[-2:]
+    return torch.mean(n / view.sys.box ** d)

@@ -1,18 +1,19 @@
-"""Continuously polydisperse soft spheres in 2-D — swap Monte Carlo for
-glasses.
+"""Continuously polydisperse soft spheres in 2-D or 3-D — swap Monte Carlo
+for glasses.
 
-Port of the 2-D subset of ``montecarlo_tpu/models/polydisperse.py``: an
+Port of ``montecarlo_tpu/models/polydisperse.py``: an
 inverse-power-law pair potential ``u = (sigma_ij / r)^12`` with a C2-smooth
 cutoff at ``r = x_c sigma_ij`` and the non-additive cross diameter
 ``sigma_ij = (d_i + d_j) / 2 * (1 - eps |d_i - d_j|)``, diameters drawn from
 ``P(d) ~ d^-3``, the local displacement move and the diameter-swap move
 (Ninarello, Berthier & Coslovich 2017), each with an O(N) incremental ΔE
-against the energy cached in the state, and the closures the checkerboard
-cell-MC path takes (:func:`cell_closures`).  Every function works on all
-chains at once: positions are one (M, N, 2) tensor.
+against the energy cached in the state, the ln-V volume move of NPT swap
+MC, and the closures the checkerboard cell-MC path takes
+(:func:`cell_closures`).  Every function works on all chains at once:
+positions are one (M, N, dim) tensor (``init_chains(dim=3)`` gives the 3-D
+glass former).
 
-Volume moves, the density callback, event-chain MC and 3-D states are not
-ported yet.
+Event-chain MC is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
 from ..utils.device import resolve_device
 from . import lennard_jones as _lj
-from .lennard_jones import GaussianDisplacement2D, _gather_pos, _slot_mask
+from .lennard_jones import (GaussianDisplacement2D, _full_batching,
+                            _gather_pos, _jittered, _lattice, _slot_mask,
+                            callback_density)
 
 __all__ = [
     "PolyState",
@@ -37,8 +40,10 @@ __all__ = [
     "sample_diameters",
     "displacement_move",
     "swap_move",
+    "volume_move",
     "total_energy",
     "callback_energy_per_particle",
+    "callback_density",
     "cell_closures",
 ]
 
@@ -46,7 +51,7 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class PolyState:
     """Chain-batched state."""
-    pos: torch.Tensor     # (M, N, 2) positions in [0, L)
+    pos: torch.Tensor     # (M, N, dim) positions in [0, L)
     diam: torch.Tensor    # (M, N) particle diameters
     beta: torch.Tensor    # (M,) inverse temperature
     energy: torch.Tensor  # (M,) cached total potential energy
@@ -94,7 +99,7 @@ def _sigma_ij(d_i, d_j, eps):
 
 
 def _row_energy(state: PolyState, x, d_i, mask, params: PolyParams, coeffs):
-    """(M,) energy of a (virtual) particle at ``x`` (M, 2) with diameter
+    """(M,) energy of a (virtual) particle at ``x`` (M, dim) with diameter
     ``d_i`` (M,) against each chain's particles (slots where ``mask``
     (M, N) is True excluded)."""
     d = state.pos - x[:, None, :]
@@ -126,7 +131,7 @@ def total_energy(state: PolyState, params: PolyParams = PolyParams(),
     rows = []
     for start in range(0, n, row_batch):
         idx = cols[start:start + row_batch]
-        d = pos[:, None, :, :] - pos[:, idx, None, :]         # (M, R, N, 2)
+        d = pos[:, None, :, :] - pos[:, idx, None, :]       # (M, R, N, dim)
         d = d - b * torch.round(d / b)
         r2 = torch.sum(d * d, dim=-1)
         sig = _sigma_ij(dia[:, idx, None], dia[:, None, :], params.eps)
@@ -187,30 +192,21 @@ def sample_diameters(n: int, params: PolyParams = PolyParams(),
 
 def init_chains(n_chains: int, n_particles: int, rho: float, beta: float,
                 seed: int = 42, params: PolyParams = PolyParams(),
-                device=None) -> PolyState:
-    """Square-lattice start with a small jitter; every chain gets the same
-    diameter draw (the composition is quenched disorder shared across
-    chains), ``sample_diameters(n_particles, params, seed + 1)`` as in the
-    reference.  The jitter comes from a ``torch.Generator`` seeded with
-    ``seed`` — a different stream than the JAX package's, so
+                device=None, dim: int = 2) -> PolyState:
+    """Square (``dim=2``) or cubic (``dim=3``) lattice start with a small
+    jitter; every chain gets the same diameter draw (the composition is
+    quenched disorder shared across chains),
+    ``sample_diameters(n_particles, params, seed + 1)`` as in the reference.
+    The jitter comes from a ``torch.Generator`` seeded with ``seed`` — a
+    different stream than the JAX package's, so
     ``interop.chains_from_reference`` carries its chains over instead.  The
     chains are made on ``device``, the card (``cuda``) when it is None."""
     device = resolve_device(device)
-    box = float((n_particles / rho) ** (1.0 / 2))
-    side = int(np.ceil(n_particles ** (1.0 / 2)))
-    spacing = box / side
-    grid = np.stack(np.meshgrid(np.arange(side), np.arange(side)),
-                    axis=-1).reshape(-1, 2)[:n_particles]
-    base = (grid + 0.5) * spacing
+    box = float((n_particles / rho) ** (1.0 / dim))
+    base, spacing = _lattice(n_particles, box, dim)
     diam = sample_diameters(n_particles, params, seed=seed + 1)
-
-    gen = torch.Generator(device=device).manual_seed(seed)
-    jitter = (0.1 * spacing) * (2.0 * torch.rand(
-        (n_chains, n_particles, 2), generator=gen, device=device) - 1.0)
-    pos = (torch.as_tensor(base, dtype=torch.float32, device=device)[None]
-           + jitter) % box
     state = PolyState(
-        pos=pos,
+        pos=_jittered(base, 0.1 * spacing, n_chains, box, seed, device),
         diam=torch.as_tensor(diam, device=device).expand(
             n_chains, n_particles).contiguous(),
         beta=torch.full((n_chains,), beta, dtype=torch.float32,
@@ -218,9 +214,8 @@ def init_chains(n_chains: int, n_particles: int, rho: float, beta: float,
         energy=torch.zeros((n_chains,), dtype=torch.float32, device=device),
         box=torch.full((n_chains,), box, dtype=torch.float32, device=device),
     )
-    rb = None if n_particles <= 1024 else 256
     return dataclasses.replace(
-        state, energy=_energies(state, params, rb, 2 ** 27))
+        state, energy=_energies(state, params, *_full_batching(n_particles)))
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +312,14 @@ def swap_move(weight: float = 1.0,
                  apply=apply, invert=invert, reward=reward,
                  kind="poly_swap", aux=params)
     return Move(move=md, params={"dummy": torch.zeros(())}, weight=weight)
+
+
+def volume_move(dlnv: float, pressure: float, weight: float = 1.0,
+                params: PolyParams = PolyParams()) -> Move:
+    """Isotropic ln-V volume move: NPT swap MC, the constant-pressure glass
+    protocol, with the acceptance of ``lennard_jones.lj_volume_move``."""
+    return _lj._volume_move("PolyVolume", "poly_volume", total_energy, dlnv,
+                            pressure, weight, params)
 
 
 def callback_energy_per_particle(view):

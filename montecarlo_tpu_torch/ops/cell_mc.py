@@ -1,29 +1,41 @@
-"""Checkerboard cell-list Monte Carlo for large-N particle systems (2-D, NVT).
+"""Checkerboard cell-list Monte Carlo for large-N particle systems (2-D and
+3-D, NVT and NPT).
 
 Port of ``montecarlo_tpu/ops/cell_mc.py``.  The row kernels (``lj_sweep``,
 ``poly_sweep``) cost O(N) a move, and a chain's moves are sequential.  Here
-the box is divided into an ``nc x nc`` grid of cells (``nc`` even, >= 4) of
-width ``w = box / nc >= rcut + 2 d_cap``, colored in a 2 x 2 checkerboard:
+the box is divided into an ``nc^dim`` grid of cells (``nc`` even, >= 4) of
+width ``w = box / nc >= rcut + 2 d_cap``, colored in a 2^dim checkerboard:
 
 - In one *substep* every cell of one color proposes a move for ONE
   uniformly picked occupant.  Two active cells are never adjacent, and a
-  particle stays within ``d_cap`` of its storage cell for the whole segment
-  (a move leaving the ``+/- d_cap`` halo is rejected: a symmetric
-  restriction of the proposal set), so the simultaneous moves do not
-  interact and the substep is a product of independent MH updates.
-- A particle's partners within ``rcut`` lie in its 3 x 3 cell
+  particle stays within a halo of its storage cell for the whole segment
+  (a move leaving the halo is rejected: a symmetric restriction of the
+  proposal set), so the simultaneous moves do not interact and the substep
+  is a product of independent MH updates.
+- A particle's partners within ``rcut`` lie in its 3^dim cell
   neighbourhood, gathered once per substep.
 - Positions are stored as fractions of the box, and the grid's origin is
   shifted by a fresh uniform offset per chain at every bind, which keeps
   the halo coverage position-independent across segments.
 - Between segments the particles are binned anew (one stable argsort per
   chain).
+- **Volume substeps** (optional, NPT): an ln-V rescale per chain on the
+  bound state.  Fractional coordinates do not change under the rescale, so
+  nothing is re-bound; the full energy at the proposed box is one all-cells
+  3^dim-neighbourhood pass, and a box below the grid's validity floor
+  ``box_min`` is rejected.  With volume substeps the halo is the fixed
+  fraction ``d_cap / box_min`` of the box, so it does not change when a
+  volume move is accepted mid-segment (the reference's ``d_cap / box``
+  would make the restriction asymmetric there); it is ``d_cap`` or more in
+  real units and keeps the geometry valid for every box >= ``box_min``.
+  Without volume substeps the halo is ``d_cap / box``, the reference's.
 
 Substeps draw their random numbers from a *draws* object
 (:class:`GeneratorDraws` by default): the substep-shared variant (kind,
 color) sequence on the host, so each substep runs one branch and the host
-never waits for the card inside a segment, and the per-cell uniforms and
-proposals as tensors.  A test can feed the JAX package's own draws instead.
+never waits for the card inside a segment, and the per-cell and per-chain
+uniforms and proposals as tensors.  A test can feed the JAX package's own
+draws instead.
 
 This is plain PyTorch on the chains' device; there is no hand-written kernel
 here, as the reference has no Pallas kernel here.
@@ -213,7 +225,8 @@ def _active(P, parity):
              + tuple(slice(p, None, 2) for p in parity)]
 
 
-def _make_substep(grid: CellGrid, pair_energy, rcut2_of, swap_mode=None):
+def _make_substep(grid: CellGrid, pair_energy, rcut2_of, swap_mode=None,
+                  vol=None):
     """Build the one-color multi-move MH substeps over all chains.
 
     ``pair_energy(r2, a_i, a_j) -> u`` and ``rcut2_of(a_i, a_j) -> rc^2``
@@ -221,13 +234,20 @@ def _make_substep(grid: CellGrid, pair_energy, rcut2_of, swap_mode=None):
 
     Returns ``(variants, total_energy)``: ``variants[kind][color]`` is a
     function ``(P, box, sigma, beta, *draws) -> (dE, n_att, n_acc)`` that
-    updates the packed cells ``P`` in place and returns per-chain sums;
-    kind 0 is the displacement, kind 1 (when ``swap_mode`` is set) the
+    updates the packed cells ``P`` in place and returns per-chain sums
+    (``variants[kind]`` is None for a kind the pool lacks); kind 0 is the
+    displacement, kind 1 (when ``swap_mode`` is set) the
     within-cell attribute swap: ``"species"`` exchanges the labels of one A
     and one B occupant, ``"pair"`` the diameters of an ordered pair of
     distinct occupants.  Both keep the pick probabilities of the reverse
     swap, and swapped particles never move, so same-color swaps are
     independent by the displacement's geometry.
+
+    ``vol = (n_particles, pressure)`` adds kind 2, ``variants[2][0]``: the
+    per-chain ln-V volume substep ``(P, box, energy, dlnv, beta, u_delta,
+    u_acc) -> (box', energy', n_att, n_acc)``, with ``u_delta`` uniform in
+    [-1, 1).  It also fixes the displacement's halo at ``d_cap / box_min``
+    of the box (the module docstring).
     """
     nc, cap, dim = grid.nc, grid.cap, grid.dim
     d_cap = grid.d_cap
@@ -302,7 +322,8 @@ def _make_substep(grid: CellGrid, pair_energy, rcut2_of, swap_mode=None):
             # position must stay within d_cap of the storage cell
             delta = chain_view(sigma / box)[..., None] * draw
             pn = pi + torch.movedim(delta, -1, 1)[..., None]
-            d_cap_f = chain_view(torch.full_like(box, d_cap) / box)
+            d_cap_f = chain_view(torch.full_like(box, d_cap) / (
+                box if vol is None else torch.full_like(box, grid.box_min)))
             inbox = None
             for a in range(dim):
                 lo = origin[a] - d_cap_f
@@ -390,9 +411,33 @@ def _make_substep(grid: CellGrid, pair_energy, rcut2_of, swap_mode=None):
             e = s if e is None else e + s
         return 0.5 * e
 
-    variants = [[make_color(p) for p in parities]]
-    if swap_mode is not None:
-        variants.append([make_color_swap(p) for p in parities])
+    def make_volume():
+        n_particles, pressure = vol
+
+        def vol_substep(P, box, energy, dlnv, beta, u_delta, u_acc):
+            delta = dlnv * u_delta
+            box_new = box * torch.exp(delta / dim)
+            # boxes below the grid's floor are rejected outright: a
+            # symmetric restriction, the reverse move being in range
+            # whenever the forward one is
+            in_range = box_new >= grid.box_min
+            e_new = total_energy(P, box_new)
+            d_e = e_new - energy
+            d_v = box ** dim * (torch.exp(delta) - 1.0)
+            dlogp = (-beta * (d_e + pressure * d_v)
+                     + (n_particles + 1) * delta)
+            accept = in_range & (torch.log(u_acc) < dlogp)
+            return (torch.where(accept, box_new, box),
+                    torch.where(accept, e_new, energy),
+                    torch.ones_like(accept), accept)
+
+        return vol_substep
+
+    # kinds 0, 1 and 2; None where the pool has no such kind
+    variants = [[make_color(p) for p in parities],
+                None if swap_mode is None
+                else [make_color_swap(p) for p in parities],
+                None if vol is None else [make_volume()]]
     return variants, total_energy
 
 
@@ -434,17 +479,22 @@ def cell_total_energy(grid: CellGrid, pair_energy, rcut2_of, pos, attr,
 class GeneratorDraws:
     """A segment's draws (the protocol :func:`cell_mc_segment` takes).
 
-    - ``variants(n_substeps, n_colors, w_disp, swap)``: a host (n, 2) int
-      array of each substep's (kind, color), shared by all chains, from a
-      counter-based generator keyed by (``seed``, ``micro_t0``), the
-      segment's absolute first micro-step: it holds no state, so a resumed
-      run draws the same sequence;
+    - ``variants(n_substeps, n_colors, w_disp, w_swap, swap, vol)``: a host
+      (n, 2) int array of each substep's (kind, color), shared by all
+      chains, from a counter-based generator keyed by (``seed``,
+      ``micro_t0``), the segment's absolute first micro-step: it holds no
+      state, so a resumed run draws the same sequence.  A substep is a
+      displacement (kind 0) where its uniform u < ``w_disp``, else a swap
+      (1) where the pool has one and, with a volume move too,
+      u < ``w_disp + w_swap`` (float32), else a volume substep (2);
     - ``shift(m, dim, device)``: the (M, dim) uniform grid origins;
     - ``substep(i, kind, m, h, cap, dim, proposal, device)``: substep
       ``i``'s tensors, ``(u_pick, draw, u_acc)`` for a displacement (the
       draw (M, h.., dim): standard normal for the ``"gaussian"`` proposal,
       uniform in [-1, 1) for the ``"square"`` one) and ``(u_i, u_j,
-      u_acc)`` for a swap; the uniforms are in [0, 1).
+      u_acc)`` for a swap; the uniforms are in [0, 1);
+    - ``volume(i, m, device)``: a volume substep's (M,) ``(u_delta,
+      u_acc)``, uniform in [-1, 1) and [0, 1).
 
     Here the tensors come from ``generator`` on the chains' device.
     """
@@ -454,14 +504,13 @@ class GeneratorDraws:
         self.seed = int(seed)
         self.micro_t0 = int(micro_t0)
 
-    def variants(self, n_substeps, n_colors, w_disp, swap):
+    def variants(self, n_substeps, n_colors, w_disp, w_swap, swap, vol):
         key = np.array([self.seed & (2 ** 64 - 1), self.micro_t0], np.uint64)
         rng = np.random.Generator(np.random.Philox(key=key))
         color = rng.integers(0, n_colors, size=n_substeps)
         u = rng.random(n_substeps, dtype=np.float32)
-        kind = (u >= np.float32(w_disp)).astype(np.int64) if swap \
-            else np.zeros(n_substeps, np.int64)
-        return np.stack([kind, color], axis=1)
+        return np.stack([_kinds(u, w_disp, w_swap, swap, vol), color],
+                        axis=1)
 
     def _rand(self, shape, device):
         return torch.rand(shape, generator=self.generator, device=device)
@@ -482,6 +531,20 @@ class GeneratorDraws:
         return first, self._rand(cells + (cap,), device), \
             self._rand(cells, device)
 
+    def volume(self, i, m, device):
+        return 2.0 * self._rand((m,), device) - 1.0, self._rand((m,), device)
+
+
+def _kinds(u, w_disp, w_swap, swap, vol):
+    """Each substep's kind from its float32 uniform ``u`` (the reference's
+    rule, ``montecarlo_tpu/ops/cell_mc.py:642-652``)."""
+    if not (swap or vol):
+        return np.zeros(u.shape, np.int64)
+    rest = 1 if swap else 2
+    if swap and vol:
+        rest = np.where(u < np.float32(w_disp) + np.float32(w_swap), 1, 2)
+    return np.where(u < np.float32(w_disp), 0, rest).astype(np.int64)
+
 
 # ---------------------------------------------------------------------------
 # Segment driver
@@ -489,8 +552,9 @@ class GeneratorDraws:
 
 def cell_mc_segment(grid: CellGrid, pair_energy, rcut2_of, pos, attr, beta,
                     energy, sigma, draws, n_substeps: int,
-                    w_disp: float = 1.0, swap_mode=None, box=None,
-                    proposal: str = "gaussian"):
+                    w_disp: float = 1.0, w_swap: float = 0.0, swap_mode=None,
+                    box=None, proposal: str = "gaussian", vol=None,
+                    dlnv=0.0):
     """Run ``n_substeps`` checkerboard substeps on chain-stacked state.
 
     Args:
@@ -501,57 +565,64 @@ def cell_mc_segment(grid: CellGrid, pair_energy, rcut2_of, pos, attr, beta,
       sigma: proposal width (real units): a Gaussian's standard deviation,
         or the square proposal's half-width.
       draws: the segment's draws (:class:`GeneratorDraws`'s protocol).
-      n_substeps: host int; a substep attempts ~nc^dim / 2^dim moves per
-        chain.
-      w_disp: the probability that a substep is a displacement (the rest
-        are swaps; 1 without ``swap_mode``).
+      n_substeps: host int; a displacement or swap substep attempts
+        ~nc^dim / 2^dim moves per chain, a volume substep one.
+      w_disp / w_swap: the probabilities that a substep is a displacement
+        or a swap; the rest are volume substeps (swaps without ``vol``).
       swap_mode: None, ``"species"`` or ``"pair"``.
       proposal: ``"gaussian"`` or ``"square"`` (the hard-disk convention).
+      vol: None, or ``(n_particles, pressure)``: volume substeps with the
+        ln-V half-width ``dlnv`` (a float or a 0-d tensor).
 
-    Returns ``(pos', attr', energy', attempts, accepts, invalid)`` with
-    attempts/accepts (M, 2) int32 (columns: displacement, swap) and invalid
-    (M,) bool: the chain's bind overflowed a cell, or its box is below the
-    grid's validity floor.  Invalid chains pass through UNCHANGED with zero
-    counters; the caller must surface the flag.  The host does not wait for
-    the device anywhere in here.
+    Returns ``(pos', attr', energy', box', attempts, accepts, invalid)``
+    with box' (M,), attempts/accepts (M, 3) int32 (columns: displacement,
+    swap, volume) and invalid (M,) bool: the chain's bind overflowed a
+    cell, or its box is below the grid's validity floor.  Invalid chains
+    pass through UNCHANGED with zero counters; the caller must surface the
+    flag.  The host does not wait for the device anywhere in here.
     """
     m, n, dim = pos.shape
     if dim != grid.dim:
         raise ValueError(f"grid is {grid.dim}-D but positions are {dim}-D")
     dev = pos.device
-    variants, _ = _make_substep(grid, pair_energy, rcut2_of, swap_mode)
+    variants, _ = _make_substep(grid, pair_energy, rcut2_of, swap_mode, vol)
     box = _chain_box(box, m, dev, grid.box)
     sigma = torch.as_tensor(sigma, dtype=torch.float32, device=dev)
-    seq = draws.variants(int(n_substeps), 2 ** dim,
-                         w_disp if swap_mode is not None else 1.0,
-                         swap_mode is not None)
+    dlnv = torch.as_tensor(dlnv, dtype=torch.float32, device=dev)
+    seq = draws.variants(int(n_substeps), 2 ** dim, w_disp, w_swap,
+                         swap_mode is not None, vol is not None)
     shift = draws.shift(m, dim, dev)                      # (M, dim)
     s = torch.remainder(pos / box[:, None, None] + shift[:, None, :], 1.0)
     s = torch.where(s >= 1.0, 0.0, s)   # f32 mod of -eps can return 1.0
     cells = bind_cells(grid, s, attr)
     invalid = cells["overflow"] | (box < grid.box_min)
     P = _pack(cells)
-    e = energy
-    att = torch.zeros((m, 2), dtype=torch.int32, device=dev)
-    acc = torch.zeros((m, 2), dtype=torch.int32, device=dev)
+    e, bx = energy, box
+    att = torch.zeros((m, 3), dtype=torch.int32, device=dev)
+    acc = torch.zeros((m, 3), dtype=torch.int32, device=dev)
     h = grid.nc // 2
     for i, (kind, color) in enumerate(seq.tolist()):
-        d = draws.substep(i, kind, m, h, grid.cap, dim, proposal, dev)
-        d_e, n_att, n_acc = variants[kind][color](P, box, sigma, beta, *d)
-        e = e + d_e
+        if kind == 2:
+            bx, e, n_att, n_acc = variants[2][0](
+                P, bx, e, dlnv, beta, *draws.volume(i, m, dev))
+        else:
+            d = draws.substep(i, kind, m, h, grid.cap, dim, proposal, dev)
+            d_e, n_att, n_acc = variants[kind][color](P, bx, sigma, beta, *d)
+            e = e + d_e
         att[:, kind] += n_att.to(torch.int32)
         acc[:, kind] += n_acc.to(torch.int32)
     s_out, attr_out = unbind_cells(
         {"crd": P[:, :dim], "attr": P[:, dim], "idx": cells["idx"]}, n)
     frac = torch.remainder(s_out - shift[:, None, :], 1.0)
     frac = torch.where(frac >= 1.0, 0.0, frac)  # keep pos strictly in [0, box)
-    pos_out = frac * box[:, None, None]
+    pos_out = frac * bx[:, None, None]
     # invalid chains: the whole segment is a no-op (their bind dropped
     # particles), counters zeroed so the corruption cannot leak
     pos_out = torch.where(invalid[:, None, None], pos, pos_out)
     attr_out = torch.where(invalid[:, None], attr.to(torch.float32),
                            attr_out)
     e = torch.where(invalid, energy, e)
+    bx = torch.where(invalid, box, bx)
     att = torch.where(invalid[:, None], 0, att)
     acc = torch.where(invalid[:, None], 0, acc)
-    return pos_out, attr_out, e, att, acc, invalid
+    return pos_out, attr_out, e, bx, att, acc, invalid

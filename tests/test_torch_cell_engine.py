@@ -30,7 +30,7 @@ from montecarlo_tpu_torch.core import metropolis
 from montecarlo_tpu_torch.core.simulation import _select_advance
 from montecarlo_tpu_torch.models import lennard_jones as lj
 from montecarlo_tpu_torch.ops import cell_mc
-from montecarlo_tpu_torch.utils.tree import tree_leaves_with_path
+from torch_cell_helpers import assert_same_state, segment_lengths
 
 PARAMS = lj.LJParams()
 
@@ -149,23 +149,37 @@ def test_fused_cell_unplannable_raises(tmp_path):
         _lj_sim(tmp_path, st, 4, fused="cell")
 
 
-def test_fused_cell_3d_or_volume_raises(tmp_path):
-    """The port's cell path is 2-D NVT: a 3-D state or a volume move names
-    the slice that brings them."""
+def test_fused_cell_3d_and_volume_pools_plan(tmp_path):
+    """A 3-D state and a pool with a volume move plan on the cell path (the
+    3-D grid, and the NPT headroom ``box_margin`` 0.15 by default), as in
+    the reference; ``cell_opts`` takes ``box_margin`` and still raises on
+    any other unknown key."""
+    st3 = lj.init_chains(2, 1372, rho=0.5, beta=1.0, seed=30, device="cpu",
+                         dim=3)
+    met = _lj_sim(tmp_path, st3, 4, fused="cell").device_algos[0]
+    assert met._use_cell and met._cell_plan.dim == 3
+    assert met._cell_plan.nc == 4 and met._cell_model[6] is None
     st = lj.init_chains(2, 512, rho=1.0, beta=1.0, seed=30, device="cpu")
-    st3 = dataclasses.replace(st, pos=torch.cat(
-        [st.pos, torch.zeros_like(st.pos[..., :1])], dim=-1))
-    with pytest.raises(ValueError, match="fused='cell' requested but .*2-D "
-                                         "only.*item 2"):
-        _lj_sim(tmp_path, st3, 4, fused="cell")
-    disp = lj.lj_displacement_move(0.1)
-    vol = tmc.Move(move=dataclasses.replace(disp.move, kind="lj_volume"),
-                   params={"dlnv": torch.tensor(0.01)}, weight=0.1)
-    with pytest.raises(ValueError, match="fused='cell' requested but .*"
-                                         "volume move.*item 2"):
-        _lj_sim(tmp_path, st, 4, pool=(disp, vol), fused="cell")
-    with pytest.raises(ValueError, match="cell_opts takes"):
-        _lj_sim(tmp_path, st, 4, fused="cell", cell_opts={"box_margin": 0.1})
+    pool = (lj.lj_displacement_move(0.1, weight=0.9),
+            lj.lj_volume_move(0.01, pressure=2.0, weight=0.1))
+    met = _lj_sim(tmp_path, st, 4, pool=pool, fused="cell").device_algos[0]
+    box = float(st.box[0])
+    plan0 = cell_mc.plan_grid(512, box, 2.5, box_margin=0.15)
+    occ = metropolis._max_cell_occupancy(st, plan0.nc, 2)
+    occ = int(np.ceil(occ * (box / plan0.box_min) ** 2))
+    assert met._cell_plan == cell_mc.plan_grid(
+        512, box, 2.5, box_margin=0.15, max_occupancy=occ)
+    assert met._cell_model[6] == 1 and met._cell_model[7] == 2.0
+    met = _lj_sim(tmp_path, st, 4, pool=pool, fused="cell",
+                  cell_opts={"box_margin": 0.0}).device_algos[0]
+    assert met._cell_plan.nc == cell_mc.plan_grid(512, box, 2.5).nc
+    with pytest.raises(ValueError, match="cell_opts takes 'd_cap', "
+                                         "'cap_slack' and 'box_margin'"):
+        _lj_sim(tmp_path, st, 4, fused="cell", cell_opts={"halo": 0.1})
+    # a volume move on another interaction table has no shared geometry
+    other = lj.lj_volume_move(0.01, 2.0, params=lj.LJParams(rcut=2.0))
+    with pytest.raises(ValueError, match="volume move carries a different"):
+        _lj_sim(tmp_path, st, 4, pool=(pool[0], other), fused="cell")
 
 
 def test_cell_opts_tune_the_plan(tmp_path):
@@ -239,16 +253,6 @@ def test_auto_cell_falls_back_on_overflow(tmp_path):
     assert np.all(slc["counters"][:, 0, 1].numpy() == steps * 4)
 
 
-def _segment_lengths(steps):
-    """A fine-stride schedule: segments of 1, 2 and 3 steps in turn."""
-    out, t = [], 0
-    while t < steps:
-        n = min(1 + len(out) % 3, steps - t)
-        out.append(n)
-        t += n
-    return out
-
-
 @pytest.mark.parametrize("pool_kind", ["displacement", "mixed"])
 def test_substeps_per_segment_match_reference(monkeypatch, tmp_path,
                                               pool_kind):
@@ -274,7 +278,7 @@ def test_substeps_per_segment_match_reference(monkeypatch, tmp_path,
             return _orig(*args, **kw)
 
         monkeypatch.setattr(mod, "cell_mc_segment", spy)
-    lengths = _segment_lengths(40)
+    lengths = segment_lengths(40)
     ref_sim = mc.Simulation(ref_lj.make_system(), ref_chains, [
         dict(algorithm=mc.Metropolis, pool=pool(ref_lj), seed=4,
              sweepstep=7, fused="cell")], 40, path=str(tmp_path / "ref"))
@@ -348,18 +352,6 @@ def test_auto_leaves_row_kernel_pools_to_the_kernel(tmp_path):
     assert not _lj_sim(tmp_path, small, 4).device_algos[0]._use_cell
 
 
-def _same(a, b):
-    la, lb = tree_leaves_with_path(a), tree_leaves_with_path(b)
-    assert [p for p, _ in la] == [p for p, _ in lb]
-    for (path, x), (_, y) in zip(la, lb):
-        if isinstance(x, torch.Generator):
-            assert torch.equal(x.get_state(), y.get_state()), path
-        elif torch.is_tensor(x):
-            assert x.dtype == y.dtype and torch.equal(x, y), path
-        else:
-            assert x == y, path
-
-
 def test_cell_run_resumed_equals_uncut(tmp_path):
     """A cell-path run (the species pool, so the variant stream, the
     generator, the debt and the flag all matter) cut by a backup and
@@ -391,7 +383,7 @@ def test_cell_run_resumed_equals_uncut(tmp_path):
     assert resumed.t == backup
     assert "cell_debt" in resumed.device_state["metropolis"]
     resumed.run()
-    _same(whole.device_state, resumed.device_state)
+    assert_same_state(whole.device_state, resumed.device_state)
     got = np.loadtxt(os.path.join(resumed.path, "energy_per_particle.dat"))
     want = np.loadtxt(os.path.join(whole.path, "energy_per_particle.dat"))
     np.testing.assert_array_equal(got, want[want[:, 0] > backup])

@@ -31,6 +31,7 @@ from montecarlo_tpu_torch.models import lennard_jones as lj
 from montecarlo_tpu_torch.models import polydisperse as poly
 from montecarlo_tpu_torch.ops import cell_mc
 from montecarlo_tpu_torch.ops.lj_sweep import fused_lj_sweep
+from torch_cell_helpers import ReferenceDraws, T
 
 LJP = lj.LJParams()
 POLYP = poly.PolyParams()
@@ -44,61 +45,6 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def T(x):
-    """A CPU tensor of a JAX or numpy array's values."""
-    return torch.as_tensor(np.array(x))
-
-
-class ReferenceDraws:
-    """The reference's draws for one segment of base key ``key``: the
-    variant stream ``fold_in(fold_in(fold_in(key, 0x7C01), 0xC0110), i)``,
-    the shift stream ``fold_in(fold_in(key, 0x5A1F7), 0x0F5E7)`` per chain,
-    and per substep ``split(fold_in(fold_in(key, c), i), 3)``
-    (``montecarlo_tpu/ops/cell_mc.py:605-659``, ``:363``, ``:424``)."""
-
-    def __init__(self, key):
-        self.key = key
-
-    def variants(self, n, n_colors, w_disp, swap):
-        base = jax.random.fold_in(jax.random.fold_in(self.key, 0x7C01),
-                                  0xC0110)
-        out = np.zeros((n, 2), np.int64)
-        for i in range(n):
-            kv = jax.random.fold_in(base, i)
-            out[i, 1] = int(jax.random.randint(kv, (), 0, n_colors))
-            if swap:
-                u = jax.random.uniform(jax.random.fold_in(kv, 1))
-                out[i, 0] = int(u >= jnp.asarray(w_disp, jnp.float32))
-        return out
-
-    def shift(self, m, dim, device):
-        ks = jax.random.fold_in(jax.random.fold_in(self.key, 0x5A1F7),
-                                0x0F5E7)
-        sh = jax.vmap(lambda c: jax.random.uniform(
-            jax.random.fold_in(ks, c), (dim,)))(jnp.arange(m, dtype=jnp.uint32))
-        return T(sh).to(device)
-
-    def substep(self, i, kind, m, h, cap, dim, proposal, device):
-        chain = jax.vmap(jax.random.fold_in, (None, 0))(
-            self.key, jnp.arange(m, dtype=jnp.uint32))
-        keys = jax.vmap(jax.random.fold_in, (0, None))(chain, i)
-        cells = (h,) * dim
-
-        def one(k):
-            k1, k2, k3 = jax.random.split(k, 3)
-            first = jax.random.uniform(k1, cells + (cap,))
-            if kind == 1:
-                second = jax.random.uniform(k2, cells + (cap,))
-            elif proposal == "square":
-                second = jax.random.uniform(k2, cells + (dim,), minval=-1.0,
-                                            maxval=1.0)
-            else:
-                second = jax.random.normal(k2, cells + (dim,))
-            return first, second, jax.random.uniform(k3, cells)
-
-        return tuple(T(x).to(device) for x in jax.vmap(one)(keys))
 
 
 # -- the three families, as (reference state, port state, closures) --------
@@ -295,13 +241,14 @@ def test_segment_matches_reference(swap_mode, w_disp):
         cell_mc.plan_grid(512, box, rcut), pe2, rc22, st.pos,
         st.species.float(), st.beta, st.energy, 0.08, ReferenceDraws(key),
         40, w_disp=w_disp, swap_mode=swap_mode, box=st.box)
-    pos, attr_o, e, att, acc, inv = got
+    pos, attr_o, e, box_o, att, acc, inv = got
     np.testing.assert_allclose(pos.numpy(), np.asarray(want[0]), rtol=0,
                                atol=1e-5)
     np.testing.assert_array_equal(attr_o.numpy(), np.asarray(want[1]))
     np.testing.assert_allclose(e.numpy(), np.asarray(want[2]), rtol=1e-5)
-    np.testing.assert_array_equal(att.numpy(), np.asarray(want[4])[:, :2])
-    np.testing.assert_array_equal(acc.numpy(), np.asarray(want[5])[:, :2])
+    np.testing.assert_array_equal(box_o.numpy(), np.asarray(want[3]))
+    np.testing.assert_array_equal(att.numpy(), np.asarray(want[4]))
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(want[5]))
     np.testing.assert_array_equal(inv.numpy(), np.asarray(want[6]))
     assert int(att[:, 0].min()) > 0
     if swap_mode:
@@ -315,13 +262,16 @@ def _gen(seed):
 
 
 def _segment(grid, closures, st, attr, sigma, n_sub, seed, **kw):
+    """An NVT segment on the port's stream: ``cell_mc_segment``'s outputs
+    without the (unchanged) box."""
     pe, rc2, _ = closures
     beta = getattr(st, "beta", torch.ones(st.pos.shape[0]))
     energy = getattr(st, "energy", torch.zeros(st.pos.shape[0]))
-    return cell_mc.cell_mc_segment(
+    pos, attr, e, _, att, acc, inv = cell_mc.cell_mc_segment(
         grid, pe, rc2, st.pos, attr, beta, energy, sigma,
         cell_mc.GeneratorDraws(_gen(seed), seed, 0), n_sub, box=st.box,
         **kw)
+    return pos, attr, e, att, acc, inv
 
 
 def test_segment_energy_bookkeeping():
@@ -396,7 +346,7 @@ def test_cell_swap_species_conserved():
         grid, lj.cell_closures(LJP), st, st.species.float(), 0.08, 400, 1,
         w_disp=0.6, swap_mode="species")
     assert not bool(ovf.any())
-    assert bool((att > 0).all()) and bool((acc[:, 1] > 0).all())
+    assert bool((att[:, :2] > 0).all()) and bool((acc[:, 1] > 0).all())
     np.testing.assert_array_equal(attr.sum(1).numpy(),
                                   st.species.sum(1).numpy())
     st2 = dataclasses.replace(st, pos=pos, species=attr.to(torch.int32))
@@ -469,12 +419,15 @@ def test_variants_are_a_function_of_seed_and_microstep():
     """The host's variant sequence needs no state: the same (seed, micro-step)
     gives the same sequence, a different micro-step another, and the kind
     frequencies follow w_disp."""
-    a = cell_mc.GeneratorDraws(None, 5, 1000).variants(4000, 4, 0.7, True)
-    b = cell_mc.GeneratorDraws(None, 5, 1000).variants(4000, 4, 0.7, True)
-    c = cell_mc.GeneratorDraws(None, 5, 1001).variants(4000, 4, 0.7, True)
+    a = cell_mc.GeneratorDraws(None, 5, 1000).variants(4000, 4, 0.7, 0.3,
+                                                       True, False)
+    b = cell_mc.GeneratorDraws(None, 5, 1000).variants(4000, 4, 0.7, 0.3,
+                                                       True, False)
+    c = cell_mc.GeneratorDraws(None, 5, 1001).variants(4000, 4, 0.7, 0.3,
+                                                       True, False)
     np.testing.assert_array_equal(a, b)
     assert not np.array_equal(a, c)
     assert abs((a[:, 0] == 0).mean() - 0.7) < 0.03
     assert np.bincount(a[:, 1], minlength=4).min() > 900
     assert not cell_mc.GeneratorDraws(None, 5, 0).variants(
-        100, 4, 0.7, False)[:, 0].any()
+        100, 4, 0.7, 0.0, False, False)[:, 0].any()
