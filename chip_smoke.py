@@ -102,17 +102,42 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
    boxes and fractional positions within 1e-6; 8f.
    a 3-D displacement substep and a volume substep in ms and launches under
    ``torch.profiler``, and the ideal-gas gate <V> = (N + 1) / (beta P) on
-   the generic path on the card in 2-D and 3-D.
+   the generic path on the card in 2-D and 3-D;
+9. the chain mesh (``montecarlo_tpu_torch.parallel``; the machine has one
+   card, so the ranks share it and no figure here is a multi-GPU one):
+   9a. each sharded entry point (``sharded_gaussian_sweep``,
+   ``sharded_lj_sweep``, ``sharded_lj_mixed_sweep``,
+   ``sharded_poly_mixed_sweep``) at its main path's width for every rank
+   of S = 2 and 4 in one process: one launch of its kernel per call, equal
+   to the plain version with the rank's folded seed (the Gaussian one
+   within its gate, the others bit for bit), the ranks' outputs differing;
+   9b. two ranks of this script started on the card (``gloo``: NCCL
+   refuses two ranks on one GPU, so each collective copies its CUDA
+   tensors to host memory and back) run config 2 (at a tenth of phase 5's
+   depth), config 4, config 5 with PGMC and the poly path through
+   ``Simulation(mesh=...)``, with no ``device=`` argument: every rank
+   launches its kernel on ``cuda``, rank 0 alone writes files, each rank's
+   whole state (positions, energies, counters, sigma, the estimator's sums)
+   equals a one-process emulation on the card (``parallel.run_emulated``:
+   each rank's kernels with its folded seed, the estimator's sums added),
+   and phase 5's physics and cache gates hold on what rank 0 gathered; 9c.
+   one rank on ``nccl``: config 2 equals the one-rank emulation; 9d.
+   config 5 resumed on two ranks from its sweep-100 backup equals the run;
+   each path's wall on two ranks beside one process, the bytes gathered a
+   rank at each observe point, and the collectives' times.
 
 Prints its findings on lines before the last, a ``{"kernels": [...]}``
 line (``ms`` and ``plain_ms`` per call at the main path's segment of
 ``steps`` steps; ``library_ms`` is null: no single PyTorch call computes a
-Metropolis sweep), and as the last line ``{"ok": true, "device": {...}}``.
+Metropolis sweep; ``entry_points`` names the unsharded and the sharded
+entry point that launch the kernel, ``launches`` counts both, of which
+``mesh_launches`` those of phase 9's ranks), and as the last line
+``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero without the last
 line.
 
 Usage: python3 chip_smoke.py [--parent CSRC_DIR] [--kernels-only]
-[--cell-only] [--npt-only]
+[--cell-only] [--npt-only] [--mesh-only] [--nccl-pair]
 
 ``--parent CSRC_DIR`` names a directory with an earlier version of
 ``fused_sweep.cu``, ``lj_sweep.cu`` and ``poly_sweep.cu`` (and their
@@ -125,7 +150,9 @@ kernels must equal the earlier ones bit for bit at every shape of phases 3
 and 4, the poly kernel where its block is one warp (N <= 32, the same sum
 order).  ``--kernels-only`` stops after phase 4b (and the comparison with
 ``--parent``); ``--cell-only`` runs phase 7 alone after the build,
-``--npt-only`` phase 8.
+``--npt-only`` phase 8, ``--mesh-only`` phase 9.  ``--nccl-pair`` is no
+phase: after the build it starts two ``nccl`` ranks on the one card and
+prints what NCCL does with them.
 """
 
 import argparse
@@ -228,6 +255,15 @@ NPT_HS = dict(chains=16, n=4096, eta=0.30, beta_p=3.0, dlnv=0.002,
               delta=0.12, sweepstep=512, steps=12)
 # 8e: an NPT and a 3-D segment on the card and on the CPU, same draws
 NPT_TWIN = dict(chains=8, n2=4096, n3=4096, substeps=60, seed=6)
+# phase 9: the chain mesh.  The machine has one card, so the ranks share
+# it: two ranks on gloo (NCCL refuses two ranks on one GPU), whose
+# collectives copy the chains' CUDA tensors to host memory and back, and
+# one rank on nccl.  9b runs config 2 at a tenth of phase 5's depth (200
+# recorder periods); 9a calls each sharded entry point for `steps` steps (the
+# Gaussian one for N_STEPS) on every rank of each of `shards` rank counts
+MESH = dict(world=2, config2_steps=CONFIG2_STEPS // 10, shards=(2, 4),
+            steps=64, timeout=600, reps=20)
+MESH_RUNS = ("config2", "config4", "pgmc5", "poly")
 
 
 _ONCE = {}
@@ -494,10 +530,10 @@ def config1(tmc, p1d, path):
           "config 1 summary.log")
 
 
-def config2(tmc, p1d, device, path, m, steps, stride):
+def config2_sim(tmc, p1d, device, path, m, steps, stride, mesh=None):
     """BASELINE config 2: energy + acceptance, BIN trajectories."""
     sched = np.arange(stride, steps + 1, stride)
-    sim = tmc.Simulation(
+    return tmc.Simulation(
         p1d.make_system(p1d.harmonic),
         p1d.init_chains(m, beta=2.0, seed=42, device=device),
         [dict(algorithm=tmc.Metropolis,
@@ -507,10 +543,25 @@ def config2(tmc, p1d, device, path, m, steps, stride):
               scheduler=sched),
          dict(algorithm=tmc.StoreTrajectories, fmt=tmc.BIN(),
               scheduler=sched)],
-        steps, path=path)
+        steps, path=path, mesh=mesh)
+
+
+def config2(tmc, p1d, device, path, m, steps, stride):
+    """Runs config 2 and checks its physics; returns the wall seconds."""
+    sim = config2_sim(tmc, p1d, device, path, m, steps, stride)
     t0 = time.perf_counter()
     sim.run()
     wall = time.perf_counter() - t0
+    config2_checks(tmc, sim.device_state["sys"].x.device.type, device, path,
+                   m, steps, stride, wall)
+    return wall
+
+
+def config2_checks(tmc, on_card, device, path, m, steps, stride, wall):
+    """Config 2's physics from its files: the energy tail, the BIN frame's
+    shape, mean and std, acceptance; ``on_card`` is the device type of the
+    final state."""
+    sched = np.arange(stride, steps + 1, stride)
     ts, fields = tmc.load_chain_major_trajectories(path)
     frame = fields["frame"]
     tail = np.asarray(frame[len(ts) // 2:])
@@ -518,7 +569,6 @@ def config2(tmc, p1d, device, path, m, steps, stride):
     a = np.loadtxt(os.path.join(path, "acceptance.dat"))
     e_tail = float(e[len(e) // 2:, 1].mean())
     acc = float(a[-1, 1])
-    on_card = sim.device_state["sys"].x.device.type
     print(f"config 2: {m} chains x {steps} steps, stride {stride}: "
           f"{wall!r} s, state on {on_card}, energy tail mean {e_tail!r}, "
           f"BIN frame {frame.shape} tail mean {float(tail.mean())!r} std "
@@ -531,7 +581,6 @@ def config2(tmc, p1d, device, path, m, steps, stride):
     check(0.05 < acc < 0.99, f"config 2 acceptance {acc}")
     check(os.path.exists(os.path.join(path, "summary.log")),
           "config 2 summary.log")
-    return wall
 
 
 def lj_inputs(m, n, device, seed, frac_b=0.2):
@@ -686,6 +735,16 @@ def lj_main(tmc, device, path, cfg, mixed):
     """Config 4 (one displacement move) or the config-5 pool (displacement
     + swap, with StoreLastFrames) through ``Simulation.run`` on CUDA.
     Returns (simulation, wall seconds)."""
+    sim = lj_sim(tmc, device, path, cfg, mixed)
+    check(sim.device_algos[0].supports_fused,
+          "the LJ pool is not fused on CUDA")
+    t0 = time.perf_counter()
+    sim.run()
+    return sim, time.perf_counter() - t0
+
+
+def lj_sim(tmc, device, path, cfg, mixed, mesh=None):
+    """The Simulation of :func:`lj_main`."""
     from montecarlo_tpu_torch.models import lennard_jones as lj
     m, n, sweeps = cfg["chains"], cfg["n"], cfg["sweeps"]
     if mixed:
@@ -704,15 +763,10 @@ def lj_main(tmc, device, path, cfg, mixed):
     if mixed:
         algos.append(dict(algorithm=tmc.StoreLastFrames,
                           scheduler=np.asarray([sweeps])))
-    sim = tmc.Simulation(
+    return tmc.Simulation(
         lj.make_system(),
         lj.init_chains(m, n, 0.7, 1.0, frac_b=0.2, seed=42, device=device),
-        algos, sweeps, path=path)
-    check(sim.device_algos[0].supports_fused,
-          "the LJ pool is not fused on CUDA")
-    t0 = time.perf_counter()
-    sim.run()
-    return sim, time.perf_counter() - t0
+        algos, sweeps, path=path, mesh=mesh)
 
 
 def lj_main_checks(sim, device, path, cfg, mixed, wall):
@@ -1054,6 +1108,16 @@ def poly_segmentation(device):
 def poly_main(tmc, device, path):
     """The poly swap-MC path through ``Simulation.run`` on CUDA.  Returns
     (simulation, initial chains, wall seconds)."""
+    sim, chains = poly_path_sim(tmc, device, path)
+    check(sim.device_algos[0].supports_fused,
+          "the poly pool is not fused on CUDA")
+    t0 = time.perf_counter()
+    sim.run()
+    return sim, chains, time.perf_counter() - t0
+
+
+def poly_path_sim(tmc, device, path, mesh=None):
+    """The Simulation of :func:`poly_main` and its initial chains."""
     from montecarlo_tpu_torch.models import polydisperse as poly
     m, n, sweeps = POLY["chains"], POLY["n"], POLY["sweeps"]
     params = poly.PolyParams()
@@ -1069,12 +1133,8 @@ def poly_main(tmc, device, path):
                         tmc.callback_acceptance),
              scheduler=tmc.build_schedule(sweeps, 0, POLY["stride"])),
         dict(algorithm=tmc.StoreLastFrames, scheduler=np.asarray([sweeps])),
-    ], sweeps, path=path)
-    check(sim.device_algos[0].supports_fused,
-          "the poly pool is not fused on CUDA")
-    t0 = time.perf_counter()
-    sim.run()
-    return sim, chains, time.perf_counter() - t0
+    ], sweeps, path=path, mesh=mesh)
+    return sim, chains
 
 
 def poly_main_checks(sim, chains, device, path, wall):
@@ -1195,7 +1255,7 @@ def counted(kernels, fn):
     return out, {k.symbol: k.launches for k in kernels}
 
 
-def pgmc5_sim(tmc, device, path, adaptive=True, extra=()):
+def pgmc5_sim(tmc, device, path, adaptive=True, extra=(), mesh=None):
     """Config 5: the LJ mixed pool at full width with PGMC adapting the
     displacement sigma through the hybrid stepper, energy per particle,
     acceptance and parameters every ``stride`` sweeps.  ``adaptive=False``
@@ -1231,7 +1291,7 @@ def pgmc5_sim(tmc, device, path, adaptive=True, extra=()):
         lj.make_system(),
         lj.init_chains(cfg["chains"], n, 0.7, 1.0, frac_b=0.2, seed=42,
                        device=device),
-        algos, sweeps, path=path)
+        algos, sweeps, path=path, mesh=mesh)
 
 
 def timed_run(sim):
@@ -2441,6 +2501,552 @@ def npt_phases(tmc, device, kernels, card):
         ideal_gas_on_card(tmc, tmp, card)
 
 
+# -- phase 9: the chain mesh ---------------------------------------------------------
+
+def state_arrays(ds):
+    """The tensors of a device-state tree as host arrays, by path."""
+    from montecarlo_tpu_torch.utils.tree import tree_leaves_with_path
+    import torch
+    return {"/".join(str(k) for k in path): leaf.detach().cpu().numpy()
+            for path, leaf in tree_leaves_with_path(ds)
+            if torch.is_tensor(leaf)}
+
+
+def sharded_vs_plain(device, kernels):
+    """Phase 9a: each sharded entry point at its main path's shape, for
+    every rank of S = 2 and 4 (one process, each rank's mesh built by
+    hand), against its plain version called with the rank's folded seed:
+    the Gaussian one within its gate, the particle ones bit for bit.  Every
+    rank gets the same chains, so the ranks' outputs must differ.  Each
+    call must launch its kernel once.  Returns the largest |kernel - plain|
+    of each kernel."""
+    import torch
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.models import particle1d as p1d
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    from montecarlo_tpu_torch.ops import fused_sweep as fs
+    from montecarlo_tpu_torch.ops import lj_sweep as ls
+    from montecarlo_tpu_torch.ops import poly_sweep as ps
+    from montecarlo_tpu_torch.parallel import Mesh
+    sweep, lj_k, lj_mixed_k, poly_k = kernels
+    rng = np.random.default_rng(SEED + 9)
+    n = MESH["steps"]
+    worst = {k.symbol: 0.0 for k in kernels}
+
+    def launched(kernel, fn):
+        before = kernel.launches
+        out = fn()
+        check(kernel.launches == before + 1,
+              f"{kernel.symbol}: a sharded call did not launch it once")
+        return out
+
+    for s in MESH["shards"]:
+        meshes = [Mesh(rank=r, size=s, device=device) for r in range(s)]
+        x, beta, sigma = inputs(CONFIG2_CHAINS // s, device, rng)
+        firsts = []
+        for mesh in meshes:
+            xk, ek, ak = launched(sweep, lambda: fs.sharded_gaussian_sweep(
+                mesh, "chains", x, beta, sigma, SEED, T0, N_STEPS,
+                potential=p1d.harmonic))
+            xp, ep, ap = fs.fused_gaussian_sweep(
+                x, beta, sigma, fs._shard_seed(mesh.rank, SEED), T0, N_STEPS,
+                potential=p1d.harmonic, interpret=True)
+            off = (ak != ap) | ((xk - xp).abs() > ATOL) \
+                | ((ek - ep).abs() > ATOL)
+            check(int(off.sum()) <= MAX_FLIP_FRACTION * x.numel(),
+                  f"sharded Gaussian S={s} rank {mesh.rank}: "
+                  f"{int(off.sum())} chains off their plain version")
+            keep = ~off
+            worst[sweep.symbol] = max(
+                worst[sweep.symbol], float((xk - xp)[keep].abs().max()),
+                float((ek - ep)[keep].abs().max()))
+            firsts.append(xk)
+        cases = (
+            (lj_k, CONFIG4, lambda m, nn: lj_inputs(m, nn, device, 91),
+             lambda mesh, st, seed, kw: ls.sharded_lj_sweep(
+                 mesh, "chains", st.pos, st.species, st.beta, st.energy,
+                 host_box(st), card_scalar(LJ_SIGMA, device), seed, LJ_T0, n,
+                 params=lj.LJParams(), **kw),
+             lambda st, seed: ls.fused_lj_sweep(
+                 st.pos, st.species, st.beta, st.energy, host_box(st),
+                 card_scalar(LJ_SIGMA, device), seed, LJ_T0, n,
+                 params=lj.LJParams(), interpret=True)),
+            (lj_mixed_k, POOL5, lambda m, nn: lj_inputs(m, nn, device, 92),
+             lambda mesh, st, seed, kw: ls.sharded_lj_mixed_sweep(
+                 mesh, "chains", st.pos, st.species, st.beta, st.energy,
+                 host_box(st), card_scalar(LJ_SIGMA, device),
+                 POOL5["w_disp"], seed, LJ_T0, n, params=lj.LJParams(), **kw),
+             lambda st, seed: ls.fused_lj_mixed_sweep(
+                 st.pos, st.species, st.beta, st.energy, host_box(st),
+                 card_scalar(LJ_SIGMA, device), POOL5["w_disp"], seed, LJ_T0,
+                 n, params=lj.LJParams(), interpret=True)),
+            (poly_k, POLY, lambda m, nn: poly_inputs(m, nn, device, 93),
+             lambda mesh, st, seed, kw: ps.sharded_poly_mixed_sweep(
+                 mesh, "chains", st.pos, st.diam, st.beta, st.energy,
+                 host_box(st), card_scalar(POLY["sigma"], device),
+                 POLY["w_disp"], seed, POLY_T0, n, params=poly.PolyParams(),
+                 **kw),
+             lambda st, seed: ps.fused_poly_mixed_sweep(
+                 st.pos, st.diam, st.beta, st.energy, host_box(st),
+                 card_scalar(POLY["sigma"], device), POLY["w_disp"], seed,
+                 POLY_T0, n, params=poly.PolyParams(), interpret=True)))
+        blocks = {sweep.symbol: firsts}
+        for kernel, cfg, make, sharded, plain in cases:
+            st = make(cfg["chains"] // s, cfg["n"])
+            blocks[kernel.symbol] = []
+            for mesh in meshes:
+                out = launched(kernel, lambda: sharded(mesh, st, SEED, {}))
+                want = plain(st, fs._shard_seed(mesh.rank, SEED))
+                same = all(torch.equal(a, b) for a, b in zip(out, want))
+                check(same, f"sharded {kernel.symbol} S={s} rank "
+                      f"{mesh.rank} differs from its plain version")
+                blocks[kernel.symbol].append(out[0])
+        for sym, outs in blocks.items():
+            check(all(not torch.equal(outs[i], outs[j]) for i in range(s)
+                      for j in range(i + 1, s)),
+                  f"{sym}: two ranks drew the same stream (S={s})")
+        print(f"9a: S={s}: every rank's sharded call launched its kernel "
+              f"once and equals its plain version with the rank's folded "
+              f"seed (Gaussian: M {CONFIG2_CHAINS // s} a rank, {N_STEPS} "
+              f"steps, within atol {ATOL}; LJ, LJ mixed, poly at "
+              f"{CONFIG4['chains'] // s} x N {CONFIG4['n']}, "
+              f"{POOL5['chains'] // s} x N {POOL5['n']}, "
+              f"{POLY['chains'] // s} x N {POLY['n']}, {n} steps, bit for "
+              f"bit); the ranks' outputs differ")
+    return worst
+
+
+def sharded_times(device, card):
+    """Phase 9a's times: each sharded entry point on rank 0 of a two-rank
+    mesh at its main path's width a rank and segment, by CUDA events,
+    beside its bound (the attempts of the timed segment); its plain
+    version's ms a step over ``MESH['steps']`` steps (N_STEPS for the
+    Gaussian one), one call.  Returns {entry point: (ms, plain ms a step,
+    (bound ms, bound by))}."""
+    import torch
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.models import particle1d as p1d
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    from montecarlo_tpu_torch.ops import fused_sweep as fs
+    from montecarlo_tpu_torch.ops import lj_sweep as ls
+    from montecarlo_tpu_torch.ops import poly_sweep as ps
+    from montecarlo_tpu_torch.parallel import Mesh
+    mesh = Mesh(rank=0, size=2, device=device)
+    rng = np.random.default_rng(SEED + 10)
+    m = CONFIG2_CHAINS // 2
+    x, beta, sigma = inputs(m, device, rng)
+    cases = [("sharded_gaussian_sweep", m, CONFIG2_STRIDE, N_STEPS,
+              lambda n, interp: fs.sharded_gaussian_sweep(
+                  mesh, "chains", x, beta, sigma, SEED, 0, n,
+                  potential=p1d.harmonic, interpret=interp),
+              lambda out: bound(20 * m + 4,
+                                m * CONFIG2_STRIDE * GAUSS_INSTR_PER_STEP))]
+    for name, cfg, make, fn, per_term, per_pick in (
+            ("sharded_lj_sweep", CONFIG4,
+             lambda mm, nn: lj_inputs(mm, nn, device, 94),
+             lambda st, n, interp: ls.sharded_lj_sweep(
+                 mesh, "chains", st.pos, st.species, st.beta, st.energy,
+                 host_box(st), card_scalar(LJ_SIGMA, device), SEED, 0, n,
+                 params=lj.LJParams(), interpret=interp),
+             LJ_INSTR_PER_TERM, LJ_INSTR_PER_PICK),
+            ("sharded_lj_mixed_sweep", POOL5,
+             lambda mm, nn: lj_inputs(mm, nn, device, 95),
+             lambda st, n, interp: ls.sharded_lj_mixed_sweep(
+                 mesh, "chains", st.pos, st.species, st.beta, st.energy,
+                 host_box(st), card_scalar(LJ_SIGMA, device),
+                 POOL5["w_disp"], SEED, 0, n, params=lj.LJParams(),
+                 interpret=interp),
+             LJ_INSTR_PER_TERM, LJ_INSTR_PER_PICK),
+            ("sharded_poly_mixed_sweep", POLY,
+             lambda mm, nn: poly_inputs(mm, nn, device, 96),
+             lambda st, n, interp: ps.sharded_poly_mixed_sweep(
+                 mesh, "chains", st.pos, st.diam, st.beta, st.energy,
+                 host_box(st), card_scalar(POLY["sigma"], device),
+                 POLY["w_disp"], SEED, 0, n, params=poly.PolyParams(),
+                 interpret=interp),
+             POLY_INSTR_PER_TERM, 0)):
+        mm, nn = cfg["chains"] // 2, cfg["n"]
+        st = make(mm, nn)
+        seg = 10 * nn
+        cases.append((
+            name, mm, seg, MESH["steps"],
+            lambda n, interp, fn=fn, st=st: fn(st, n, interp),
+            lambda out, mm=mm, nn=nn, seg=seg, per_term=per_term,
+            per_pick=per_pick: particle_bound(
+                mm, nn, (mm * seg, 0) if len(out) == 3 else tuple(
+                    int(v) for v in out[4].sum(0)), per_term, per_pick)))
+    times = {}
+    for name, mm, seg, plain_steps, call, bound_of in cases:
+        ms = cuda_time(lambda: call(seg, False), 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(plain_steps, True)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3 / plain_steps
+        b_ms, by = bound_of(call(seg, False))
+        times[name] = (ms, plain, (b_ms, by))
+        print(f"time: 9a {name} on rank 0 of 2, M {mm} a rank, {seg} steps: "
+              f"{ms!r} ms a launch against a bound of {b_ms!r} ms (by "
+              f"{by}); plain version {plain!r} ms a step over {plain_steps} "
+              f"steps [{card}]")
+    return times
+
+
+def mesh_sim(tmc, name, mesh, root):
+    """Phase 9b's run ``name`` at its main path's width, on ``mesh`` (None:
+    one process), with no ``device=`` argument: config 2 at a tenth of
+    phase 5's depth, config 4, config 5 with PGMC (with a backup at sweep
+    ``PGMC5['resume']``) and the poly path."""
+    from montecarlo_tpu_torch.models import particle1d as p1d
+    path = os.path.join(root, name)
+    if name == "config2":
+        return config2_sim(tmc, p1d, None, path, CONFIG2_CHAINS,
+                           MESH["config2_steps"], CONFIG2_STRIDE, mesh=mesh)
+    if name == "config4":
+        return lj_sim(tmc, None, path, CONFIG4, False, mesh=mesh)
+    if name == "pgmc5":
+        return pgmc5_sim(tmc, None, path, mesh=mesh, extra=(dict(
+            algorithm=tmc.StoreBackups,
+            scheduler=np.asarray([PGMC5["resume"]])),))
+    return poly_path_sim(tmc, None, path, mesh=mesh)[0]
+
+
+def run_on_mesh(tmc, mesh, root, names, kernels=None):
+    """Runs of phase 9b on ``mesh``: {name: {sim, wall, counts, whole,
+    gathers, gathered_bytes, sliced}}, each run's launch counts set to 0
+    just before and read just after (``kernels`` None: not read), ``whole``
+    the final state gathered from every rank."""
+    from montecarlo_tpu_torch.parallel import fetch
+    out = {}
+    for name in names:
+        sim = mesh_sim(tmc, name, mesh, root)
+        before = dict(mesh.counts) if mesh is not None else None
+        if kernels is None:
+            wall, counts = timed_run(sim), None
+        else:
+            wall, counts = counted(kernels, lambda: timed_run(sim))
+        r = dict(sim=sim, wall=wall, counts=counts)
+        if mesh is not None:
+            r.update(gathers=mesh.counts["all_gather"] - before["all_gather"],
+                     gathered_bytes=mesh.counts["all_gather_bytes"]
+                     - before["all_gather_bytes"], sliced=len(mesh.sliced),
+                     whole=state_arrays(fetch(sim.device_state, mesh)))
+        out[name] = r
+    return out
+
+
+def _guard_writes(root, violations):
+    """Record every attempt of this process to create or write a file
+    under ``root``."""
+    import builtins
+
+    def guard(fn, kind):
+        def wrapped(path, *args, **kw):
+            p = os.path.abspath(os.fspath(path)) if isinstance(
+                path, (str, os.PathLike)) else ""
+            mode = args[0] if args else kw.get("mode", "r")
+            if p.startswith(os.path.abspath(root)) and (
+                    kind != "open" or any(c in str(mode) for c in "wax+")):
+                violations.append(f"{kind} {p}")
+            return fn(path, *args, **kw)
+        return wrapped
+
+    builtins.open = guard(builtins.open, "open")
+    os.makedirs = guard(os.makedirs, "makedirs")
+    os.replace = guard(os.replace, "replace")
+    np.savez = guard(np.savez, "savez")
+
+
+def mesh_worker(opts):
+    """One rank of phase 9b or 9c (``--mesh-rank``): joins the group, runs
+    the named paths on its mesh, resumes config 5 from its backup (9d, with
+    config 5 in the runs), times the collectives, and leaves its results in
+    ``<root>/results/rank<r>``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    import montecarlo_tpu_torch as tmc
+    from montecarlo_tpu_torch import checkpoint
+    from montecarlo_tpu_torch.ops.fused_sweep import SWEEP_KERNEL
+    from montecarlo_tpu_torch.ops.lj_sweep import LJ_KERNEL, LJ_MIXED_KERNEL
+    from montecarlo_tpu_torch.ops.poly_sweep import POLY_KERNEL
+    from montecarlo_tpu_torch.parallel import fetch, initialize, make_mesh
+    kernels = (SWEEP_KERNEL, LJ_KERNEL, LJ_MIXED_KERNEL, POLY_KERNEL)
+    rank, root = opts.mesh_rank, opts.mesh_root
+    runs_dir = os.path.join(root, "runs")
+    out_dir = os.path.join(root, "results", f"rank{rank}")
+    os.makedirs(out_dir, exist_ok=True)
+    initialize(f"localhost:{opts.mesh_port}", opts.mesh_world, rank,
+               backend=opts.mesh_backend)
+    try:
+        mesh = make_mesh()
+        print(f"9b: rank {mesh.rank} of {mesh.size}, backend {mesh.backend}, "
+              f"chains on {mesh.device}", flush=True)
+        violations = []
+        if rank != 0:
+            _guard_writes(runs_dir, violations)
+        runs = run_on_mesh(tmc, mesh, runs_dir, opts.mesh_runs.split(","),
+                           kernels)
+        summary = {"violations": violations, "runs": {}}
+        for name, r in runs.items():
+            st = r["sim"].device_state
+            np.savez(os.path.join(out_dir, f"{name}.npz"),
+                     **state_arrays(st))
+            if rank == 0:
+                np.savez(os.path.join(out_dir, f"{name}_whole.npz"),
+                         **r["whole"])
+            summary["runs"][name] = {
+                "wall": r["wall"], "counts": r["counts"],
+                "gathers": r["gathers"],
+                "gathered_bytes": r["gathered_bytes"], "sliced": r["sliced"],
+                "device": str(st["sys"].pos.device if hasattr(
+                    st["sys"], "pos") else st["sys"].x.device)}
+        if "pgmc5" in runs:
+            # 9d: the run's backup at sweep `resume`, resumed in a fresh
+            # Simulation on the same ranks, against the run itself
+            resumed = pgmc5_sim(tmc, None, os.path.join(runs_dir, "resumed"),
+                                mesh=mesh)
+            checkpoint.resume_state(resumed, os.path.join(
+                runs_dir, "pgmc5", "checkpoints",
+                f"ckpt_t{PGMC5['resume']}.npz"))
+            wall, counts = counted(kernels, lambda: timed_run(resumed))
+            got = state_arrays(fetch(resumed.device_state, mesh))
+            want = runs["pgmc5"]["whole"]
+            summary["resume"] = {
+                "wall": wall, "counts": counts,
+                "same": {k: bool(np.array_equal(got[k], want[k]))
+                         for k in want}}
+        # the collectives alone, at the sizes the runs gather and reduce
+        times = {}
+        m2 = CONFIG2_CHAINS // mesh.size
+        pool = (PGMC5["chains"] // mesh.size, PGMC5["n"], 2)
+        for label, t, fn in (
+                ("all_gather config-2 x", torch.zeros(m2, device=mesh.device),
+                 mesh.all_gather),
+                ("all_gather config-5 pos", torch.zeros(
+                    pool, device=mesh.device), mesh.all_gather),
+                ("all_reduce a GradientData field", torch.zeros(
+                    (1, 1), device=mesh.device), mesh.all_reduce)):
+            fn(t)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MESH["reps"]):
+                fn(t)
+            torch.cuda.synchronize()
+            times[label] = (time.perf_counter() - t0) / MESH["reps"] * 1e3
+        summary["collective_ms"] = times
+        with open(os.path.join(out_dir, "summary.json"), "w") as f:
+            json.dump(summary, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(root, world, backend, names):
+    """Start ``world`` ranks of this script (``--mesh-rank``) on one card,
+    wait for them within ``MESH['timeout']``, and return each rank's
+    summary; every rank is ended before this returns."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-u", os.path.abspath(__file__), "--mesh-rank",
+         str(r), "--mesh-world", str(world), "--mesh-port", str(port),
+         "--mesh-backend", backend, "--mesh-root", root, "--mesh-runs",
+         ",".join(names)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH["timeout"])[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        tail = "\n".join(f"  rank {r}: {line}"
+                         for line in out.splitlines()[-40:])
+        print(tail)
+        check(p.returncode == 0, f"rank {r} of {world} ({backend}) exited "
+              f"with {p.returncode}")
+    summaries = []
+    for r in range(world):
+        with open(os.path.join(root, "results", f"rank{r}",
+                               "summary.json")) as f:
+            summaries.append(json.load(f))
+    return summaries
+
+
+def _load(root, rank, name):
+    with np.load(os.path.join(root, "results", f"rank{rank}",
+                              name + ".npz")) as f:
+        return dict(f)
+
+
+def mesh_phases(tmc, device, kernels, card):
+    """Phase 9 (9a-9d); returns (the largest |kernel - plain| of 9a per
+    kernel, the launches of 9b-9d's ranks per kernel)."""
+    import torch
+    from montecarlo_tpu_torch.parallel import run_emulated
+    symbols = {"config2": kernels[0].symbol, "config4": kernels[1].symbol,
+               "pgmc5": kernels[2].symbol, "poly": kernels[3].symbol}
+    err = sharded_vs_plain(device, kernels)
+    sharded_times(device, card)
+    launches = {k.symbol: 0 for k in kernels}
+    world = MESH["world"]
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as tmp:
+        # 9b: two ranks on the one card, gloo
+        gloo = os.path.join(tmp, "gloo")
+        ranks = spawn_ranks(gloo, world, "gloo", MESH_RUNS)
+        # 9c: one rank on nccl
+        nccl = os.path.join(tmp, "nccl")
+        (one,) = spawn_ranks(nccl, 1, "nccl", ("config2",))
+        # the same runs in one process: the emulation of each rank count
+        # (threads; each rank's kernels with its folded seed, the
+        # estimator's sums added) and the whole ensemble without a mesh
+        emul = run_emulated(lambda mesh: {
+            n: state_arrays(r["sim"].device_state) for n, r in run_on_mesh(
+                tmc, mesh, os.path.join(tmp, "emul2"), MESH_RUNS).items()},
+            world, device)
+        emul1 = run_emulated(lambda mesh: state_arrays(run_on_mesh(
+            tmc, mesh, os.path.join(tmp, "emul1"), ("config2",))[
+                "config2"]["sim"].device_state), 1, device)
+        single = run_on_mesh(tmc, None, os.path.join(tmp, "single"),
+                             MESH_RUNS, kernels)
+
+        for r, summary in enumerate(ranks):
+            check(summary["violations"] == [],
+                  f"rank {r} wrote files: {summary['violations'][:5]}")
+            for name in MESH_RUNS:
+                run = summary["runs"][name]
+                n = run["counts"][symbols[name]]
+                check(n > 0 and run["device"].startswith("cuda"),
+                      f"rank {r} {name}: {n} launches on {run['device']}")
+                check(sum(run["counts"].values()) == n,
+                      f"rank {r} {name} launched another kernel")
+                launches[symbols[name]] += n
+                got, want = _load(gloo, r, name), emul[r][name]
+                same = [k for k in want if not np.array_equal(got[k],
+                                                              want[k])]
+                check(sorted(got) == sorted(want) and not same,
+                      f"rank {r} {name} differs from the emulation: {same}")
+            res = summary["resume"]
+            check(all(res["same"].values()),
+                  f"rank {r}: config 5 resumed differs: {res['same']}")
+            launches[symbols["pgmc5"]] += res["counts"][symbols["pgmc5"]]
+        print("9b: launches of each rank's kernel: " + "; ".join(
+            f"{name} {[s['runs'][name]['counts'][symbols[name]] for s in ranks]}"
+            for name in MESH_RUNS) + f"; config 5 resumed "
+            f"{[s['resume']['counts'][symbols['pgmc5']] for s in ranks]}")
+        sig = [float(_load(gloo, r, "pgmc5")["params/0/sigma"])
+               for r in range(world)]
+        check(sig[0] == sig[1] and sig[0] != np.float32(LJ_SIGMA),
+              f"config 5 sigma on the ranks: {sig}")
+        n = one["runs"]["config2"]["counts"][symbols["config2"]]
+        got = _load(nccl, 0, "config2")
+        check(n > 0, f"9c: config 2 on one nccl rank: {n} launches")
+        check(all(np.array_equal(got[k], emul1[0][k]) for k in emul1[0]),
+              "9c: config 2 on one nccl rank differs from the emulation")
+        launches[symbols["config2"]] += n
+        print(f"9b: {world} ranks (gloo, chains on the card) equal the "
+              f"one-process emulation in every tensor of each rank's state "
+              f"(positions, energies, species, diameters, counters, sigma, "
+              f"the estimator's sums); sigma {sig[0]!r} on both ranks; rank "
+              f"1 wrote no file; 9c: one nccl rank equals the one-rank "
+              f"emulation; 9d: config 5 resumed from its sweep-"
+              f"{PGMC5['resume']} backup on {world} ranks is bit-equal to "
+              f"the run")
+
+        # phase 5's gates on what rank 0 wrote and gathered
+        runs = os.path.join(gloo, "runs")
+        config2_checks(tmc, ranks[0]["runs"]["config2"]["device"].split(":")[0],
+                       device, os.path.join(runs, "config2"), CONFIG2_CHAINS,
+                       MESH["config2_steps"], CONFIG2_STRIDE,
+                       ranks[0]["runs"]["config2"]["wall"])
+        mesh_cache_checks(gloo, device)
+        for name, rows in (("config4", CONFIG4["sweeps"] // CONFIG4["stride"]
+                            + 1),
+                           ("pgmc5", PGMC5["sweeps"] // PGMC5["stride"] + 1),
+                           ("poly", POLY["sweeps"] // POLY["stride"] + 1)):
+            e = np.loadtxt(os.path.join(runs, name,
+                                        "energy_per_particle.dat"))
+            check(e.shape == (rows, 2) and np.all(np.isfinite(e)),
+                  f"{name}: energy_per_particle.dat has {e.shape} rows")
+        with open(os.path.join(runs, "pgmc5", "parameters", "1",
+                               "parameters.dat")) as f:
+            rows = f.read().splitlines()
+        check(len(rows) == PGMC5["sweeps"] // PGMC5["stride"] + 1
+              and rows[-1] == f"{PGMC5['sweeps']} [{sig[0]!r}]",
+              f"config 5 parameters.dat: {rows[-1]}")
+        check(os.listdir(os.path.join(runs, "pgmc5", "checkpoints"))
+              == [f"ckpt_t{PGMC5['resume']}.npz"], "config 5 checkpoints")
+
+        # times: two ranks sharing the one card, beside one process
+        for name in MESH_RUNS:
+            walls = [s["runs"][name]["wall"] for s in ranks]
+            run = ranks[0]["runs"][name]
+            fetches = run["gathers"] // run["sliced"]
+            per_point = run["gathered_bytes"] / max(fetches, 1)
+            print(f"time: 9b {name}: {world} ranks on one card (gloo) "
+                  f"{max(walls)!r} s wall (ranks {walls}), one process "
+                  f"{single[name]['wall']!r} s; {fetches} observe points, "
+                  f"{run['gathers']} all-gathers, {per_point!r} bytes "
+                  f"gathered a rank a point; two ranks share one card, so "
+                  f"this is no multi-GPU figure [{card}]")
+        print(f"time: 9c config2 on one nccl rank "
+              f"{one['runs']['config2']['wall']!r} s, one process "
+              f"{single['config2']['wall']!r} s [{card}]")
+        for label, ms in ranks[0]["collective_ms"].items():
+            print(f"time: 9b collective {label}: {ms!r} ms a call on "
+                  f"{world} gloo ranks sharing one card, host copies "
+                  f"included; on one nccl rank "
+                  f"{one['collective_ms'][label]!r} ms [{card}]")
+        print(f"time: 9d config 5 resumed from sweep {PGMC5['resume']}: "
+              f"{ranks[0]['resume']['wall']!r} s [{card}]")
+    return err, launches
+
+
+def mesh_cache_checks(root, device):
+    """The caches of the gathered final LJ and poly states (phase 5's
+    bounds), positions in [0, box), each chain's attempts."""
+    import torch
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    for name, mod, cls, cache, cfg in (
+            ("config4", lj, lj.LJState, LJ_CACHE, CONFIG4),
+            ("pgmc5", lj, lj.LJState, LJ_CACHE, PGMC5),
+            ("poly", poly, poly.PolyState, POLY_CACHE, POLY)):
+        whole = _load(root, 0, name + "_whole")
+        st = cls(**{k.split("/", 1)[1]: torch.as_tensor(v, device=device)
+                    for k, v in whole.items() if k.startswith("sys/")})
+        full = mod.make_system().refresh(st).energy
+        err = float(((st.energy - full).abs()
+                     - cache["rtol"] * full.abs()).max())
+        att = whole["metropolis/counters"][..., 1].sum(1)
+        check(st.pos.shape[0] == cfg["chains"] and err <= cache["atol"],
+              f"{name} on the mesh: cache off the O(N^2) energy ({err})")
+        check(float(st.pos.min()) >= 0 and float(st.pos.max())
+              < float(st.box.max()), f"{name}: positions left [0, box)")
+        check(np.all(att == cfg["n"] * cfg["sweeps"]),
+              f"{name}: attempts per chain {set(att.tolist())}")
+        print(f"9b: {name} gathered from the ranks: {cfg['chains']} chains, "
+              f"max |E - E(N^2)| {float((st.energy - full).abs().max())!r}, "
+              f"attempts per chain {cfg['n'] * cfg['sweeps']}")
+
+
+def nccl_pair(card):
+    """Not a phase: two ranks on nccl on the one card, config 2; prints
+    what NCCL does with them (the ranks' output and exit codes)."""
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as tmp:
+        try:
+            spawn_ranks(tmp, 2, "nccl", ("config2",))
+            print(f"nccl pair: two nccl ranks on one card ran [{card}]")
+        except RuntimeError as e:
+            print(f"nccl pair: {e} [{card}]")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", metavar="CSRC_DIR", default=None,
@@ -2454,12 +3060,27 @@ def main():
     parser.add_argument("--npt-only", action="store_true",
                         help="after the build, run only phase 8 (NPT and "
                              "3-D)")
+    parser.add_argument("--mesh-only", action="store_true",
+                        help="after the build, run only phase 9 (the chain "
+                             "mesh)")
+    parser.add_argument("--nccl-pair", action="store_true",
+                        help="after the build, only try two nccl ranks on "
+                             "the one card and print what NCCL does (not a "
+                             "phase)")
+    # one rank of phase 9, started by the script itself
+    for flag, kind in (("--mesh-rank", int), ("--mesh-world", int),
+                       ("--mesh-port", int), ("--mesh-backend", str),
+                       ("--mesh-root", str), ("--mesh-runs", str)):
+        parser.add_argument(flag, type=kind, default=None,
+                            help=argparse.SUPPRESS)
     opts = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    if opts.mesh_rank is not None:
+        return mesh_worker(opts)
     sys.path.insert(0, ROOT)
     import montecarlo_tpu_torch as tmc
     from montecarlo_tpu_torch.core.simulation import _select_advance
@@ -2495,6 +3116,13 @@ def main():
     if opts.npt_only:
         npt_phases(tmc, device, kernels, card)
         print("chip_smoke: --npt-only: stopping after phase 8")
+        return 0
+    if opts.mesh_only:
+        mesh_phases(tmc, device, kernels, card)
+        print("chip_smoke: --mesh-only: stopping after phase 9")
+        return 0
+    if opts.nccl_pair:
+        nccl_pair(card)
         return 0
 
     parent = None
@@ -2667,6 +3295,8 @@ def main():
     cell_phases(tmc, device, kernels, card)
     # 8. NPT and 3-D: the cell and generic paths, no kernel launched
     npt_phases(tmc, device, kernels, card)
+    # 9. the chain mesh: the sharded entry points, ranks on the one card
+    mesh_err, mesh_launches = mesh_phases(tmc, device, kernels, card)
 
     m2 = CONFIG2_CHAINS
     specs = [(
@@ -2692,14 +3322,24 @@ def main():
         particle_bound(POLY["chains"], POLY["n"], poly_ms["attempts"],
                        POLY_INSTR_PER_TERM)))
     rows = []
+    sharded = {"fused_gaussian_sweep": ("sharded_gaussian_sweep",
+                                        SWEEP_KERNEL),
+               "fused_lj_sweep": ("sharded_lj_sweep", LJ_KERNEL),
+               "fused_lj_mixed_sweep": ("sharded_lj_mixed_sweep",
+                                        LJ_MIXED_KERNEL),
+               "fused_poly_mixed_sweep": ("sharded_poly_mixed_sweep",
+                                          POLY_KERNEL)}
     for name, source, replaces, err, k_ms, p_ms, steps, (b_ms, by) in specs:
+        entry, kernel = sharded[name]
+        n_mesh = mesh_launches[kernel.symbol]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"montecarlo_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-            "steps": steps})
+            "replaces": replaces, "launches": launches[name] + n_mesh,
+            "max_abs_err": max(err, mesh_err[kernel.symbol]), "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None, "steps": steps,
+            "entry_points": [name, entry], "mesh_launches": n_mesh})
         print(f"bound: {name} at its main path's segment of {steps} steps: "
               f"{k_ms!r} ms per launch against a bound of {b_ms!r} ms (by "
               f"{by}): {100 * b_ms / k_ms!r} % of the bound's rate; plain "

@@ -11,7 +11,8 @@ families are ``montecarlo_tpu_torch.models`` (particle-1d, 2-D Lennard-Jones,
 2-D polydisperse soft spheres, 2-D hard disks); the checkerboard cell-MC
 path for large N is ``montecarlo_tpu_torch.ops.cell_mc``, which
 ``Metropolis(fused='cell')`` (or ``'auto'`` at large N) drives, in plain
-PyTorch.
+PyTorch.  ``montecarlo_tpu_torch.parallel`` splits the chains over
+``torch.distributed`` ranks (``Simulation(mesh=...)``).
 """
 
 from .core.moves import Move, MoveDef, Policy, generic_apply, tree_select
@@ -24,10 +25,11 @@ from .core.algorithms import (Algorithm, DeviceAlgorithm, HostAlgorithm,
                               load_chain_major_trajectories, StoreLastFrames,
                               StoreBackups, PrintTimeSteps)
 from .core.simulation import Simulation, build_schedule, run
-from .utils.observability import Throughput
+from .utils.observability import ProfilerTrace, Throughput
 from . import checkpoint
 from . import interop
 from . import models
+from . import parallel
 from . import policy_guided
 
 __version__ = "0.1.0"
@@ -42,5 +44,6 @@ __all__ = [
     "StoreCallbacks", "StoreTrajectories", "load_chain_major_trajectories",
     "StoreLastFrames", "StoreBackups", "PrintTimeSteps",
     "Simulation", "build_schedule", "run",
-    "Throughput", "checkpoint", "interop", "policy_guided",
+    "Throughput", "ProfilerTrace", "checkpoint", "interop", "parallel",
+    "policy_guided",
 ]

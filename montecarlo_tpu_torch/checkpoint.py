@@ -10,6 +10,13 @@ resume exactly.
 A ``torch.Generator`` is stored as its ``get_state()`` bytes and its
 device, and restored with ``set_state`` on a new generator of that device;
 the Python-int step counter is stored as an int64 and restored as an int.
+
+On a chain mesh saving is collective (the reference's all-gather): the
+sliced leaves are gathered whole, each generator is stored as one state per
+rank (an (S, bytes) array) and the rank count as ``__mesh_size__``, and
+rank 0 writes the file.  A checkpoint resumes on a mesh of the same rank
+count only, each rank taking its slice and its own generators back; one
+written without a mesh resumes without one.
 """
 
 from __future__ import annotations
@@ -21,24 +28,34 @@ from typing import Any
 import numpy as np
 import torch
 
+from .parallel.mesh import fetch, shard_device_state
 from .utils.tree import tree_leaves_with_path, tree_map
 
 __all__ = ["save", "restore", "resume_state"]
 
 _GEN_MARK = "__generator__"
 _INT_MARK = "__int__"
+_MESH_SIZE = "__mesh_size__"
 
 
-def save(path: str, dstate: Any) -> None:
+def save(path: str, dstate: Any, mesh=None) -> None:
     """Serialise a device-state tree to ``path`` (.npz), written whole to
     a temporary file beside it and moved into place, so a process killed
-    meanwhile leaves no cut checkpoint under that name."""
+    meanwhile leaves no cut checkpoint under that name.
+
+    With ``mesh`` a collective: every rank calls it, rank 0 writes."""
     arrays, meta = {}, {}
+    if mesh is not None:
+        dstate = fetch(dstate, mesh)
+        arrays[_MESH_SIZE] = np.asarray(mesh.size, np.int64)
     for i, (keys, leaf) in enumerate(tree_leaves_with_path(dstate)):
         name = f"leaf_{i}"
         entry = {"path": "/".join(str(k) for k in keys)}
         if isinstance(leaf, torch.Generator):
-            arrays[name] = leaf.get_state().numpy()
+            state = leaf.get_state()
+            if mesh is not None:       # one state per rank, in rank order
+                state = mesh.all_gather(state[None])
+            arrays[name] = state.numpy()
             entry[_GEN_MARK] = str(leaf.device)
         elif torch.is_tensor(leaf):
             arrays[name] = leaf.detach().cpu().numpy()
@@ -50,18 +67,32 @@ def save(path: str, dstate: Any) -> None:
         meta[name] = entry
     arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
                                        dtype=np.uint8)
+    if mesh is not None and mesh.rank != 0:
+        return
     tmp = path + ".tmp.npz"
     np.savez(tmp, **arrays)
     os.replace(tmp, path)
 
 
-def restore(path: str, like: Any) -> Any:
+def restore(path: str, like: Any, mesh=None) -> Any:
     """Rebuild a device-state tree from ``path``, using ``like`` (a tree of
     the same structure, e.g. ``Simulation.init_device_state()``) as the
-    template: tensors go to the device of ``like``'s leaf."""
+    template: tensors go to the device of ``like``'s leaf.
+
+    The tree comes back whole.  With ``mesh`` each generator is this rank's
+    own, on the device of ``like``'s generator; a checkpoint written by a
+    mesh of another rank count, or with a mesh where none is given (or the
+    other way round), raises."""
     with np.load(path) as data:
         meta = json.loads(bytes(data["__meta__"]).decode())
         arrays = {k: data[k] for k in data.files}
+    saved = int(arrays[_MESH_SIZE]) if _MESH_SIZE in arrays else None
+    want = None if mesh is None else mesh.size
+    if saved != want:
+        def ranks(n):
+            return "no mesh" if n is None else f"a mesh of {n} rank(s)"
+        raise ValueError(f"checkpoint {path} was written with {ranks(saved)} "
+                         f"and resumes only so, not with {ranks(want)}")
     n = len(tree_leaves_with_path(like))
     if n != len(meta):
         raise ValueError(f"checkpoint {path} holds {len(meta)} leaves, the "
@@ -72,7 +103,10 @@ def restore(path: str, like: Any) -> Any:
         name = f"leaf_{next(counter)}"
         arr, entry = arrays[name], meta[name]
         if _GEN_MARK in entry:
-            gen = torch.Generator(device=entry[_GEN_MARK])
+            if mesh is not None:
+                arr = arr[mesh.rank]
+            gen = torch.Generator(device=leaf.device if mesh is not None
+                                  else entry[_GEN_MARK])
             gen.set_state(torch.from_numpy(arr.copy()))
             return gen
         if entry.get(_INT_MARK):
@@ -86,7 +120,11 @@ def restore(path: str, like: Any) -> Any:
 
 def resume_state(simulation, path: str) -> None:
     """Load a checkpoint into ``simulation`` so that its next ``run``
-    continues from the checkpointed step."""
-    dstate = restore(path, simulation.init_device_state())
+    continues from the checkpointed step; on a mesh each rank takes back
+    its slice of the chains and its own generators."""
+    mesh = simulation.mesh
+    dstate = restore(path, simulation.init_device_state(), mesh=mesh)
+    if mesh is not None:
+        dstate = shard_device_state(dstate, mesh, simulation.n_chains)
     simulation.device_state = dstate
     simulation.t = int(dstate["t"])

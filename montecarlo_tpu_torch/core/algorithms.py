@@ -13,7 +13,9 @@ sync points:
 
 All keep the reference's 3-hook lifecycle ``initialise`` / step /
 ``finalise`` and its on-disk layout; the files written are byte-identical
-to the JAX package's for the same values.
+to the JAX package's for the same values.  On a chain mesh every rank
+computes the observables of the whole ensemble and only rank 0 touches the
+filesystem (:func:`_io_host`), so each file is written once.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from ..parallel.distributed import is_io_host
+from ..parallel.mesh import fetch
 from ..utils.tree import tree_leaves_with_path, tree_map
 
 __all__ = [
@@ -79,6 +83,14 @@ def is_resuming(sim) -> bool:
     run continues.  A recorder's ``initialise`` asks it of whatever
     simulation it is given, which need not have a device state."""
     return bool(getattr(sim, "device_state", None)) and sim.t > 0
+
+
+def _io_host(sim) -> bool:
+    """True where ``sim``'s files are written: rank 0 of its mesh, or, with
+    no mesh, rank 0 of the process group if there is one (the reference's
+    ``jax.process_index() == 0``)."""
+    mesh = getattr(sim, "mesh", None)
+    return mesh.rank == 0 if mesh is not None else is_io_host()
 
 
 def _n_calls(scheduler) -> int:
@@ -204,6 +216,8 @@ class StoreCallbacks(ObservableRecorder):
         self.files = []
 
     def initialise(self, sim):
+        if not _io_host(sim):
+            return
         if sim.verbose:
             print("Opening callback files...")
         os.makedirs(sim.path, exist_ok=True)
@@ -213,11 +227,15 @@ class StoreCallbacks(ObservableRecorder):
         return tuple(cb(view) for cb in self.callbacks)
 
     def write(self, sim, t, value):
+        if not _io_host(sim):
+            return
         for f, v in zip(self.files, value):
             f.write(f"{t} {_fmt_scalar(v)}\n")
             f.flush()
 
     def write_batch(self, sim, ts, value):
+        if not _io_host(sim):
+            return
         for f, col in zip(self.files, value):
             col = np.asarray(col)
             f.write("".join(f"{t} {v!r}\n"
@@ -249,6 +267,7 @@ class StoreTrajectories(ObservableRecorder):
         self.system = sim.system
         self.chain_major = isinstance(fmt, BIN)
         self.n_chains = sim.n_chains
+        self.io_host = _io_host(sim)
         if self.chain_major:
             self.dir = os.path.join(sim.path, "trajectories")
             self._times = []
@@ -262,6 +281,8 @@ class StoreTrajectories(ObservableRecorder):
         self.files = []
 
     def initialise(self, sim):
+        if not self.io_host:
+            return
         if sim.verbose:
             print("Opening trajectory files...")
         if self.chain_major:
@@ -314,8 +335,9 @@ class StoreTrajectories(ObservableRecorder):
     def commit(self):
         """Make the chain-major store on disk whole: flush the ``.bin``
         files, then replace the manifest with one that lists every record
-        written so far.  A no-op for the per-chain text layout."""
-        if not self.chain_major:
+        written so far.  A no-op for the per-chain text layout and off
+        rank 0."""
+        if not (self.chain_major and self.io_host):
             return
         for f in self._field_files.values():
             f.flush()
@@ -347,6 +369,8 @@ class StoreTrajectories(ObservableRecorder):
     def write(self, sim, t, value):
         # buffered IO + flush at finalise keeps the same file contents
         # without a syscall per line on dense schedules
+        if not self.io_host:
+            return
         if self.chain_major:
             self._append_records(
                 [t], tree_map(lambda x: np.asarray(x)[None], value))
@@ -358,6 +382,8 @@ class StoreTrajectories(ObservableRecorder):
             f.write(fmt(t, row) + "\n")
 
     def write_batch(self, sim, ts, value):
+        if not self.io_host:
+            return
         if self.chain_major:
             self._append_records(ts, value)
             self.commit()
@@ -373,6 +399,8 @@ class StoreTrajectories(ObservableRecorder):
             super().write_batch(sim, ts, value)
 
     def finalise(self, sim):
+        if not self.io_host:
+            return
         if sim.verbose:
             print("Closing trajectory files...")
         if self.chain_major:
@@ -442,7 +470,12 @@ class StoreLastFrames(Algorithm):
     def finalise(self, sim):
         if not sim.device_state:       # the run failed before it started
             return
-        frames = to_numpy(self.system.frame(sim.device_state["sys"]))
+        # a collective on a mesh: every rank gathers, rank 0 writes
+        sys = fetch({"sys": sim.device_state["sys"]},
+                    getattr(sim, "mesh", None))["sys"]
+        if not _io_host(sim):
+            return
+        frames = to_numpy(self.system.frame(sys))
         t = int(sim.t)
         for d, row in zip(self.dirs, _unstack(frames)):
             os.makedirs(d, exist_ok=True)
@@ -486,6 +519,8 @@ class StoreBackups(ObservableRecorder):
         self.ckpt_dir = os.path.join(sim.path, "checkpoints")
 
     def initialise(self, sim):
+        if not _io_host(sim):
+            return
         for d in self.dirs:
             os.makedirs(d, exist_ok=True)
         if self.checkpoint:
@@ -501,8 +536,11 @@ class StoreBackups(ObservableRecorder):
             for alg in sim.algorithms:
                 if isinstance(alg, StoreTrajectories):
                     alg.commit()
+            # on a mesh a collective: every rank takes part, rank 0 writes
             ckpt.save(os.path.join(self.ckpt_dir, f"ckpt_t{t}.npz"),
-                      sim.device_state)
+                      sim.device_state, mesh=getattr(sim, "mesh", None))
+        if not _io_host(sim):
+            return
         for d, row in zip(self.dirs, _unstack(value)):
             path = os.path.join(d, f"restart_t{t}{self.fmt.extension}")
             with open(path, "w") as f:
@@ -520,6 +558,8 @@ class PrintTimeSteps(HostAlgorithm):
         pass
 
     def make_step(self, sim, t):
+        if not _io_host(sim):
+            return
         percent = t / sim.steps
         bar_length = 50
         filled = int(round(percent * bar_length))

@@ -15,6 +15,13 @@ reference's counter-hash stream and reproduces its interpret-mode results
 (``ops/cell_mc.py``) draws its per-cell numbers from the same generator and
 its per-substep variants from a counter-based host generator keyed by
 (seed, micro-step).
+
+On a chain mesh (``Simulation(mesh=...)``) each rank steps its own slice of
+the chains: the fused path through the ``sharded_*`` sweep entry points,
+which fold the rank into the sweep seed, and the generic and cell paths
+with a generator seeded from the same fold (:attr:`Metropolis.stream_seed`).
+So a run's streams depend on its rank count; a run on a fixed count is
+reproducible.
 """
 
 from __future__ import annotations
@@ -255,6 +262,13 @@ class Metropolis(DeviceAlgorithm):
             np.log(self.weights / self.weights.sum()))
         self.sweepstep = int(sweepstep)
         self.seed = int(seed)
+        self.mesh = getattr(sim, "mesh", None)
+        #: the seed of this rank's generator: ``seed`` itself without a
+        #: mesh, else the rank folded in as the fused path folds it
+        self.stream_seed = self.seed
+        if self.mesh is not None:
+            from ..ops.fused_sweep import _shard_seed
+            self.stream_seed = _shard_seed(self.mesh.rank, self.seed)
         self.n_chains = sim.n_chains
         self.n_moves = len(self.pool)
         self.device = sim.device
@@ -438,7 +452,8 @@ class Metropolis(DeviceAlgorithm):
     def init_state(self, sim):
         counters = torch.zeros((self.n_chains, self.n_moves, 2),
                                dtype=torch.int32, device=self.device)
-        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        gen = torch.Generator(device=self.device).manual_seed(
+            self.stream_seed)
         slc = {"counters": counters, "generator": gen}
         if self._cell_plan is not None:
             # a latched flag, read on the host at every sync point: a cell
@@ -456,10 +471,14 @@ class Metropolis(DeviceAlgorithm):
         invalid-cell-bind flag (the affected segments were skipped as
         no-ops, so the state is whole but under-sampled).  Auto-selected
         runs raise :class:`CellBindInvalid`, which the orchestrator catches
-        to fall back; an explicit ``fused='cell'`` run fails loudly."""
+        to fall back; an explicit ``fused='cell'`` run fails loudly.  On a
+        mesh the flag is first reduced over the ranks (MAX), so every rank
+        raises, or none."""
         if self._cell_disabled:
             return
         flag = dstate.get(self.state_key, {}).get("cell_overflow")
+        if flag is not None and self.mesh is not None:
+            flag = self.mesh.all_reduce(flag.to(torch.int32), "max")
         if flag is not None and bool(flag):
             if self.fused != "cell":
                 raise Metropolis.CellBindInvalid(self)
@@ -541,11 +560,16 @@ class Metropolis(DeviceAlgorithm):
         # recorder schedules cut the run into segments
         micro_t0 = t0 * self.sweepstep
         interp = self.fused == "interpret"
+        # on a mesh, each sweep's sharded entry point: this rank's chains,
+        # the rank folded into the seed
+        mesh = () if self.mesh is None else (self.mesh, self.mesh.axis)
+        from ..ops import fused_sweep, lj_sweep, poly_sweep
         if self._fused_pool == "gaussian":
-            from ..ops.fused_sweep import fused_gaussian_sweep
+            sweep = (fused_sweep.sharded_gaussian_sweep if mesh
+                     else fused_sweep.fused_gaussian_sweep)
             sigma = tree_leaves(params[0])[0]
-            x, e, acc = fused_gaussian_sweep(
-                sys.x, sys.beta, sigma, self.seed, micro_t0, total,
+            x, e, acc = sweep(
+                *mesh, sys.x, sys.beta, sigma, self.seed, micro_t0, total,
                 potential=self.pool[0].move.aux, interpret=interp)
             new_sys = dataclasses.replace(sys, x=x, e=e)
         else:
@@ -558,22 +582,26 @@ class Metropolis(DeviceAlgorithm):
             w_disp = float(self.weights[disp] / self.weights.sum())
             kw = dict(params=aux, interpret=interp)
             if self._fused_pool == "poly_mixed":
-                from ..ops.poly_sweep import fused_poly_mixed_sweep
-                pos, diam, energy, acc, tot = fused_poly_mixed_sweep(
-                    sys.pos, sys.diam, sys.beta, sys.energy, self._box, sigma,
-                    w_disp, self.seed, micro_t0, total, **kw)
+                sweep = (poly_sweep.sharded_poly_mixed_sweep if mesh
+                         else poly_sweep.fused_poly_mixed_sweep)
+                pos, diam, energy, acc, tot = sweep(
+                    *mesh, sys.pos, sys.diam, sys.beta, sys.energy, self._box,
+                    sigma, w_disp, self.seed, micro_t0, total, **kw)
                 new_sys = dataclasses.replace(sys, pos=pos, diam=diam,
                                               energy=energy)
             else:
-                from ..ops.lj_sweep import fused_lj_mixed_sweep, fused_lj_sweep
-                args = (sys.pos, sys.species, sys.beta, sys.energy, self._box,
-                        sigma)
+                args = (*mesh, sys.pos, sys.species, sys.beta, sys.energy,
+                        self._box, sigma)
                 if self._fused_pool == "lj":
-                    pos, energy, acc = fused_lj_sweep(
+                    sweep = (lj_sweep.sharded_lj_sweep if mesh
+                             else lj_sweep.fused_lj_sweep)
+                    pos, energy, acc = sweep(
                         *args, self.seed, micro_t0, total, **kw)
                     new_sys = dataclasses.replace(sys, pos=pos, energy=energy)
                 else:
-                    pos, species, energy, acc, tot = fused_lj_mixed_sweep(
+                    sweep = (lj_sweep.sharded_lj_mixed_sweep if mesh
+                             else lj_sweep.fused_lj_mixed_sweep)
+                    pos, species, energy, acc, tot = sweep(
                         *args, w_disp, self.seed, micro_t0, total, **kw)
                     new_sys = dataclasses.replace(
                         sys, pos=pos, species=species, energy=energy)
@@ -659,7 +687,7 @@ class Metropolis(DeviceAlgorithm):
     # -- summary -------------------------------------------------------------
     def write_summary(self, io, scheduler):
         from .algorithms import _n_calls
-        n_dev = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        n_dev = _n_devices(self.mesh, self.device)
         io.write("\tMetropolis\n")
         io.write(f"\t\tCalls: {_n_calls(scheduler)}\n")
         io.write(f"\t\tMC steps per simulation step: {self.sweepstep}\n")
@@ -686,6 +714,14 @@ class Metropolis(DeviceAlgorithm):
             io.write(f"\t\t\t\tPolicy: {type(move.move.policy).__name__}\n")
             io.write(f"\t\t\t\tParameters: {_fmt_params(move.params)}\n")
             io.write(f"\t\t\t\tWeight: {move.weight}\n")
+
+
+def _n_devices(mesh, device) -> int:
+    """The ``Devices:`` count of ``summary.log``: the mesh's ranks, or
+    without a mesh the CUDA devices (1 on the CPU)."""
+    if mesh is not None:
+        return mesh.size
+    return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
 def _fmt_params(params) -> str:
@@ -773,7 +809,10 @@ class StoreParameters(ObservableRecorder):
         self.paths = [os.path.join(d, "parameters.dat") for d in self.dirs]
 
     def initialise(self, sim):
+        from .algorithms import _io_host
         self._resolve_paths()
+        if not _io_host(sim):
+            return
         if sim.verbose:
             print("Opening parameter files...")
         for d in self.dirs:

@@ -21,6 +21,14 @@ work and syncs only where the host needs values:
 - Every sync point checks the device state (``validate_state``) before its
   records are written; an auto-selected cell-MC path whose bind overflowed
   falls back and resumes from the last committed state (:func:`_execute`).
+
+On a chain mesh (``mesh=``, :mod:`~montecarlo_tpu_torch.parallel`) every
+rank runs this loop on its slice of the chains.  Each observe point first
+gathers the sliced leaves (the chains and the per-chain counters) from
+every rank, so observables see the whole ensemble on every rank, as the
+reference's replicated observables do; rank 0 writes the files.  Every
+host decision that could differ between ranks (an overflow flag) is
+reduced over the ranks first, so all ranks issue the same collectives.
 """
 
 from __future__ import annotations
@@ -34,10 +42,12 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from ..parallel.mesh import fetch, shard_device_state
 from ..utils.observability import device_sync
 from ..utils.tree import tree_leaves, tree_leaves_with_path, tree_map
 from .algorithms import (Algorithm, DeviceAlgorithm, HostAlgorithm,
-                         ObservableRecorder, SimView, is_resuming, to_numpy)
+                         ObservableRecorder, SimView, _io_host, is_resuming,
+                         to_numpy)
 from .schedule import build_schedule, compress_runs
 from .system import SystemDef, stack_chains
 
@@ -54,23 +64,41 @@ class Simulation:
     optional ``scheduler`` (default: every step), optional ``dependencies``
     (tuple of previously-listed algorithm classes, indices or instances),
     plus algorithm kwargs.  ``device`` is where the chains and all device
-    state live; it defaults to the chains' device.
+    state live; it defaults to the mesh's device, else the chains' device.
+
+    ``mesh`` (a :class:`~montecarlo_tpu_torch.parallel.Mesh`) splits the
+    chains over its ranks: every rank passes the same whole ensemble and
+    keeps its slice (:func:`~montecarlo_tpu_torch.parallel.
+    shard_device_state`).  ``device`` and ``mesh`` are taken together only
+    when they agree.
     """
 
     def __init__(self, system: SystemDef, chains, algorithm_list,
                  steps: int, path: str = "data", verbose: bool = False,
-                 device=None):
+                 device=None, mesh=None):
         self.system = system
+        self.mesh = mesh
         if isinstance(chains, list) and chains:
             # reference-style "vector of systems" input: stack to chain-major
             chains = stack_chains(chains)
         leaves = tree_leaves(chains)
         if not leaves:
             raise ValueError("chains tree has no leaves")
+        if mesh is not None:
+            if device is not None and not _same_device(device, mesh.device):
+                raise ValueError(
+                    f"device={device!r} disagrees with the mesh's device "
+                    f"{mesh.device}")
+            device = mesh.device
         self.device = torch.device(device) if device is not None \
             else leaves[0].device
         self.chains0 = tree_map(lambda x: x.to(self.device), chains)
         self.n_chains = int(leaves[0].shape[0])
+        if mesh is not None and self.n_chains % mesh.size:
+            raise ValueError(
+                f"n_chains={self.n_chains} not divisible by mesh size "
+                f"{mesh.size}; pad the chain count (extra independent chains "
+                f"are free)")
         self.steps = int(steps)
         self.path = path
         self.verbose = verbose
@@ -117,7 +145,8 @@ class Simulation:
         for i, a in enumerate(owners):
             a.params_key = "params" if i == 0 else f"params_{a.state_key}"
 
-        os.makedirs(self.path, exist_ok=True)
+        if _io_host(self):
+            os.makedirs(self.path, exist_ok=True)
 
     def _resolve_deps(self, dep_spec, cls):
         """Resolve a ``dependencies`` entry to algorithm instances: a type
@@ -157,11 +186,18 @@ class Simulation:
                 dstate[a.params_key] = a.init_params()
         for a in self.device_algos:
             dstate[a.state_key] = a.init_state(self)
+        if self.mesh is not None:
+            dstate = shard_device_state(dstate, self.mesh, self.n_chains)
         return dstate
 
     def view(self, dstate) -> SimView:
         return SimView(sys=dstate["sys"], params=dstate["params"],
                        t=dstate["t"], state=dstate)
+
+    def gathered_view(self, dstate) -> SimView:
+        """The view of the whole ensemble: on a mesh, the sliced leaves
+        gathered from every rank (a collective), else :meth:`view`."""
+        return self.view(fetch(dstate, self.mesh))
 
     def run(self):
         run(self)
@@ -223,10 +259,16 @@ def _store_last(sim: Simulation):
         _pull_and_write(sim, recs, sim.t)
 
 
+def _same_device(a, b) -> bool:
+    """``a`` names device ``b`` (``'cuda'`` names any CUDA device)."""
+    a, b = torch.device(a), torch.device(b)
+    return a.type == b.type and a.index in (None, b.index)
+
+
 def _pull_and_write(sim, recorders, t):
     if not recorders:
         return
-    view = sim.view(sim.device_state)
+    view = sim.gathered_view(sim.device_state)
     values = to_numpy(tuple(r.observable(view) for r in recorders))
     for r, v in zip(recorders, values):
         r.write(sim, t, v)
@@ -412,7 +454,7 @@ def _execute_inner(sim: Simulation):
         recs = [sim.algorithms[i] for i in obs_ids]
 
         def observe(ds):
-            v = sim.view(ds)
+            v = sim.gathered_view(ds)
             return tuple(r.observable(v) for r in recs)
 
         return observe
@@ -520,6 +562,8 @@ def _dtype_name(dtype) -> str:
 
 
 def _write_summary(sim: Simulation):
+    if not _io_host(sim):
+        return
     with open(os.path.join(sim.path, "summary.log"), "w") as f:
         f.write("SIMULATION SUMMARY\n\n")
         f.write("Simulation:\n")
@@ -544,12 +588,16 @@ def _write_summary(sim: Simulation):
 
 
 def _update_summary(sim: Simulation, sim_time: float):
+    if not _io_host(sim):
+        return
     with open(os.path.join(sim.path, "summary.log"), "a") as f:
         f.write("Report:\n")
         f.write(f"\tSimulation time: {sim_time} s\n")
 
 
 def _finalise_summary(sim: Simulation):
+    if not _io_host(sim):
+        return
     total = 0
     for root, _, files in os.walk(sim.path):
         for fn in files:

@@ -35,8 +35,8 @@ import torch
 from ..utils.device import resolve_device
 from ._cuda import CudaKernel
 
-__all__ = ["fused_gaussian_sweep", "software_bits", "kernel_potential",
-           "group_lanes", "SWEEP_KERNEL"]
+__all__ = ["fused_gaussian_sweep", "sharded_gaussian_sweep", "software_bits",
+           "kernel_potential", "group_lanes", "SWEEP_KERNEL"]
 
 _LANES = 128
 _SUBLANES = 8
@@ -107,6 +107,15 @@ def _uniform_from_bits(bits):
 def _shard_seed(shard_index: int, seed: int) -> int:
     """Fold a shard index into a sweep seed (one stream per shard)."""
     return (seed + (shard_index + 1) * _GOLDEN) & _MASK
+
+
+def _mesh_seed(mesh, axis, seed) -> int:
+    """This rank's sweep seed on ``mesh``: the reference's ``_shard_seed``
+    of the shard index along ``axis``, the mesh's one axis."""
+    if axis != mesh.axis:
+        raise ValueError(f"the mesh has the one axis {mesh.axis!r}, not "
+                         f"{axis!r}")
+    return _shard_seed(mesh.rank, int(seed))
 
 
 # -- potentials the kernel knows ---------------------------------------------
@@ -269,3 +278,19 @@ def fused_gaussian_sweep(x, beta, sigma, seed, t0, n_steps, *, potential,
                              device=x.device)
     return _cuda_sweep(x, beta, sigma, seed, t0, n_steps, potential,
                        block_chains)
+
+
+def sharded_gaussian_sweep(mesh, axis, x, beta, sigma, seed, t0, n_steps, *,
+                           potential, interpret=False):
+    """Multi-device fused sweep (the reference's ``shard_map`` wrapper):
+    this rank runs :func:`fused_gaussian_sweep` on its local chains ``x``,
+    ``beta`` with its index on ``mesh`` folded into the seed
+    (:func:`_shard_seed`), so ranks draw independent streams; sigma, seed,
+    t0 and n_steps are the same on every rank.  On a CUDA tensor it
+    launches the kernel, or raises.
+
+    Reproducible for a fixed rank count; the stream is block-indexed, so
+    results depend on it."""
+    return fused_gaussian_sweep(x, beta, sigma, _mesh_seed(mesh, axis, seed),
+                                t0, n_steps, potential=potential,
+                                interpret=interpret)

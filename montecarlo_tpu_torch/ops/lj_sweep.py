@@ -43,11 +43,12 @@ import numpy as np
 import torch
 
 from ._cuda import CudaKernel
-from .fused_sweep import (_GOLDEN, _MASK, _draw_bits, _hash32, _mul32,
-                          _uniform_from_bits)
+from .fused_sweep import (_GOLDEN, _MASK, _draw_bits, _hash32, _mesh_seed,
+                          _mul32, _uniform_from_bits)
 
-__all__ = ["fused_lj_sweep", "fused_lj_mixed_sweep", "block_warps",
-           "MAX_PARTICLES", "LJ_KERNEL", "LJ_MIXED_KERNEL"]
+__all__ = ["fused_lj_sweep", "fused_lj_mixed_sweep", "sharded_lj_sweep",
+           "sharded_lj_mixed_sweep", "block_warps", "MAX_PARTICLES",
+           "LJ_KERNEL", "LJ_MIXED_KERNEL"]
 
 _LANES = 128
 _WARP = 32
@@ -460,3 +461,32 @@ def fused_lj_mixed_sweep(pos, species, beta, energy, box, sigma, w_disp,
     """
     return _sweep(True, pos, species, beta, energy, box, sigma, w_disp, seed,
                   t0, n_steps, params, interpret, block_chains)
+
+
+# -- the multi-device entry points -------------------------------------------------
+
+def sharded_lj_sweep(mesh, axis, pos, species, beta, energy, box, sigma,
+                     seed, t0, n_steps, *, params, interpret=False,
+                     block_chains=256):
+    """Multi-device fused LJ displacement sweep (the reference's
+    ``shard_map`` wrapper): this rank runs :func:`fused_lj_sweep` on its
+    local chains with its index on ``mesh`` folded into the seed
+    (``fused_sweep._shard_seed``); box, sigma, seed, t0 and n_steps are the
+    same on every rank, the block geometry is the local one.  On a CUDA
+    tensor it launches the kernel, or raises."""
+    return fused_lj_sweep(pos, species, beta, energy, box, sigma,
+                          _mesh_seed(mesh, axis, seed), t0, n_steps,
+                          params=params, interpret=interpret,
+                          block_chains=block_chains)
+
+
+def sharded_lj_mixed_sweep(mesh, axis, pos, species, beta, energy, box,
+                           sigma, w_disp, seed, t0, n_steps, *, params,
+                           interpret=False, block_chains=256):
+    """Multi-device fused displacement/swap sweep, as
+    :func:`sharded_lj_sweep` around :func:`fused_lj_mixed_sweep`: the
+    config-5 pool on a mesh."""
+    return fused_lj_mixed_sweep(pos, species, beta, energy, box, sigma,
+                                w_disp, _mesh_seed(mesh, axis, seed), t0,
+                                n_steps, params=params, interpret=interpret,
+                                block_chains=block_chains)

@@ -30,11 +30,12 @@ import numpy as np
 import torch
 
 from ._cuda import CudaKernel
-from .fused_sweep import _GOLDEN, _MASK, _mul32
+from .fused_sweep import _GOLDEN, _MASK, _mesh_seed, _mul32
 from .lj_sweep import (_ARGS, _SHAPE, _TAIL, _cuda_sweep, _disp_step, _grid,
                        _lane_sum, _pow2_warps, _run_steps, _table, _uniform)
 
-__all__ = ["fused_poly_mixed_sweep", "poly_block_warps", "POLY_KERNEL"]
+__all__ = ["fused_poly_mixed_sweep", "sharded_poly_mixed_sweep",
+           "poly_block_warps", "POLY_KERNEL"]
 
 _LANES = 128
 _SWAP_TAG = 0x51AB
@@ -193,3 +194,18 @@ def fused_poly_mixed_sweep(pos, diam, beta, energy, box, sigma, w_disp, seed,
                        t0, n_steps, bc, poly_block_warps(n),
                        attr=("diam", torch.float32))
 
+
+
+def sharded_poly_mixed_sweep(mesh, axis, pos, diam, beta, energy, box,
+                             sigma, w_disp, seed, t0, n_steps, *, params,
+                             interpret=False, block_chains=256):
+    """Multi-device fused polydisperse swap sweep (the reference's
+    ``shard_map`` wrapper): this rank runs :func:`fused_poly_mixed_sweep`
+    on its local chains with its index on ``mesh`` folded into the seed
+    (``fused_sweep._shard_seed``); box, sigma, w_disp, seed, t0 and n_steps
+    are the same on every rank, the block geometry is the local one.  On a
+    CUDA tensor it launches the kernel, or raises."""
+    return fused_poly_mixed_sweep(pos, diam, beta, energy, box, sigma,
+                                  w_disp, _mesh_seed(mesh, axis, seed), t0,
+                                  n_steps, params=params, interpret=interpret,
+                                  block_chains=block_chains)

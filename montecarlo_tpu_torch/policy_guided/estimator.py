@@ -12,8 +12,14 @@ never advances the chains, so it composes with Metropolis at the same step
 as the reference's in-order algorithm list does.
 
 Randomness: one ``torch.Generator`` on the state's device, seeded from the
-Metropolis seed and :data:`_PGE_TAG`, where the reference folds per-chain
-threefry keys; the estimator is held to the reference by statistics.
+Metropolis seed (its ``stream_seed``: on a mesh, the rank folded in) and
+:data:`_PGE_TAG`, where the reference folds per-chain threefry keys; the
+estimator is held to the reference by statistics.
+
+On a chain mesh each rank samples its own chains, and each step's sums are
+all-reduced over the ranks before they are added (the reference's
+``psum``), so the accumulators, and the parameters the update computes
+from them, stay the same on every rank.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from typing import Sequence
 import torch
 
 from ..core.algorithms import DeviceAlgorithm, _n_calls
-from ..core.metropolis import Metropolis
+from ..core.metropolis import Metropolis, _n_devices
 from ..utils.tree import ravel, tree_map
 from .gradients import add, init_gradient_data, sample_gradient_data
 from .learning import PolicyGradient, Static
@@ -52,6 +58,7 @@ class PolicyGradientEstimator(DeviceAlgorithm):
                           if not isinstance(o, Static)]
         self.q_batch_size = int(q_batch_size)
         self.seed = self.metropolis.seed
+        self.mesh = self.metropolis.mesh
         self.device = sim.device
         self.movedefs = self.metropolis.movedefs
         self.param_dims = [
@@ -60,7 +67,7 @@ class PolicyGradientEstimator(DeviceAlgorithm):
 
     def init_state(self, sim):
         gen = torch.Generator(device=self.device).manual_seed(
-            (_PGE_TAG << 32) | (self.seed & 0xFFFFFFFF))
+            (_PGE_TAG << 32) | (self.metropolis.stream_seed & 0xFFFFFFFF))
         gd = tuple(init_gradient_data(p, device=self.device)
                    for p in self.param_dims)
         obj = torch.zeros((len(self.learn_ids),), dtype=torch.float32,
@@ -80,6 +87,9 @@ class PolicyGradientEstimator(DeviceAlgorithm):
             per = sample_gradient_data(self.movedefs[lid], params[lid], state,
                                        slc["generator"])
             total = tree_map(lambda x: x.sum(0).to(x.dtype), per)
+            if self.mesh is not None:
+                # the chain reduction over the ranks, one all_reduce a field
+                total = tree_map(self.mesh.all_reduce, total)
             gd = add(gds[acc_idx], total)
             gds[acc_idx] = gd
             obj[acc_idx] = gd.j / gd.n.to(gd.j.dtype)
@@ -87,7 +97,7 @@ class PolicyGradientEstimator(DeviceAlgorithm):
                                            "obj": obj}}
 
     def write_summary(self, io, scheduler):
-        n_dev = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        n_dev = _n_devices(self.mesh, self.device)
         io.write("\tPolicyGradientEstimator\n")
         io.write(f"\t\tCalls: {_n_calls(scheduler)}\n")
         io.write(f"\t\tLearnable moves: {[k + 1 for k in self.learn_ids]}\n")

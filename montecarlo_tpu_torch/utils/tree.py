@@ -13,7 +13,8 @@ import dataclasses
 
 import torch
 
-__all__ = ["tree_map", "tree_leaves", "tree_leaves_with_path", "ravel"]
+__all__ = ["tree_map", "tree_map_with_path", "tree_leaves",
+           "tree_leaves_with_path", "ravel"]
 
 
 def _children(node):
@@ -41,6 +42,17 @@ def tree_map(fn, tree, *rest):
     others = [_children(r)[1] for r in rest]
     return rebuild([tree_map(fn, v, *(o[i] for o in others))
                     for i, v in enumerate(values)])
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """Apply ``fn(path, leaf)`` leafwise, ``path`` as
+    :func:`tree_leaves_with_path` gives it."""
+    ch = _children(tree)
+    if ch is None:
+        return fn(path, tree)
+    keys, values, rebuild = ch
+    return rebuild([tree_map_with_path(fn, v, path + (k,))
+                    for k, v in zip(keys, values)])
 
 
 def tree_leaves_with_path(tree, path=()):

@@ -471,3 +471,92 @@ def test_resume_on_cuda_is_bitwise_exact(cuda, tmp_path):
             assert x.is_cuda and torch.equal(x, y)
         else:
             assert x == y
+
+
+# -- the chain mesh: the sharded entry points on the card ----------------------------
+
+def _sharded_call(name, mesh, device, seed=9):
+    """One sharded entry point's call on ``mesh`` and its kernel."""
+    from montecarlo_tpu_torch.ops import fused_sweep as fs
+    from montecarlo_tpu_torch.ops import lj_sweep as ls
+    from montecarlo_tpu_torch.ops import poly_sweep as ps
+    if name == "gaussian":
+        x, beta = _inputs(4096, device)
+        return SWEEP_KERNEL, lambda mesh, s: (
+            fs.sharded_gaussian_sweep(mesh, "chains", x, beta, 0.5, s, 7,
+                                      101, potential=p1d.harmonic)
+            if mesh is not None else fs.fused_gaussian_sweep(
+                x, beta, 0.5, s, 7, 101, potential=p1d.harmonic))
+    if name == "poly":
+        st = _poly(8, 256, device)
+        args = (st.pos, st.diam, st.beta, st.energy, float(st.box[0]), 0.1,
+                0.8)
+        kw = dict(params=poly.PolyParams())
+        return POLY_KERNEL, lambda mesh, s: (
+            ps.sharded_poly_mixed_sweep(mesh, "chains", *args, s, 5, 300,
+                                        **kw)
+            if mesh is not None else fused_poly_mixed_sweep(*args, s, 5, 300,
+                                                            **kw))
+    mixed = name == "lj_mixed"
+    st = _lj(8, 256, device)
+    args = (st.pos, st.species, st.beta, st.energy, float(st.box[0]), 0.1) \
+        + ((0.8,) if mixed else ())
+    kw = dict(params=lj.LJParams())
+    sharded = ls.sharded_lj_mixed_sweep if mixed else ls.sharded_lj_sweep
+    plain = fused_lj_mixed_sweep if mixed else fused_lj_sweep
+    return (LJ_MIXED_KERNEL if mixed else LJ_KERNEL), lambda mesh, s: (
+        sharded(mesh, "chains", *args, s, 5, 300, **kw)
+        if mesh is not None else plain(*args, s, 5, 300, **kw))
+
+
+@pytest.mark.parametrize("name", ["gaussian", "lj", "lj_mixed", "poly"])
+def test_sharded_entry_points_launch_their_kernels(cuda, name):
+    """On a CUDA tensor each sharded entry point launches its kernel once,
+    with the rank folded into the seed: rank r's call equals the unsharded
+    kernel's with ``_shard_seed(r, seed)``, and the ranks differ."""
+    from montecarlo_tpu_torch.ops.fused_sweep import _shard_seed
+    from montecarlo_tpu_torch.parallel import Mesh
+    kernel, call = _sharded_call(name, None, cuda)
+    outs = []
+    for r in range(2):
+        mesh = Mesh(rank=r, size=2, device=cuda)
+        before = kernel.launches
+        out = call(mesh, 9)
+        assert kernel.launches == before + 1
+        want = call(None, _shard_seed(r, 9))
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+        outs.append(out[0])
+    assert outs[0].is_cuda and not torch.equal(outs[0], outs[1])
+
+
+def test_emulated_two_rank_run_on_the_card(cuda, tmp_path):
+    """Two ranks emulated in one process run config 2's recorders on the
+    card: each rank launches the kernel, its chains equal the sharded
+    kernel's one segment from its slice, and rank 0 writes the files."""
+    from montecarlo_tpu_torch.ops import fused_sweep as fs
+    from montecarlo_tpu_torch.parallel import run_emulated
+    chains = p1d.init_chains(2048, beta=2.0, seed=5, device=cuda)
+    steps = 400
+
+    def run(mesh):
+        sim = tmc.Simulation(p1d.make_system(), chains, [
+            dict(algorithm=tmc.Metropolis, pool=(p1d.displacement_move(0.5),),
+                 seed=3),
+            dict(algorithm=tmc.StoreCallbacks,
+                 callbacks=(p1d.callback_energy, tmc.callback_acceptance),
+                 scheduler=np.arange(100, steps + 1, 100))],
+            steps, path=str(tmp_path), mesh=mesh)
+        sim.run()
+        lo = mesh.rank * 1024
+        x, _, _ = fs.sharded_gaussian_sweep(
+            mesh, "chains", chains.x[lo:lo + 1024].contiguous(),
+            chains.beta[lo:lo + 1024].contiguous(), 0.5, 3, 0, steps,
+            potential=p1d.harmonic)
+        return sim.device_state["sys"].x, x
+
+    before = SWEEP_KERNEL.launches
+    for got, want in run_emulated(run, 2, cuda):
+        assert got.is_cuda and torch.equal(got, want)
+    assert SWEEP_KERNEL.launches - before == 2 * (4 + 1)
+    e = np.loadtxt(tmp_path / "energy.dat")
+    assert e.shape == (5, 2)

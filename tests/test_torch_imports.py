@@ -26,6 +26,8 @@ def test_port_imports_without_jax():
         "import montecarlo_tpu_torch.models.hard_disks\n"
         "import montecarlo_tpu_torch.policy_guided\n"
         "import montecarlo_tpu_torch.checkpoint\n"
+        "import montecarlo_tpu_torch.parallel\n"
+        "import montecarlo_tpu_torch.parallel.distributed\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'montecarlo_tpu', 'triton')]\n"
         "assert not bad, bad\n")

@@ -1,0 +1,211 @@
+"""The port's chain mesh across two processes (a ``gloo`` group on the CPU),
+mirroring ``tests/test_multihost.py``.
+
+Two workers (``_torch_mesh_worker.py``) run every scenario once, in one
+spawn; each test reads what its scenario left:
+
+1. the reference's multihost configuration against the JAX package's own
+   2-device mesh run (``fused='interpret'`` both; its shards draw from the
+   same folded seeds): ``energy.dat`` and every ``trajectory.dat`` within
+   the Gaussian gate (atol 1e-5), one writer of every file;
+2. the generic path with PGMC against a one-process emulation
+   (``parallel.run_emulated``: each rank's chains and seeds, the
+   estimator's sums added): sigma within rtol 1e-6, and moved;
+3. an LJ swap pool and a poly swap pool on the fused path: caches against
+   an O(N^2) recompute within the reference's bounds;
+4. a cell-path pool: the same plan on both ranks, and an overflow on one
+   rank sends both to the fallback;
+5. a run resumed from its backup equals the uncut one bit for bit; the
+   checkpoint does not resume on one rank.
+
+Each worker has its own timeout, so a rank left waiting in a collective
+fails the tests instead of hanging them.
+"""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import montecarlo_tpu as mc
+from montecarlo_tpu.models import particle1d as ref_p1d
+from montecarlo_tpu.parallel import make_mesh as ref_make_mesh
+from montecarlo_tpu_torch import checkpoint
+from montecarlo_tpu_torch.models import lennard_jones as lj
+from montecarlo_tpu_torch.models import polydisperse as poly
+from montecarlo_tpu_torch.parallel import make_mesh, run_emulated
+from torch_mesh_helpers import (PGMC_STEPS, REF_STEPS, pgmc_sim,
+                                reference_algorithms, state_arrays)
+
+WORKER = os.path.join(os.path.dirname(__file__), "_torch_mesh_worker.py")
+ATOL = 1e-5            # the Gaussian gate of tests/test_torch_sweep.py
+TIMEOUT = 240
+
+
+def _free_port():
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Spawn the two ranks, and meanwhile run the reference's 2-device
+    mesh in this process; returns (worker root, reference run dir)."""
+    root = tmp_path_factory.mktemp("mesh")
+    ref_chains = ref_p1d.init_chains(8, beta=2.0, seed=42)
+    np.savez(root / "ref_chains.npz", x=np.asarray(ref_chains.x),
+             beta=np.asarray(ref_chains.beta), e=np.asarray(ref_chains.e))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "JAX_PLATFORMS", "XLA_FLAGS")}
+    env["OMP_NUM_THREADS"] = "1"
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-u", WORKER, str(r), "2", str(port), str(root)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    try:
+        ref_path = str(root / "ref")
+        mesh = ref_make_mesh(n_devices=2, devices=jax.devices("cpu"))
+        mc.Simulation(ref_p1d.make_system(ref_p1d.harmonic), ref_chains,
+                      reference_algorithms(mc, ref_p1d, fused="interpret"),
+                      REF_STEPS, path=ref_path, mesh=mesh).run()
+        outs = [p.communicate(timeout=TIMEOUT)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-4000:]
+    return root, ref_path
+
+
+def _result(root, rank, name):
+    return root / "results" / f"rank{rank}" / name
+
+
+def test_two_ranks_match_reference_mesh(runs):
+    root, ref = runs
+    port = root / "runs" / "reference"
+    for name in ("energy.dat", "acceptance.dat"):
+        got, want = np.loadtxt(port / name), np.loadtxt(os.path.join(ref,
+                                                                      name))
+        assert got.shape == want.shape == (REF_STEPS // 10 + 1, 2)
+        np.testing.assert_array_equal(got[:, 0], want[:, 0])
+        np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=0, atol=ATOL)
+    for c in range(1, 9):
+        rel = os.path.join("trajectories", str(c), "trajectory.dat")
+        got, want = np.loadtxt(port / rel), np.loadtxt(os.path.join(ref, rel))
+        np.testing.assert_array_equal(got[:, 0], want[:, 0])
+        np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=0, atol=ATOL)
+    # one writer: one line per event, as the reference's
+    params = (port / "parameters" / "1" / "parameters.dat").read_text()
+    assert len(params.splitlines()) == REF_STEPS // 10 + 1
+    assert params == open(os.path.join(ref, "parameters", "1",
+                                       "parameters.dat")).read()
+    th = np.loadtxt(port / "throughput.dat", ndmin=2)
+    assert 1 <= th.shape[0] <= REF_STEPS // 10 and np.all(th[:, 1] > 0)
+    ckpt = port / "checkpoints" / "ckpt_t30.npz"
+    assert sorted(os.listdir(port / "checkpoints")) == ["ckpt_t30.npz"]
+    with np.load(ckpt) as f:
+        assert int(f["__mesh_size__"]) == 2
+    summary = (port / "summary.log").read_text()
+    assert "\t\tDevices: 2\n" in summary and "\t\tParallel: True\n" in summary
+    # the profiler trace of steps 20-40, by rank 0 alone
+    assert os.listdir(port / "trace") == ["trace_t40.json"]
+    assert json.load(open(port / "trace" / "trace_t40.json"))["traceEvents"]
+    with np.load(_result(root, 1, "violations.npz")) as f:
+        assert f["paths"].tolist() == []
+
+
+def test_pgmc_sums_are_all_reduced(runs, tmp_path):
+    """Both ranks end with the same sigma, equal to a one-process
+    emulation's; each rank's chains equal the emulated rank's."""
+    root, _ = runs
+
+    def emulate(mesh):
+        sim = pgmc_sim(str(tmp_path / "emul"), mesh)
+        sim.run()
+        return state_arrays(sim.device_state)
+
+    emulated = run_emulated(emulate, 2, "cpu")
+    sigmas = []
+    for r in range(2):
+        with np.load(_result(root, r, "pgmc.npz")) as f:
+            got = dict(f)
+        want = emulated[r]
+        assert sorted(got) == sorted(want)
+        np.testing.assert_array_equal(got["metropolis/counters"],
+                                      want["metropolis/counters"])
+        np.testing.assert_allclose(got["sys/x"], want["sys/x"], rtol=1e-6)
+        np.testing.assert_allclose(got["params/1/sigma"],
+                                   want["params/1/sigma"], rtol=1e-6)
+        np.testing.assert_allclose(got["pge/obj"], want["pge/obj"],
+                                   rtol=1e-6)
+        assert got["sys/x"].shape == (8,)
+        sigmas.append(float(got["params/1/sigma"]))
+    assert sigmas[0] == sigmas[1] != pytest.approx(0.2, abs=1e-4)
+    last = (root / "runs" / "pgmc" / "parameters" / "2" / "parameters.dat") \
+        .read_text().splitlines()
+    assert len(last) == PGMC_STEPS // 10 + 1
+    assert float(last[-1].split()[1].strip("[]")) == pytest.approx(
+        sigmas[0], rel=1e-6)
+
+
+@pytest.mark.parametrize("name, mod, bounds", [
+    ("lj", lj, dict(rtol=3e-4, atol=5e-2)),
+    ("poly", poly, dict(rtol=3e-3, atol=8e-2))])
+def test_particle_pools_keep_their_caches(runs, name, mod, bounds):
+    root, _ = runs
+    with np.load(_result(root, 0, f"{name}.npz")) as f:
+        st = {k.split("/", 1)[1]: torch.as_tensor(v) for k, v in f.items()
+              if k.startswith("sys/")}
+        counters = f["metropolis/counters"]
+    state = (lj.LJState if name == "lj" else poly.PolyState)(**st)
+    assert state.pos.shape == (4, 32, 2)
+    full = mod.total_energy(state, mod.LJParams() if name == "lj"
+                            else mod.PolyParams())
+    np.testing.assert_allclose(state.energy.numpy(), full.numpy(), **bounds)
+    assert np.all(counters[..., 1].sum(axis=1) == 8 * 32)
+    assert 0 < counters[..., 0].sum() < counters[..., 1].sum()
+    e = np.loadtxt(root / "runs" / name / "energy_per_particle.dat")
+    assert e.shape == (5, 2)
+    assert len(os.listdir(root / "runs" / name / "trajectories")) == 4
+
+
+def test_cell_path_plans_once_and_falls_back_together(runs):
+    root, _ = runs
+    res = [json.load(open(_result(root, r, "cell.json"))) for r in range(2)]
+    assert res[0]["plan"] == res[1]["plan"] != "None"
+    for r in res:
+        assert r["use_cell"] and not r["overflow"]
+        # rank 1 alone flagged an overflow; both fell back and finished
+        assert r["fell_back"] and r["warned"] and r["t"] == 4
+        assert r["attempts"] == [16]
+
+
+def test_resumed_two_rank_run_equals_uncut(runs, tmp_path):
+    root, _ = runs
+    with np.load(_result(root, 0, "resume_uncut.npz")) as a, \
+            np.load(_result(root, 0, "resume_resumed.npz")) as b:
+        assert sorted(a) == sorted(b)
+        assert a["sys/x"].shape == (16,)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    for r in range(2):
+        with np.load(_result(root, r, "resume_generators.npz")) as f:
+            assert f["equal"].all()
+    ckpt = str(root / "runs" / "uncut" / "checkpoints" / "ckpt_t20.npz")
+    for mesh in (None, make_mesh(device="cpu")):
+        sim = pgmc_sim(str(tmp_path / "one"), mesh)
+        with pytest.raises(ValueError, match="mesh of 2 rank"):
+            checkpoint.resume_state(sim, ckpt)
