@@ -124,20 +124,49 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
    one rank on ``nccl``: config 2 equals the one-rank emulation; 9d.
    config 5 resumed on two ranks from its sweep-100 backup equals the run;
    each path's wall on two ranks beside one process, the bytes gathered a
-   rank at each observe point, and the collectives' times.
+   rank at each observe point, and the collectives' times;
+10. event-chain MC and replica exchange (plain torch; the reference's
+   widths, the host-bound event loops cut in depth as the constants
+   ``ECMC_*`` name): 10a. hard-disk ECMC at ``tools/bench_ecmc.py 64
+   0.70`` (64 x N 64, chain length box/2, 8 events a step, 48 steps, not
+   400) with |psi6| every step, against MH: events/s,
+   no cap hit, no overlap, the tau of |psi6| under each (the port's
+   ``analysis``) and the card's busy share under ``torch.profiler``; 10b.
+   3-D hard spheres at ``tests/test_ecmc.py``'s size (16 x N 216, eta
+   0.35): the MKK pressure in 4-6; 10c. ``ReplicaExchange`` on the hybrid
+   stepper between segments of kernel #1 at config 2's width (2,500
+   ladders of beta 0.5, 1, 2, 4, a swap every 10 steps, 10^5 steps): each
+   beta's variance within 12 % of 1/(2 beta), every pair's swap rate above
+   0.05, one launch per segment; 10d. LJ ECMC at ``tools/bench_ecmc_lj.py``'s
+   two widths (N 64, rho 0.6, 64 and 512 chains): the MKK pressure within
+   8 % of the virial pressure, events/s, the tau of e/N under ECMC and MH
+   (MH's one-move pool on kernel #2); 10e. poly ECMC at
+   ``tests/test_ecmc_soft.py``'s size against MH in that test's band, both
+   6 steps from a configuration MH equilibrated;
+11. the lattice models (plain torch): 11a. checkerboard sweeps at
+   ``tools/bench_ising2d.py``'s defaults (1024 x 64^2, beta 0.44, 4 sweeps
+   a step, 200 steps): spin-flip attempts/s and the busy share; 11b. Wolff
+   and Swendsen-Wang at 64 x 64^2 near beta_c, their energies agreeing;
+   11c. every sampler (checkerboard, single flip, Wolff, SW, the Potts
+   samplers, the 1-D ring) at an exactly enumerable size against the exact
+   moments in its reference test's band; 11d. one step of each lattice
+   sampler, one replica-exchange call and one event of each ECMC hook on
+   the card and on the CPU from the same inputs and draws.
 
 Prints its findings on lines before the last, a ``{"kernels": [...]}``
 line (``ms`` and ``plain_ms`` per call at the main path's segment of
 ``steps`` steps; ``library_ms`` is null: no single PyTorch call computes a
 Metropolis sweep; ``entry_points`` names the unsharded and the sharded
 entry point that launch the kernel, ``launches`` counts both, of which
-``mesh_launches`` those of phase 9's ranks), and as the last line
+``mesh_launches`` those of phase 9's ranks; kernel #1's count includes
+phase 10c's segments, kernel #2's phase 10d's MH runs), and as the last line
 ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero without the last
 line.
 
 Usage: python3 chip_smoke.py [--parent CSRC_DIR] [--kernels-only]
-[--cell-only] [--npt-only] [--mesh-only] [--nccl-pair]
+[--cell-only] [--npt-only] [--mesh-only] [--ecmc-only] [--lattice-only]
+[--nccl-pair]
 
 ``--parent CSRC_DIR`` names a directory with an earlier version of
 ``fused_sweep.cu``, ``lj_sweep.cu`` and ``poly_sweep.cu`` (and their
@@ -150,7 +179,8 @@ kernels must equal the earlier ones bit for bit at every shape of phases 3
 and 4, the poly kernel where its block is one warp (N <= 32, the same sum
 order).  ``--kernels-only`` stops after phase 4b (and the comparison with
 ``--parent``); ``--cell-only`` runs phase 7 alone after the build,
-``--npt-only`` phase 8, ``--mesh-only`` phase 9.  ``--nccl-pair`` is no
+``--npt-only`` phase 8, ``--mesh-only`` phase 9, ``--ecmc-only`` phase
+10, ``--lattice-only`` phase 11.  ``--nccl-pair`` is no
 phase: after the build it starts two ``nccl`` ranks on the one card and
 prints what NCCL does with them.
 """
@@ -3047,6 +3077,649 @@ def nccl_pair(card):
             print(f"nccl pair: {e} [{card}]")
 
 
+# -- phase 10: event-chain MC and replica exchange (plain torch) ----------------------
+
+# Phase 10 runs the reference's widths; its depths are cut where named: the
+# event loop is bound by the host's launches (~60 an iteration, ~100
+# iterations an event at eta 0.70), ~1 s a step of 10a on the H100.
+# 10a: tools/bench_ecmc.py 64 0.70 (hard disks, N 64, chain length box/2, 8
+# events a step, |psi6| every step; MH with a 0.08 square displacement, a
+# sweep a step), 48 steps, not 400
+ECMC_HD = dict(chains=64, n=64, eta=0.70, events=8, steps=48, cap=512,
+               mh_delta=0.08)
+# 10b: tests/test_ecmc.py:151-180 (hard spheres, 16 x N 216, eta 0.35, 4
+# events a step), two runs of 24 steps, not 80
+ECMC_HS = dict(chains=16, n=216, eta=0.35, events=4, steps=24, cap=512)
+# 10c: config 2's width as 2,500 ladders of (0.5, 1, 2, 4), a swap every 10
+# steps, on the hybrid stepper over kernel #1
+TEMPERING = dict(ladders=2500, betas=(0.5, 1.0, 2.0, 4.0), every=10,
+                 steps=10 ** 5, record=1000, burn=10 ** 4)
+# 10d: tools/bench_ecmc_lj.py's two runs (N 64, rho 0.6, chain length 1.5,
+# 8 events a step, e/N and the virial pressure every step; MH with sigma
+# 0.25), 48 steps at 64 chains and 30 at 512, not 300, the first third a
+# burn-in run apart
+ECMC_LJ = dict(n=64, rho=0.6, ell=1.5, events=8, steps={64: 48, 512: 30},
+               mh_sigma=0.25)
+# 10e: tests/test_ecmc_soft.py:91's poly size (32 x N 64, rho 1.0, beta 2,
+# chain length 1.0, 8 events a step; MH displacement-only, sigma 0.12, two
+# sweeps a step): both continue 6 steps from one configuration that MH
+# brought to equilibrium in 24 (a poly iteration is ~500 launches), not
+# 200 steps each from the lattice
+ECMC_POLY = dict(chains=32, n=64, rho=1.0, beta=2.0, ell=1.0, events=8,
+                 burn=24, steps=6, mh_sigma=0.12)
+
+
+def _series(sim_path, name):
+    d = np.loadtxt(os.path.join(sim_path, f"{name}.dat"))
+    return d[1:, 1]
+
+
+def _busy_share(fn, card, what):
+    """The card's busy share over one call of ``fn`` under
+    ``torch.profiler``: the kernels' device time over the call's wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, busy = _launches_and_busy(prof)
+    share = busy / 1e6 / wall
+    print(f"profile: {what}: {launches} kernel launches, the card busy "
+          f"{busy / 1e3!r} ms of {wall * 1e3!r} ms wall under the profiler "
+          f"({100 * share!r} % busy) [{card}]")
+    check(launches > 0 and busy > 0, f"{what}: the profiler saw no launch")
+    return share
+
+
+def ecmc_hard_disks(tmc, root, card):
+    """10a: hard-disk ECMC at tools/bench_ecmc.py's size against MH, with
+    the tau of |psi6| under each."""
+    from montecarlo_tpu_torch.models import hard_disks as hd
+    from montecarlo_tpu_torch.utils.analysis import integrated_autocorr_time
+    c = ECMC_HD
+    box = float(hd.init_chains(1, c["n"], eta=c["eta"], seed=0).box[0])
+    ell = box / 2.0
+
+    def sim_of(algo, path):
+        chains = hd.init_chains(c["chains"], c["n"], eta=c["eta"], seed=42)
+        return tmc.Simulation(hd.make_system(), chains, [
+            algo,
+            dict(algorithm=tmc.StoreCallbacks, callbacks=(hd.callback_psi6,),
+                 scheduler=np.arange(1, c["steps"] + 1))],
+            c["steps"], path=path)
+
+    model = hd.ecmc_model(ell, max_events_per_chain=c["cap"])
+    ecmc = dict(algorithm=tmc.EventChain, model=model,
+                events_per_step=c["events"], seed=7)
+    sim_e = sim_of(ecmc, os.path.join(root, "ecmc_hd"))
+    wall_e = timed_run(sim_e)
+    stats = sim_e.device_state["ecmc"]["stats"]
+    ncoll = int(stats["collisions"].sum())
+    cap = int(stats["cap_hits"].sum())
+    ok = bool(hd.overlap_free(sim_e.device_state["sys"]).all())
+    p_e = float(hd.ecmc_pressure(stats, ell))
+    sim_m = sim_of(dict(algorithm=tmc.Metropolis,
+                        pool=(hd.displacement_move(c["mh_delta"]),),
+                        sweepstep=c["n"], seed=7),
+                   os.path.join(root, "mh_hd"))
+    wall_m = timed_run(sim_m)
+    cnt = sim_m.device_state["metropolis"]["counters"]
+    acc_m = float(cnt[..., 0].sum()) / float(cnt[..., 1].sum())
+    s_e, s_m = _series(sim_e.path, "psi6"), _series(sim_m.path, "psi6")
+    tau_e, tau_m = integrated_autocorr_time(s_e), integrated_autocorr_time(
+        s_m)
+    ess_e, ess_m = len(s_e) / tau_e / wall_e, len(s_m) / tau_m / wall_m
+    print(f"ecmc: hard disks {c['chains']} x N {c['n']}, eta {c['eta']}, "
+          f"chain length {ell!r}, {c['events']} events a step, "
+          f"{c['steps']} steps: {ncoll} collisions in {wall_e!r} s = "
+          f"{ncoll / wall_e!r} events/s with the |psi6| recorder, cap_hits "
+          f"{cap}, overlap-free {ok}, MKK pressure {p_e!r}; tau(|psi6|) "
+          f"{tau_e!r} steps, {ess_e!r} ESS/s [{card}]")
+    print(f"ecmc: MH on the same disks (delta {c['mh_delta']}, a sweep a "
+          f"step): {wall_m!r} s, acceptance {acc_m!r}, tau(|psi6|) "
+          f"{tau_m!r} steps, {ess_m!r} ESS/s; ECMC / MH ESS/s "
+          f"{ess_e / ess_m!r} [{card}]")
+    check(cap == 0, f"10a: {cap} event chains hit the iteration cap")
+    check(ok, "10a: ECMC left overlapping disks")
+    check(bool(hd.overlap_free(sim_m.device_state["sys"]).all()),
+          "10a: MH left overlapping disks")
+    check(np.isfinite(tau_e) and np.isfinite(tau_m) and tau_e > 0,
+          "10a: no finite tau")
+    check(0.01 < acc_m < 0.99, f"10a: MH acceptance {acc_m}")
+    # the card's busy share over 5 more steps of the same run
+    st = sim_e.device_state
+    alg = sim_e.device_algos[0]
+    share = _busy_share(lambda: alg.step(st, sim_e.steps + 1), card,
+                        f"hard-disk ECMC, one step of {c['events']} events")
+    return ncoll / wall_e, share
+
+
+def ecmc_hard_spheres(tmc, root, card):
+    """10b: 3-D hard spheres at tests/test_ecmc.py's size: the MKK pressure
+    in the reference's band (Carnahan-Starling 4.97)."""
+    from montecarlo_tpu_torch.models import hard_disks as hd
+    c = ECMC_HS
+    chains = hd.init_chains(c["chains"], c["n"], eta=c["eta"], seed=60,
+                            dim=3)
+    ell = float(chains.box[0]) / 2.0
+    model = hd.ecmc_model(ell, max_events_per_chain=c["cap"])
+    walls = []
+    for k in range(2):
+        sim = tmc.Simulation(hd.make_system(), chains, [
+            dict(algorithm=tmc.EventChain, model=model,
+                 events_per_step=c["events"], seed=9)],
+            c["steps"], path=os.path.join(root, f"ecmc_hs{k}"))
+        walls.append(timed_run(sim))
+        chains = sim.device_state["sys"]
+    stats = sim.device_state["ecmc"]["stats"]
+    p = float(hd.ecmc_pressure(stats, ell))
+    eta = c["eta"]
+    cs = (1 + eta + eta ** 2 - eta ** 3) / (1 - eta) ** 3
+    print(f"ecmc: hard spheres {c['chains']} x N {c['n']}, eta {eta}: MKK "
+          f"beta P / rho {p!r} (Carnahan-Starling {cs!r}), cap_hits "
+          f"{int(stats['cap_hits'].sum())}, walls {walls!r} s [{card}]")
+    check(int(stats["cap_hits"].sum()) == 0, "10b: cap hits")
+    check(bool((stats["collisions"] > 0).all()), "10b: a chain never hit")
+    check(bool(hd.overlap_free(chains).all()), "10b: overlapping spheres")
+    check(4.0 < p < 6.0, f"10b: MKK pressure {p} outside 4-6")
+
+
+def tempering_on_kernel(tmc, root, card, kernels):
+    """10c: replica exchange between fused segments of kernel #1 at config
+    2's width; returns the kernel's launches."""
+    import torch
+    from montecarlo_tpu_torch.core.simulation import _select_advance
+    from montecarlo_tpu_torch.models import particle1d as p1d
+    c = TEMPERING
+    t_n = len(c["betas"])
+    betas = tmc.tile_ladder(c["betas"], c["ladders"])
+    chains = p1d.init_chains(t_n * c["ladders"], beta=betas, seed=42)
+
+    def var_cb(k):
+        def cb(view):
+            return torch.mean(view.sys.x[k::t_n] ** 2)
+        cb.__name__ = f"callback_var{k}"
+        return cb
+
+    sim = tmc.Simulation(p1d.make_system(), chains, [
+        dict(algorithm=tmc.Metropolis,
+             pool=(p1d.displacement_move(sigma=1.0),), seed=42),
+        dict(algorithm=tmc.ReplicaExchange, n_temps=t_n, seed=5,
+             scheduler=np.arange(c["every"], c["steps"] + 1, c["every"])),
+        dict(algorithm=tmc.StoreCallbacks,
+             callbacks=[var_cb(k) for k in range(t_n)]
+             + [tmc.callback_swap_rate],
+             scheduler=np.arange(c["record"], c["steps"] + 1, c["record"]))],
+        c["steps"], path=os.path.join(root, "tempering"))
+    check("hybrid" in _select_advance(sim).__qualname__,
+          "10c: replica exchange did not take the hybrid stepper")
+    wall, counts = counted(kernels, lambda: timed_run(sim))
+    n = counts[kernels[0].symbol]
+    check(n == sync_points(sim) and sum(counts.values()) == n,
+          f"10c: {counts} for {sync_points(sim)} segments")
+    counters = sim.device_state["replica_exchange"]["counters"].cpu().numpy()
+    rate = counters[:, 0] / counters[:, 1]
+    variances = []
+    for k, beta in enumerate(c["betas"]):
+        d = np.loadtxt(os.path.join(sim.path, f"var{k}.dat"))
+        var = d[d[:, 0] > c["burn"], 1].mean()
+        variances.append(float(var))
+        check(abs(var - 1 / (2 * beta)) < 0.12 / (2 * beta),
+              f"10c: beta {beta} variance {var} outside 1/(2 beta) +- 12 %")
+    m = t_n * c["ladders"]
+    print(f"tempering: {m} chains as {c['ladders']} ladders of "
+          f"{c['betas']}, a swap every {c['every']} steps, {c['steps']} "
+          f"steps on the hybrid stepper: {wall!r} s, {m * c['steps'] / wall!r}"
+          f" steps/s, {n} launches of kernel #1; swap rates {rate.tolist()}, "
+          f"variances {variances} against {[1 / (2 * b) for b in c['betas']]}"
+          f" [{card}]")
+    check(bool(np.all(rate > 0.05)), f"10c: swap rates {rate}")
+    check(counters[:, 1].tolist()
+          == [c["steps"] // c["every"] // 2 * c["ladders"]] * (t_n - 1),
+          f"10c: attempts {counters[:, 1]}")
+    return n
+
+
+def ecmc_lj(tmc, root, card, kernels):
+    """10d: LJ ECMC at tools/bench_ecmc_lj.py's two widths, MKK pressure
+    beside the virial pressure, events/s, and the tau of e/N under ECMC and
+    under MH (the MH pool's one LJ displacement on kernel #2); returns the
+    kernel's launches."""
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.utils.analysis import integrated_autocorr_time
+    c = ECMC_LJ
+    n_kernel = 0
+    for m, steps in c["steps"].items():
+        burn = steps // 3
+
+        def sim_of(algo, name, chains, n_steps):
+            return tmc.Simulation(lj.make_system(), chains, [
+                algo,
+                dict(algorithm=tmc.StoreCallbacks,
+                     callbacks=(lj.callback_energy_per_particle,
+                                lj.callback_pressure),
+                     scheduler=np.arange(1, n_steps + 1))],
+                n_steps, path=os.path.join(root, f"{name}{m}"))
+
+        chains = lj.init_chains(m, c["n"], rho=c["rho"], beta=1.0,
+                                frac_b=0.0, seed=42)
+        ecmc = dict(algorithm=tmc.EventChain,
+                    model=lj.ecmc_model(c["ell"], max_events_per_chain=512),
+                    events_per_step=c["events"], seed=7)
+        # the MKK statistics and the virial's average over the same steps,
+        # after a burn-in run of a third of them
+        sim_b = sim_of(ecmc, "ecmc_lj_burn", chains, burn)
+        wall_b = timed_run(sim_b)
+        sim_e = sim_of(ecmc, "ecmc_lj", sim_b.device_state["sys"],
+                       steps - burn)
+        wall_e, counts = counted(kernels, lambda: timed_run(sim_e))
+        check(sum(counts.values()) == 0, f"10d: ECMC launched {counts}")
+        stats = sim_e.device_state["ecmc"]["stats"]
+        ncoll, cap = int(stats["collisions"].sum()), int(
+            stats["cap_hits"].sum())
+        p_e = 1.0 + float(stats["excess"].double().sum()) / (
+            float(stats["chains"].double().sum()) * c["ell"])
+        p_v = float(_series(sim_e.path, "pressure").mean()) / c["rho"]
+        sim_m = sim_of(dict(algorithm=tmc.Metropolis,
+                            pool=(lj.lj_displacement_move(c["mh_sigma"]),),
+                            sweepstep=c["n"], seed=7), "mh_lj", chains,
+                       steps)
+        wall_m, counts = counted(kernels, lambda: timed_run(sim_m))
+        n_kernel += counts[kernels[1].symbol]
+        s_e = _series(sim_e.path, "energy_per_particle")
+        s_m = _series(sim_m.path, "energy_per_particle")[burn:]
+        tau_e, tau_m = (integrated_autocorr_time(s_e),
+                        integrated_autocorr_time(s_m))
+        ess_e, ess_m = len(s_e) / tau_e / wall_e, len(s_m) / tau_m / wall_m
+        print(f"ecmc: LJ {m} x N {c['n']}, rho {c['rho']}, chain length "
+              f"{c['ell']}, {burn} + {steps - burn} steps: "
+              f"{ncoll / wall_e!r} events/s with the e/N and pressure "
+              f"recorders ({ncoll} in {wall_e!r} s; the burn-in "
+              f"{wall_b!r} s), cap_hits {cap}; MKK beta P / rho {p_e!r} "
+              f"against the virial's average over the same steps {p_v!r}; "
+              f"tau(e/N) ECMC {tau_e!r} steps ({ess_e!r} ESS/s), MH "
+              f"{tau_m!r} steps ({ess_m!r} ESS/s, {wall_m!r} s, {counts}); "
+              f"ECMC / MH ESS/s {ess_e / ess_m!r}; mean e/N ECMC "
+              f"{float(s_e.mean())!r} MH {float(s_m.mean())!r} [{card}]")
+        check(cap == 0, f"10d: {cap} cap hits at {m} chains")
+        check(abs(p_e - p_v) / abs(p_v) < 0.08,
+              f"10d: MKK {p_e} against virial {p_v}")
+        check(abs(s_e.mean() - s_m.mean()) < 0.05,
+              f"10d: e/N ECMC {s_e.mean()} against MH {s_m.mean()}")
+    return n_kernel
+
+
+def ecmc_poly(tmc, root, card):
+    """10e: polydisperse ECMC at tests/test_ecmc_soft.py:91's size against
+    displacement-only MH, in that test's band, both continuing from one
+    configuration MH brought to equilibrium."""
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    c = ECMC_POLY
+    mh = dict(algorithm=tmc.Metropolis,
+              pool=(poly.displacement_move(c["mh_sigma"]),),
+              sweepstep=2 * c["n"], seed=3)
+
+    def sim_of(algo, name, chains, steps, every):
+        return tmc.Simulation(poly.make_system(), chains, [
+            algo,
+            dict(algorithm=tmc.StoreCallbacks,
+                 callbacks=(poly.callback_energy_per_particle,),
+                 scheduler=np.arange(every, steps + 1, every))],
+            steps, path=os.path.join(root, name))
+
+    chains = poly.init_chains(c["chains"], c["n"], rho=c["rho"],
+                              beta=c["beta"], seed=1)
+    burn = sim_of(mh, "poly_burn", chains, c["burn"], 10)
+    wall_b = timed_run(burn)
+    start = burn.device_state["sys"]
+    sim_e = sim_of(dict(algorithm=tmc.EventChain,
+                        model=poly.ecmc_model(c["ell"]),
+                        events_per_step=c["events"], seed=2), "ecmc_poly",
+                   start, c["steps"], 1)
+    wall_e = timed_run(sim_e)
+    stats = sim_e.device_state["ecmc"]["stats"]
+    sim_m = sim_of({**mh, "seed": 4}, "mh_poly", start, c["steps"], 1)
+    wall_m = timed_run(sim_m)
+    tails = [_series(sim.path, "energy_per_particle")
+             for sim in (sim_e, sim_m)]
+    se = float(np.sqrt(sum(t.std() ** 2 / len(t) for t in tails)))
+    diff = float(abs(tails[0].mean() - tails[1].mean()))
+    ncoll = int(stats["collisions"].sum())
+    print(f"ecmc: poly {c['chains']} x N {c['n']}, {c['steps']} steps from "
+          f"{c['burn']} of MH ({wall_b!r} s): {ncoll / wall_e!r} events/s "
+          f"({wall_e!r} s), cap_hits {int(stats['cap_hits'].sum())}; e/N "
+          f"ECMC {float(tails[0].mean())!r} MH {float(tails[1].mean())!r} "
+          f"({wall_m!r} s), |difference| {diff!r} against 4 se + 0.02 = "
+          f"{4 * se + 0.02!r} [{card}]")
+    check(int(stats["cap_hits"].sum()) == 0, "10e: cap hits")
+    check(diff < 4 * se + 0.02, "10e: ECMC and MH energies disagree")
+
+
+def ecmc_phases(tmc, device, kernels, card):
+    """Phase 10: event-chain MC and replica exchange on the card; returns
+    the launches of kernels #1 (10c) and #2 (10d's MH)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as tmp:
+        ecmc_hard_disks(tmc, tmp, card)
+        ecmc_hard_spheres(tmc, tmp, card)
+        n1 = tempering_on_kernel(tmc, tmp, card, kernels)
+        n2 = ecmc_lj(tmc, tmp, card, kernels)
+        ecmc_poly(tmc, tmp, card)
+    print(f"phase 10: {time.perf_counter() - t0!r} s [{card}]")
+    return n1, n2
+
+
+# -- phase 11: the discrete lattice models (plain torch) ------------------------------
+
+# 11a: tools/bench_ising2d.py's defaults
+CHECKERBOARD = dict(chains=1024, size=64, beta=0.44, sweeps=4, steps=200)
+# 11b: Swendsen-Wang, then Wolff from its last configuration, at 64^2 near
+# beta_c
+CLUSTER = dict(chains=64, size=64, beta=0.44, steps=100, burn=50)
+
+
+def lattice_checkerboard(tmc, root, card):
+    """11a: checkerboard sweeps at tools/bench_ising2d.py's size; spin-flip
+    attempts per second and the card's busy share."""
+    import torch
+    from montecarlo_tpu_torch.models import ising2d
+    c = CHECKERBOARD
+    chains = ising2d.init_chains(c["chains"], c["size"], beta=c["beta"],
+                                 seed=42)
+    sim = tmc.Simulation(ising2d.make_system(), chains, [
+        dict(algorithm=ising2d.CheckerboardMetropolis, sweeps=c["sweeps"],
+             seed=42)], c["steps"], path=os.path.join(root, "checkerboard"))
+    wall = timed_run(sim)
+    attempts = c["chains"] * c["size"] ** 2 * c["sweeps"] * c["steps"]
+    st = sim.device_state["sys"]
+    e_spin = float(st.energy.mean()) / c["size"] ** 2
+    s = st.spins.float()
+    full = -(s * (s.roll(1, 1) + s.roll(1, 2))).sum(dim=(1, 2))
+    cnt = sim.device_state["checkerboard"]["counters"]
+    acc = float(cnt[..., 0].sum()) / float(cnt[..., 1].sum())
+    print(f"lattice: checkerboard {c['chains']} x {c['size']}^2, beta "
+          f"{c['beta']}, {c['sweeps']} sweeps a step, {c['steps']} steps: "
+          f"{wall!r} s, {attempts / wall!r} spin-flip attempts/s, "
+          f"acceptance {acc!r}, e/spin {e_spin!r} [{card}]")
+    check(bool(torch.equal(full, st.energy)), "11a: cached energies")
+    check(0.05 < acc < 0.95, f"11a: acceptance {acc}")
+    check(-1.6 < e_spin < -1.2, f"11a: e/spin {e_spin} at beta 0.44")
+    alg, ds = sim.device_algos[0], sim.device_state
+    share = _busy_share(lambda: alg.step(ds, c["steps"] + 1), card,
+                        f"checkerboard, one step of {c['sweeps']} sweeps")
+    return attempts / wall, share
+
+
+def lattice_clusters(tmc, root, card):
+    """11b: Swendsen-Wang and Wolff at 64^2 near beta_c: clusters/s, and
+    Wolff's energy, continued from SW's last configuration, against SW's
+    after its burn-in (a Wolff flip of a random start's small clusters
+    equilibrates far slower than a sweep)."""
+    import torch
+    from montecarlo_tpu_torch.models import ising2d
+    c = CLUSTER
+    out = {}
+    chains = ising2d.init_chains(c["chains"], c["size"], beta=c["beta"],
+                                 seed=11)
+    for name, algo, burn in (
+            ("swendsen_wang", dict(algorithm=ising2d.SwendsenWang, seed=3),
+             c["burn"]),
+            ("wolff", dict(algorithm=ising2d.WolffCluster, clusters=4,
+                           seed=3), 0)):
+        sim = tmc.Simulation(ising2d.make_system(), chains, [
+            algo,
+            dict(algorithm=tmc.StoreCallbacks,
+                 callbacks=(ising2d.callback_energy_per_spin,
+                            ising2d.callback_magnetisation),
+                 scheduler=np.arange(1, c["steps"] + 1))],
+            c["steps"], path=os.path.join(root, name))
+        wall = timed_run(sim)
+        chains = sim.device_state["sys"]
+        d = np.loadtxt(os.path.join(sim.path, "energy_per_spin.dat"))
+        e = d[d[:, 0] > burn, 1].mean()
+        cnt = sim.device_state[name]["counters"].cpu().numpy()
+        per = cnt[..., 0].sum() / cnt[..., 1].sum()
+        out[name] = e
+        print(f"lattice: {name} {c['chains']} x {c['size']}^2, beta "
+              f"{c['beta']}, {c['steps']} steps: {wall!r} s, "
+              f"{float(cnt[..., 1].sum()) / wall!r} {name} moves/s, mean "
+              f"{'cluster size' if name == 'wolff' else 'clusters a sweep'} "
+              f"{float(per)!r}, e/spin after step {burn} {float(e)!r} "
+              f"[{card}]")
+        s = chains.spins.float()
+        full = -(s * (s.roll(1, 1) + s.roll(1, 2))).sum(dim=(1, 2))
+        check(torch.equal(full, chains.energy),
+              f"11b: {name} cached energies")
+    check(abs(out["wolff"] - out["swendsen_wang"]) < 0.02,
+          f"11b: Wolff {out['wolff']} against SW {out['swendsen_wang']}")
+
+
+def lattice_exact(tmc, root, card):
+    """11c: every sampler at an exactly enumerable size on the card, each in
+    its reference test's band, at 512 chains (the reference tests' 128);
+    the host-bound paths cut in depth: the generic single-site paths 400
+    steps, not 2000, the Wolff samplers 600, not 1200, the 1-D ring 100
+    sweeps, not 3000."""
+    from montecarlo_tpu_torch.models import ising, ising2d, potts
+    cases = [
+        ("ising2d checkerboard", "i2", 4, None, 0.3,
+         dict(algorithm=ising2d.CheckerboardMetropolis, seed=11), 1500, 200,
+         0.02),
+        ("ising2d single flip", "i2", 4, None, 0.3,
+         dict(algorithm=tmc.Metropolis, pool=(ising2d.spin_flip_move(),),
+              sweepstep=16, seed=11), 400, 150, 0.03),
+        ("ising2d Wolff", "i2", 4, None, 0.44,
+         dict(algorithm=ising2d.WolffCluster, clusters=2, seed=29), 600,
+         100, 0.03),
+        ("ising2d SW, odd", "i2", 3, None, 0.4,
+         dict(algorithm=ising2d.SwendsenWang, seed=5), 900, 150, 0.03),
+        ("potts q3 SW", "p", 3, 3, 0.6,
+         dict(algorithm=potts.SwendsenWangPotts(3), seed=3), 900, 150, 0.03),
+        ("potts q3 Wolff", "p", 3, 3, 0.6,
+         dict(algorithm=potts.WolffPotts(3), clusters=4, seed=3), 600, 100,
+         0.03),
+        ("potts q2 checkerboard", "p", 4, 2, 0.5,
+         dict(algorithm=potts.CheckerboardPotts(2), seed=11), 1500, 300,
+         0.03),
+        ("potts q3 single recolour", "p", 3, 3, 0.5,
+         dict(algorithm=tmc.Metropolis, pool=(potts.color_flip_move(3),),
+              sweepstep=9, seed=11), 400, 150, 0.04),
+    ]
+    for what, fam, size, q, beta, algo, steps, burn, band in cases:
+        if fam == "i2":
+            chains = ising2d.init_chains(512, size, beta=beta, seed=7)
+            system = ising2d.make_system()
+            cbs = (ising2d.callback_energy_per_spin,
+                   ising2d.callback_magnetisation)
+            exact = ising2d.exact_moments(size, beta)
+            second = "magnetisation"
+        else:
+            chains = potts.init_chains(512, size, q=q, beta=beta, seed=7)
+            system = potts.make_system(q)
+            cbs = (potts.callback_energy_per_spin,
+                   potts.callback_order_parameter(q))
+            exact = potts.exact_moments(size, q, beta)
+            second = "order_parameter"
+        path = os.path.join(root, what.replace(" ", "_").replace(",", ""))
+        sim = tmc.Simulation(system, chains, [
+            algo,
+            dict(algorithm=tmc.StoreCallbacks, callbacks=cbs,
+                 scheduler=tmc.build_schedule(steps, burn, 1))],
+            steps, path=path)
+        wall = timed_run(sim)
+        e = float(np.loadtxt(os.path.join(path, "energy_per_spin.dat"))[
+            :, 1].mean())
+        m = float(np.loadtxt(os.path.join(path, f"{second}.dat"))[
+            :, 1].mean())
+        print(f"lattice: {what} {size}x{size}, beta {beta}, 512 chains, "
+              f"{steps} steps ({wall!r} s): e/spin {e!r} (exact "
+              f"{exact[0]!r}), {second} {m!r} (exact {exact[1]!r}) [{card}]")
+        check(abs(e - exact[0]) < band and abs(m - exact[1]) < band,
+              f"11c: {what} outside +-{band} of the exact moments")
+    n, beta = 64, 0.6
+    chains = ising.init_chains(512, n, beta=beta, seed=11)
+    sim = tmc.Simulation(ising.make_system(), chains, [
+        dict(algorithm=tmc.Metropolis, pool=(ising.spin_flip_move(),),
+             sweepstep=n, seed=11)], 100, path=os.path.join(root, "ising1d"))
+    wall = timed_run(sim)
+    e = float(sim.device_state["sys"].energy.mean()) / n
+    exact = ising.exact_energy_per_spin(beta, n)
+    print(f"lattice: 1-D ring N {n}, beta {beta}, 512 chains, 100 sweeps "
+          f"({wall!r} s): e/spin {e!r} (transfer matrix {exact!r}) [{card}]")
+    check(abs(e - exact) < 0.03, "11c: the 1-D ring off its exact energy")
+
+
+class _RecordedEventDraws:
+    """Event draws made on the CPU from a generator and recorded, so that
+    the card replays the very numbers the CPU used."""
+
+    def __init__(self, m, seed):
+        import torch
+        from montecarlo_tpu_torch.core.ecmc import GeneratorEventDraws
+        self.src = GeneratorEventDraws(torch.Generator().manual_seed(seed),
+                                       seed + 1, m, "cpu")
+        self.log = []
+
+    def __getattr__(self, name):        # start, uniform, bernoulli, ...
+        fn = getattr(self.src, name)
+
+        def call(*args):
+            self.log.append(fn(*args))
+            return self.log[-1]
+        return call
+
+    def replay(self, device):
+        return _EventReplay(self.log, device)
+
+
+class _EventReplay:
+    """The recorded draws in turn, on ``device``."""
+
+    def __init__(self, log, device):
+        self.log, self.device, self.i = log, device, 0
+
+    def _next(self, *args):
+        check(self.i < len(self.log), "11d: the card asked for more draws "
+                                      "than the CPU made")
+        v = self.log[self.i]
+        self.i += 1
+        return tuple(x.to(self.device) for x in v) if isinstance(
+            v, tuple) else v.to(self.device)
+
+    start = uniform = bernoulli = thresholds = _next
+
+
+def lattice_card_vs_cpu(device, card):
+    """11d: one step of each sampler on the card and on the CPU from the
+    same inputs and the same draws: the lattice steps and the swap equal
+    bit for bit, each ECMC hook within 1e-4 with its counts equal."""
+    import torch
+    from montecarlo_tpu_torch.core.tempering import (partner_permutations,
+                                                     swap, tile_ladder)
+    from montecarlo_tpu_torch.models import hard_disks as hd
+    from montecarlo_tpu_torch.models import ising2d
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.models import particle1d as p1d
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    from montecarlo_tpu_torch.models import potts
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(3)
+    m, size, q = 64, 32, 3
+
+    def on(t, dev):
+        return dataclasses.replace(t, **{f.name: getattr(t, f.name).to(dev)
+                                         for f in dataclasses.fields(t)})
+
+    def same(a, b, what):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name).cpu(), getattr(b, f.name).cpu()
+            check(torch.equal(x, y), f"11d: {what}: {f.name} differs")
+
+    u = lambda *s: torch.rand(s, generator=gen)
+    ri = lambda hi, *s: torch.randint(0, hi, s, generator=gen)
+    i2 = ising2d.init_chains(m, size, beta=0.44, seed=1, device=cpu)
+    pt = potts.init_chains(m, size, q=q, beta=1.0, seed=1, device=cpu)
+    steps = [
+        ("ising2d checkerboard sweep", ising2d.checkerboard_sweep, i2,
+         (u(m, size, size), u(m, size, size))),
+        ("ising2d Wolff step", ising2d.wolff_step, i2,
+         (u(m, size, size), u(m, size, size), ri(size * size, m))),
+        ("ising2d SW step", ising2d.swendsen_wang_step, i2,
+         (u(m, size, size), u(m, size, size),
+          2 * (u(m, size * size) < 0.5).to(torch.int8) - 1)),
+        ("potts checkerboard sweep",
+         lambda s, *a: potts.checkerboard_sweep(s, q, *a), pt,
+         (ri(q - 1, m, size, size), u(m, size, size),
+          ri(q - 1, m, size, size), u(m, size, size))),
+        ("potts Wolff step", lambda s, *a: potts.wolff_step(s, q, *a), pt,
+         (u(m, size, size), u(m, size, size), ri(size * size, m),
+          ri(q - 1, m))),
+        ("potts SW step", lambda s, *a: potts.swendsen_wang_step(s, q, *a),
+         pt, (u(m, size, size), u(m, size, size), ri(q, m, size * size))),
+    ]
+    for what, fn, st, draws in steps:
+        a, na = fn(st, *draws)
+        b, nb = fn(on(st, device), *(d.to(device) for d in draws))
+        same(a, b, what)
+        check(torch.equal(na, nb.cpu()), f"11d: {what}: counts differ")
+    p1 = p1d.init_chains(m, beta=tile_ladder([0.5, 1.0, 2.0, 4.0], m // 4),
+                         seed=2, device=cpu)
+    perm = torch.as_tensor(partner_permutations(m, 4)[1])
+    uu = u(m)
+    log_t = p1d.make_system().log_target
+    a, ia = swap(p1, perm, uu, log_t, ("beta",), 4)
+    b, ib = swap(on(p1, device), perm.to(device), uu.to(device), log_t,
+                 ("beta",), 4)
+    same(a, b, "replica exchange swap")
+    check(torch.equal(ia, ib.cpu()), "11d: swap counters differ")
+    worst = 0.0
+    for what, st, model in (
+            ("hard disks", hd.init_chains(m, 64, eta=0.7, seed=3,
+                                          device=cpu),
+             hd.ecmc_model(4.0, max_events_per_chain=512)),
+            ("LJ", lj.init_chains(m, 64, rho=0.6, beta=1.0, frac_b=0.2,
+                                  seed=3, device=cpu), lj.ecmc_model(1.5)),
+            ("poly", poly.init_chains(m, 64, rho=1.0, beta=2.0, seed=3,
+                                      device=cpu), poly.ecmc_model(1.0)),
+            ("zigzag", p1d.init_chains(m, beta=2.0, seed=3, device=cpu),
+             p1d.zigzag_model())):
+        rec = _RecordedEventDraws(m, 5)
+        lift = {"v": torch.ones(m)} if what == "zigzag" else {}
+        a, _, sa = model.event_step(st, lift, rec)
+        b, _, sb = model.event_step(
+            on(st, device), {k: v.to(device) for k, v in lift.items()},
+            rec.replay(device))
+        for f in dataclasses.fields(a):
+            err = float((getattr(a, f.name) - getattr(b, f.name).cpu()).abs()
+                        .max())
+            worst = max(worst, err)
+            check(err < 1e-4, f"11d: {what} event: {f.name} off by {err}")
+        for k, v in sa.items():
+            if v.dtype == torch.int32:
+                check(torch.equal(v, sb[k].cpu()), f"11d: {what}: {k}")
+    print(f"lattice: card against CPU, same inputs and draws: 6 lattice "
+          f"steps and a replica-exchange call equal bit for bit; one event "
+          f"of each ECMC hook, counts equal, positions within {worst!r} "
+          f"[{card}]")
+
+
+def lattice_phases(tmc, device, kernels, card):
+    """Phase 11: the lattice models on the card; no kernel is launched."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as tmp:
+        _, counts = counted(kernels, lambda: (
+            lattice_checkerboard(tmc, tmp, card),
+            lattice_clusters(tmc, tmp, card),
+            lattice_exact(tmc, tmp, card)))
+        check(sum(counts.values()) == 0, f"phase 11 launched {counts}")
+        lattice_card_vs_cpu(device, card)
+    print(f"phase 11: {time.perf_counter() - t0!r} s [{card}]")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", metavar="CSRC_DIR", default=None,
@@ -3063,6 +3736,12 @@ def main():
     parser.add_argument("--mesh-only", action="store_true",
                         help="after the build, run only phase 9 (the chain "
                              "mesh)")
+    parser.add_argument("--ecmc-only", action="store_true",
+                        help="after the build, run only phase 10 (event-"
+                             "chain MC and replica exchange)")
+    parser.add_argument("--lattice-only", action="store_true",
+                        help="after the build, run only phase 11 (the "
+                             "lattice models)")
     parser.add_argument("--nccl-pair", action="store_true",
                         help="after the build, only try two nccl ranks on "
                              "the one card and print what NCCL does (not a "
@@ -3120,6 +3799,14 @@ def main():
     if opts.mesh_only:
         mesh_phases(tmc, device, kernels, card)
         print("chip_smoke: --mesh-only: stopping after phase 9")
+        return 0
+    if opts.ecmc_only:
+        ecmc_phases(tmc, device, kernels, card)
+        print("chip_smoke: --ecmc-only: stopping after phase 10")
+        return 0
+    if opts.lattice_only:
+        lattice_phases(tmc, device, kernels, card)
+        print("chip_smoke: --lattice-only: stopping after phase 11")
         return 0
     if opts.nccl_pair:
         nccl_pair(card)
@@ -3297,6 +3984,12 @@ def main():
     npt_phases(tmc, device, kernels, card)
     # 9. the chain mesh: the sharded entry points, ranks on the one card
     mesh_err, mesh_launches = mesh_phases(tmc, device, kernels, card)
+    # 10. event-chain MC and replica exchange, the latter on kernel #1
+    n_tempering, n_mh_lj = ecmc_phases(tmc, device, kernels, card)
+    launches["fused_gaussian_sweep"] += n_tempering
+    launches["fused_lj_sweep"] += n_mh_lj
+    # 11. the lattice models: no kernel launched
+    lattice_phases(tmc, device, kernels, card)
 
     m2 = CONFIG2_CHAINS
     specs = [(

@@ -7,11 +7,18 @@ CUDA C++ for NVIDIA Hopper (``csrc/``).  Importing it needs neither ``jax``
 nor ``nvcc``: each kernel is compiled at its first launch.
 
 The public names are the ported subset of ``montecarlo_tpu``'s.  The model
-families are ``montecarlo_tpu_torch.models`` (particle-1d, 2-D Lennard-Jones,
-2-D polydisperse soft spheres, 2-D hard disks); the checkerboard cell-MC
-path for large N is ``montecarlo_tpu_torch.ops.cell_mc``, which
-``Metropolis(fused='cell')`` (or ``'auto'`` at large N) drives, in plain
-PyTorch.  ``montecarlo_tpu_torch.parallel`` splits the chains over
+families are ``montecarlo_tpu_torch.models``: particle-1d, Lennard-Jones,
+polydisperse soft spheres and hard disks (2-D and 3-D), and the lattice
+models ``ising`` (1-D ring), ``ising2d`` and ``potts`` with their
+checkerboard, Wolff and Swendsen-Wang samplers over
+``montecarlo_tpu_torch.ops.cluster`` (connected-component labelling).  The
+checkerboard cell-MC path for large N is ``montecarlo_tpu_torch.ops.cell_mc``,
+which ``Metropolis(fused='cell')`` (or ``'auto'`` at large N) drives.
+``EventChain`` (``core/ecmc.py``) runs event-chain MC on the particle
+models' ``ecmc_model`` hooks, ``ReplicaExchange`` (``core/tempering.py``)
+swaps configurations along temperature ladders, and ``analysis``
+(``utils/analysis.py``) holds the time-series estimators.  These run in
+plain PyTorch.  ``montecarlo_tpu_torch.parallel`` splits the chains over
 ``torch.distributed`` ranks (``Simulation(mesh=...)``).
 """
 
@@ -25,7 +32,10 @@ from .core.algorithms import (Algorithm, DeviceAlgorithm, HostAlgorithm,
                               load_chain_major_trajectories, StoreLastFrames,
                               StoreBackups, PrintTimeSteps)
 from .core.simulation import Simulation, build_schedule, run
+from .core.tempering import ReplicaExchange, callback_swap_rate, tile_ladder
+from .core.ecmc import EventChain, EventChainModel, ecmc_callbacks
 from .utils.observability import ProfilerTrace, Throughput
+from .utils import analysis
 from . import checkpoint
 from . import interop
 from . import models
@@ -44,6 +54,8 @@ __all__ = [
     "StoreCallbacks", "StoreTrajectories", "load_chain_major_trajectories",
     "StoreLastFrames", "StoreBackups", "PrintTimeSteps",
     "Simulation", "build_schedule", "run",
-    "Throughput", "ProfilerTrace", "checkpoint", "interop", "parallel",
-    "policy_guided",
+    "ReplicaExchange", "tile_ladder", "callback_swap_rate",
+    "EventChain", "EventChainModel", "ecmc_callbacks",
+    "Throughput", "ProfilerTrace", "analysis", "checkpoint", "interop",
+    "parallel", "policy_guided",
 ]

@@ -5,11 +5,20 @@ both from the same state, one's chains are carried over to the other as
 numpy arrays.  Nothing here imports ``jax``: the JAX side converts its
 arrays with ``np.asarray``.
 
-Four families are carried: particle-1d (``x``, ``beta``, ``e``),
+Seven families are carried: particle-1d (``x``, ``beta``, ``e``),
 Lennard-Jones (``pos``, ``species``, ``beta``, ``energy``, ``box``),
 polydisperse soft spheres (``pos``, ``diam``, ``beta``, ``energy``,
-``box``) and hard disks or spheres (``pos``, ``box``); the particle
-families in 2-D or 3-D, the dimension being the last axis of ``pos``.
+``box``), hard disks or spheres (``pos``, ``box``), and the lattice states
+of the 1-D and 2-D Ising and Potts models (``spins``, ``beta``, ``j``,
+``energy``); the particle families in 2-D or 3-D, the dimension being the
+last axis of ``pos``.  The three lattice states share their fields, so for
+them the class is named (``cls=``) rather than told from the fields.
+
+Device-state slices are carried too (:func:`slice_from_reference`,
+:func:`slice_to_reference`): the ``ecmc`` slice of ``EventChain`` (``lift``,
+``stats``, ``n_events``) and the ``replica_exchange`` slice (``calls``,
+``counters``).  The reference's threefry keys are not carried: the port's
+generators stay its own.
 """
 
 from __future__ import annotations
@@ -19,48 +28,98 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .core.algorithms import to_numpy
 from .models.hard_disks import HardDiskState
+from .models.ising import IsingState
+from .models.ising2d import Ising2DState
 from .models.lennard_jones import LJState
 from .models.particle1d import Particle1DState
 from .models.polydisperse import PolyState
+from .models.potts import PottsState
 from .utils.device import resolve_device
+from .utils.tree import tree_map
 
-__all__ = ["chains_from_reference", "chains_to_reference"]
+__all__ = ["chains_from_reference", "chains_to_reference",
+           "slice_from_reference", "slice_to_reference"]
 
+_LATTICE = ("spins", "beta", "j", "energy")
 _FIELDS = {Particle1DState: ("x", "beta", "e"),
            LJState: ("pos", "species", "beta", "energy", "box"),
            PolyState: ("pos", "diam", "beta", "energy", "box"),
-           HardDiskState: ("pos", "box")}
-_INT_FIELDS = ("species",)
+           HardDiskState: ("pos", "box"),
+           IsingState: _LATTICE, Ising2DState: _LATTICE,
+           PottsState: _LATTICE}
+_DTYPES = {"species": np.int32, "spins": np.int8}
+
+#: the tensors of a device-state slice that are carried, by state key
+_SLICES = {"ecmc": ("lift", "stats", "n_events"),
+           "replica_exchange": ("calls", "counters")}
 
 
-def chains_from_reference(np_state, device=None):
+def chains_from_reference(np_state, device=None, cls=None):
     """The JAX package's chains, given as a mapping (or an object with
     attributes) of chain-stacked arrays, as this package's state on
-    ``device`` (the card, ``cuda``, when None), told apart by their fields: a
-    :class:`PolyState` when there is a ``diam`` field, an :class:`LJState`
-    when there is a ``species`` field, a :class:`HardDiskState` when there
-    is a ``pos`` field and neither of those, else a
-    :class:`Particle1DState`.  Labels stay int32, everything else becomes
-    float32."""
+    ``device`` (the card, ``cuda``, when None).
+
+    ``cls`` names the state class; it must be named for the lattice states
+    (:class:`IsingState`, :class:`Ising2DState`, :class:`PottsState`), whose
+    fields are the same.  Without it the class is told apart by the fields:
+    a :class:`PolyState` when there is a ``diam`` field, an
+    :class:`LJState` when there is a ``species`` field, a
+    :class:`HardDiskState` when there is a ``pos`` field and neither of
+    those, a :class:`Particle1DState` when there is an ``x`` field.
+    Species stay int32 and spins int8; everything else becomes float32."""
     if isinstance(np_state, Mapping):
         get, has = np_state.__getitem__, np_state.__contains__
     else:
         get = lambda k: getattr(np_state, k)
         has = lambda k: hasattr(np_state, k)
     device = resolve_device(device)
-    cls = (PolyState if has("diam") else LJState if has("species")
-           else HardDiskState if has("pos") else Particle1DState)
+    if cls is None:
+        if has("spins"):
+            raise ValueError(
+                "the Ising, 2-D Ising and Potts states share their fields: "
+                "name the class (cls=IsingState, Ising2DState or PottsState)")
+        cls = (PolyState if has("diam") else LJState if has("species")
+               else HardDiskState if has("pos") else Particle1DState)
+    elif cls not in _FIELDS:
+        raise ValueError(f"no carried state class {cls!r}")
     return cls(**{
-        k: torch.as_tensor(np.array(get(k), dtype=np.int32
-                                    if k in _INT_FIELDS else np.float32),
+        k: torch.as_tensor(np.array(get(k), dtype=_DTYPES.get(k, np.float32)),
                            device=device)
         for k in _FIELDS[cls]})
 
 
 def chains_to_reference(state) -> dict:
     """The inverse: the state's fields as numpy arrays, for the JAX
-    package's ``Particle1DState(**...)``, ``LJState(**...)``,
-    ``PolyState(**...)`` or ``HardDiskState(**...)``."""
+    package's state class of the same name (``Particle1DState(**...)``,
+    ``Ising2DState(**...)`` and so on)."""
     return {k: getattr(state, k).detach().cpu().numpy()
             for k in _FIELDS[type(state)]}
+
+
+def slice_from_reference(key: str, np_slice, like):
+    """The JAX package's device-state slice ``key`` (``"ecmc"`` or
+    ``"replica_exchange"``, a mapping of arrays and dicts of arrays) as this
+    package's, on the devices and with the dtypes of ``like`` (the port's
+    own slice, e.g. ``sim.init_device_state()[key]``), whose generator it
+    keeps."""
+    if key not in _SLICES:
+        raise ValueError(f"no carried slice {key!r}; carried: "
+                         f"{sorted(_SLICES)}")
+    out = dict(like)
+    for name in _SLICES[key]:
+        out[name] = tree_map(
+            lambda mine, ref: torch.as_tensor(np.array(ref)).to(
+                device=mine.device, dtype=mine.dtype),
+            like[name], np_slice[name])
+    return out
+
+
+def slice_to_reference(key: str, slc) -> dict:
+    """The inverse: the carried tensors of the port's slice ``key`` as numpy
+    arrays, the generator left out (the reference's keys are its own)."""
+    if key not in _SLICES:
+        raise ValueError(f"no carried slice {key!r}; carried: "
+                         f"{sorted(_SLICES)}")
+    return {name: to_numpy(slc[name]) for name in _SLICES[key]}

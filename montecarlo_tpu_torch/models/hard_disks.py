@@ -5,12 +5,11 @@ Port of ``montecarlo_tpu/models/hard_disks.py``: disks or spheres of
 diameter 1 in a periodic square or cubic box, sampled by the generic
 Metropolis path (:func:`displacement_move`: a uniform square proposal, any
 overlap a certain rejection; :func:`volume_move`: the hard-core NPT ln-V
-move) or, at large N, by the checkerboard cell-MC path
-(:func:`cell_closures`: the hard core as an infinite energy wall).  Every
-function works on all chains at once: positions are one (M, N, dim) tensor.
-:func:`psi6` stays 2-D, as in the reference.
-
-Event-chain MC (``ecmc_model``, ``ecmc_pressure``) is not ported yet.
+move), at large N by the checkerboard cell-MC path (:func:`cell_closures`:
+the hard core as an infinite energy wall), or by straight event chains
+(:func:`ecmc_model`, with the pressure estimator :func:`ecmc_pressure`).
+Every function works on all chains at once: positions are one (M, N, dim)
+tensor.  :func:`psi6` stays 2-D, as in the reference.
 """
 
 from __future__ import annotations
@@ -20,6 +19,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.ecmc import (CHECK_EVERY, EventChainModel, StraightChain,
+                         run_chain, squared_norm)
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
 from ..utils.device import resolve_device
@@ -37,6 +38,8 @@ __all__ = [
     "psi6",
     "callback_psi6",
     "cell_closures",
+    "ecmc_model",
+    "ecmc_pressure",
 ]
 
 _DIAM = 1.0          # disk diameter (unit of length)
@@ -277,3 +280,92 @@ def volume_move(dlnv: float, beta_pressure: float,
     return Move(move=md,
                 params={"dlnv": torch.tensor(dlnv, dtype=torch.float32)},
                 weight=weight)
+
+
+# -- straight event-chain model ---------------------------------------------
+
+def ecmc_model(chain_length: float, max_events_per_chain: int = 256,
+               check_every: int = CHECK_EVERY) -> EventChainModel:
+    """Straight event chains along the +axis directions (2-D or 3-D: the
+    collision geometry only uses the squared perpendicular distance
+    ``w2 = r0^2 - along^2``).
+
+    One ``event_step`` runs one full chain on every chain: a fresh (active
+    disk, direction) pair is drawn, then the active disk slides and the
+    lifting transfers at collisions until the chain's displacement reaches
+    ``chain_length``.  Per collision the distances ``s_j`` to every disk
+    along the direction are one O(N) pass — ``s_j = u_j - sqrt(1 - w_j^2)``
+    with ``u`` forward-wrapped and ``w`` min-imaged — and a masked min.
+    ``max_events_per_chain`` bounds the loop; a chain that hits it stops
+    early and counts a ``cap_hits``.  ``check_every`` is the loop's
+    :func:`~montecarlo_tpu_torch.core.ecmc.event_loop` interval; it changes
+    no result.
+
+    Statistics: ``t`` (displacement), ``chains``, ``collisions``,
+    ``cap_hits`` and ``excess``, the sum of projected contact separations
+    sqrt(1 - w^2) over collisions, for the pressure estimator
+    beta P / rho = 1 + <excess per chain> / chain_length
+    (:func:`ecmc_pressure`)."""
+
+    def init_lift(state, draws):
+        return {}          # the lifting variables are drawn per chain
+
+    def event_step(state, lift, draws):
+        pos0, box = state.pos, state.box
+        n, dim = pos0.shape[1:]
+        a0, d = draws.start(n, dim)
+        geo = StraightChain(pos0, d, box)
+
+        def body(carry, i):
+            pos, a, budget, ncoll, niter, excess = carry
+            mask_a, p, rel = geo.active(pos, a)
+            along = geo.along(rel)
+            relm = geo.min_image(rel)
+            alongm = geo.along(relm)
+            w2 = torch.clamp(squared_norm(relm) - alongm * alongm, min=0.0)
+            u = torch.remainder(along, geo.box)            # forward-wrapped
+            hittable = ~mask_a & (w2 < _DIAM * _DIAM)
+            root = torch.sqrt(torch.clamp(_DIAM * _DIAM - w2, min=0.0))
+            s_j = u - root
+            # a partner whose s_j rounds to just below 0 is an immediate
+            # collision, not one a period later: wrapping it would let the
+            # active disk tunnel through (the reference's contact epsilon)
+            s_j = torch.where(s_j < -1e-5, s_j + geo.box,
+                              torch.clamp(s_j, min=0.0))
+            s_j = torch.where(hittable, s_j, torch.inf)
+            s_min, j_star = geo.first_hit(s_j)
+            hit = s_min < budget
+            s = torch.minimum(s_min, budget)
+            pos = geo.advance(pos, mask_a, p, s)
+            a = torch.where(hit, j_star, a)
+            excess = excess + torch.where(hit, geo.at(root, j_star), 0.0)
+            return (pos, a, budget - s, ncoll + hit.to(torch.int32),
+                    niter + 1, excess)
+
+        pos, stats = run_chain(body, pos0, a0, chain_length,
+                               max_events_per_chain, check_every)
+        return dataclasses.replace(state, pos=pos), lift, stats
+
+    return EventChainModel(init_lift=init_lift, event_step=event_step,
+                           name="HardDiskStraightECMC")
+
+
+def ecmc_pressure(stats, chain_length: float, burn_excess=None,
+                  burn_chains=None):
+    """Reduced pressure beta P / rho from accumulated ECMC statistics:
+    ``1 + <excess per chain> / chain_length`` (Michel, Kapfer & Krauth
+    2014), summed in float64.  Pass the ``ecmc`` slice's ``stats`` (tensors
+    or arrays); to discard equilibration, subtract a snapshot
+    (``burn_excess``, ``burn_chains``) taken at the end of the burn-in."""
+
+    def total(x):
+        if torch.is_tensor(x):
+            x = x.detach().cpu().numpy()
+        return np.asarray(x, np.float64).sum()
+
+    excess = total(stats["excess"])
+    chains = total(stats["chains"])
+    if burn_excess is not None:
+        excess -= total(burn_excess)
+        chains -= total(burn_chains)
+    return 1.0 + excess / (chains * chain_length)

@@ -10,7 +10,8 @@ function works on all chains at once: positions are one (M, N, dim) tensor,
 and the spatial dimension is read from it (``init_chains(dim=3)`` gives
 3-D states).
 
-Event-chain MC is not ported yet.
+Straight event chains with exact factor events (:func:`ecmc_model`) run
+under :class:`~montecarlo_tpu_torch.core.ecmc.EventChain`.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import functools
 import numpy as np
 import torch
 
+from ..core.ecmc import (CHECK_EVERY, EventChainModel, StraightChain,
+                         run_chain, squared_norm)
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
 from ..utils.device import resolve_device
@@ -39,6 +42,7 @@ __all__ = [
     "callback_pressure",
     "callback_density",
     "cell_closures",
+    "ecmc_model",
 ]
 
 
@@ -536,3 +540,141 @@ def callback_density(view):
     """Mean number density N / V over chains (NPT observable)."""
     n, d = view.sys.pos.shape[-2:]
     return torch.mean(n / view.sys.box ** d)
+
+
+# ---------------------------------------------------------------------------
+# Event-chain MC for the soft LJ potential (exact factor events)
+# ---------------------------------------------------------------------------
+
+def ecmc_model(chain_length: float, params: LJParams = LJParams(),
+               max_events_per_chain: int = 512,
+               check_every: int = CHECK_EVERY):
+    """Straight event chains for the truncated-and-shifted LJ mixture.
+
+    Factorized-Metropolis ECMC (Peters & de With 2012; Michel, Kapfer &
+    Krauth 2014): each pair (i, j) is a factor whose event fires when the
+    cumulative uphill energy of that pair along the active particle's path
+    reaches an Exp(1)/beta threshold.  For straight-line motion past a
+    radial potential the uphill energy is piecewise monotone in r, and the
+    truncated-shifted LJ inverts in closed form on each branch
+    (``4 eps (y^2 - y - c0) = v`` with ``y = (sigma/r)^6`` is a quadratic),
+    so one O(N) pass per iteration gives every factor's exact event
+    distance:
+
+    - approach (along > 0): the most uphill is ``E1 = u(b) - u(a1)`` with
+      impact parameter ``b`` and ``a1 = min(r0, r_m)``, ``r_m = 2^(1/6)
+      sigma``; a threshold below E1 fires on the core branch at
+      ``s = along - sqrt(r_ev^2 - w^2)``;
+    - recede: the climb out of the well from ``a2 = max(b or r0, r_m)`` to
+      the cutoff, ``E2 = -u(a2)``, fires on the outer branch at
+      ``s = along + sqrt(r_ev^2 - w^2)``;
+    - otherwise the factor cannot fire before the pair leaves range.
+
+    An iteration's advance is capped at ``box/2 - rcut`` so min-image
+    coordinates stay unambiguous; drawing the thresholds anew after an
+    advance with no event is exact by the memorylessness of the
+    exponential.  The lifting transfers to the arg-min factor.  The cached
+    ``state.energy`` is not tracked (the system's ``refresh`` revalidates it
+    at every observation point).  ``check_every`` is the loop's
+    :func:`~montecarlo_tpu_torch.core.ecmc.event_loop` interval; it changes
+    no result.
+
+    Statistics: ``t``, ``chains``, ``collisions`` (lifting transfers),
+    ``cap_hits`` (keep at 0) and ``excess``, the sum of signed
+    along-direction separations at lifting events, for the pressure
+    estimator ``beta P / rho = 1 + <excess per chain> / chain_length``."""
+
+    rcut_max = params.rcut * float(np.max(np.asarray(params.sig)))
+    xc2 = 1.0 / (params.rcut * params.rcut)     # (sigma / rcut_ij)^2
+    xc6 = xc2 * xc2 * xc2
+    # u_ts(r) = 4 eps [(sig/r)^12 - (sig/r)^6] - c_eps,  c_eps = 4 eps c0
+    c0 = xc6 * xc6 - xc6                        # (negative) shift / (4 eps)
+
+    def u_ts(r2, eps, sig):
+        """Truncated-shifted LJ on squared distance, no cutoff gate."""
+        q = sig * sig / torch.clamp(r2, min=1e-12)
+        y = q * q * q
+        return 4.0 * eps * (y * y - y - c0)
+
+    def event_step(state, lift, draws):
+        pos0, box, beta = state.pos, state.box, state.beta
+        n, dim = pos0.shape[1:]
+        # the advance cap keeps min-image coordinates unambiguous; a box
+        # below 2 rcut_max deadlocks into the iteration cap (cap_hits)
+        s_cap = torch.clamp(box / 2.0 - rcut_max, min=0.0)
+        a0, d = draws.start(n, dim)
+        geo = StraightChain(pos0, d, box)
+
+        def body(carry, i):
+            pos, a, budget, ncoll, niter, excess = carry
+            mask_a, p, rel = geo.active(pos, a)
+            s_a = geo.at(state.species, a)
+            rel = geo.min_image(rel)                       # signed
+            along = geo.along(rel)
+            r0sq = squared_norm(rel)
+            w2 = torch.clamp(r0sq - along * along, min=0.0)
+            r0 = torch.sqrt(r0sq)
+            b = torch.sqrt(w2)
+
+            eps, sig = params.coeffs(s_a[:, None], state.species)
+            r_m = (2.0 ** (1.0 / 6.0)) * sig
+            rc = params.rcut * sig
+            u_rm = 4.0 * eps * (-0.25 - c0)               # u_ts at r_m
+
+            approaching = along > 0.0
+            d_e = -torch.log(draws.thresholds(i, n)) / beta[:, None]
+
+            # approach branch: uphill from a1 = min(r0, r_m) down to b
+            a1 = torch.minimum(r0, r_m)
+            u_a1 = torch.where(r0 < r_m, u_ts(r0 * r0, eps, sig), u_rm)
+            e1_max = torch.where(approaching & (b < a1),
+                                 u_ts(b * b, eps, sig) - u_a1, 0.0)
+            # recede branch: uphill from a2 = max(b or r0, r_m) to cutoff
+            rr = torch.where(approaching, b, r0)
+            a2 = torch.maximum(rr, r_m)
+            u_a2 = torch.where(rr > r_m, u_ts(rr * rr, eps, sig), u_rm)
+            e2_max = torch.where(a2 < rc, -u_a2, 0.0)
+
+            in_core = approaching & (d_e < e1_max)
+            d_e2 = d_e - torch.where(approaching, e1_max, 0.0)
+            in_outer = ~in_core & (d_e2 < e2_max)
+
+            def invert(v, sign):
+                # 4 eps (y^2 - y - c0) = v  =>  y^2 - y - (c0 + v/4eps) = 0
+                disc = torch.sqrt(torch.clamp(1.0 + 4.0 * c0 + v / eps,
+                                              min=0.0))
+                y = torch.clamp((1.0 + sign * disc) / 2.0, min=1e-12)
+                return sig * y ** (-1.0 / 6.0)
+
+            r_core = invert(u_a1 + d_e, +1.0)
+            r_outer = invert(u_a2 + d_e2, -1.0)
+            s_core = along - torch.sqrt(
+                torch.clamp(r_core * r_core - w2, min=0.0))
+            s_outer = along + torch.sqrt(
+                torch.clamp(r_outer * r_outer - w2, min=0.0))
+            s_j = torch.where(in_core, s_core,
+                              torch.where(in_outer, s_outer, torch.inf))
+            s_j = torch.where(mask_a, torch.inf, torch.clamp(s_j, min=0.0))
+
+            s_min, j_star = geo.first_hit(s_j)
+            limit = torch.minimum(budget, s_cap)
+            hit = s_min < limit
+            s = torch.minimum(s_min, limit)
+            pos = geo.advance(pos, mask_a, p, s)
+            a = torch.where(hit, j_star, a)
+            # the signed separation along e at the event (the pair moved s
+            # closer by then): the MKK pressure excess
+            excess = excess + torch.where(hit, geo.at(along, j_star) - s,
+                                          0.0)
+            return (pos, a, budget - s, ncoll + hit.to(torch.int32),
+                    niter + 1, excess)
+
+        pos, stats = run_chain(body, pos0, a0, chain_length,
+                               max_events_per_chain, check_every)
+        return dataclasses.replace(state, pos=pos), lift, stats
+
+    def init_lift(state, draws):
+        return {}
+
+    return EventChainModel(init_lift=init_lift, event_step=event_step,
+                           name="LJStraightECMC")

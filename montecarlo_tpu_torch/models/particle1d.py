@@ -8,7 +8,8 @@ energies.
 
 Provides the harmonic and double-well potentials, the Gaussian displacement
 move with its analytic log density, the MALA move (gradient-informed
-proposal) and the energy callback.
+proposal), the energy callback and the zig-zag event-chain model
+(:func:`zigzag_model`).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import dataclasses
 
 import torch
 
+from ..core.ecmc import EventChainModel
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
 from ..utils.device import resolve_device
@@ -32,6 +34,7 @@ __all__ = [
     "LangevinGaussian",
     "mala_move",
     "callback_energy",
+    "zigzag_model",
 ]
 
 
@@ -79,7 +82,9 @@ def init_chains(n_chains: int, beta: float, seed: int = 42,
                 potential=harmonic, dtype=torch.float32,
                 device=None) -> Particle1DState:
     """Chain-batched initial state with x0 ~ U[-2, 2) (the reference
-    scripts' ``4rand(rng) - 2`` init), drawn from a ``torch.Generator``
+    scripts' ``4rand(rng) - 2`` init) and ``beta`` a number or one value a
+    chain (:func:`~montecarlo_tpu_torch.core.tempering.tile_ladder`), x0
+    drawn from a ``torch.Generator``
     seeded with ``seed`` — a different stream than the JAX package's, so
     ``interop.chains_from_reference`` carries its chains over instead.  The
     chains are made on ``device``, the card (``cuda``) when it is None."""
@@ -87,11 +92,9 @@ def init_chains(n_chains: int, beta: float, seed: int = 42,
     gen = torch.Generator(device=device).manual_seed(seed)
     x = 4.0 * torch.rand((n_chains,), generator=gen, dtype=dtype,
                          device=device) - 2.0
-    return Particle1DState(
-        x=x,
-        beta=torch.full((n_chains,), beta, dtype=dtype, device=device),
-        e=potential(x),
-    )
+    beta = torch.broadcast_to(torch.as_tensor(beta, dtype=dtype,
+                                              device=device), (n_chains,))
+    return Particle1DState(x=x, beta=beta.clone(), e=potential(x))
 
 
 class StandardGaussian(Policy):
@@ -206,3 +209,61 @@ def mala_move(step: float, weight: float = 1.0, potential=harmonic) -> Move:
 def callback_energy(view):
     """Mean cached energy over chains."""
     return torch.mean(view.sys.e)
+
+
+# ---------------------------------------------------------------------------
+# Event-chain (zig-zag) sampler for the harmonic target
+# ---------------------------------------------------------------------------
+
+def _ipow(x, k: int):
+    """``x ** k`` for an integer ``k >= 1`` by square-and-multiply, the
+    products in the order of ``jax.lax.integer_pow``."""
+    acc = None
+    while k > 0:
+        if k & 1:
+            acc = x if acc is None else acc * x
+        k >>= 1
+        if k > 0:
+            x = x * x
+    return acc
+
+
+def zigzag_model():
+    """1-D event-chain model for the harmonic target exp(-beta x^2) — the
+    zig-zag process, with closed-form event times.
+
+    The lifted state is a velocity v in {-1, +1}; x moves ballistically and
+    v flips at events of hazard rate ``beta * max(0, d/dt U(x + v t))``
+    (U = x^2).  Downhill motion (x v < 0) is event-free until x crosses 0;
+    uphill from w = max(x v, 0) the cumulative hazard is
+    ``beta ((w + s)^2 - w^2)``, so with E ~ Exp(1) the event time is
+
+        t* = -min(x v, 0) + sqrt(w^2 + E / beta) - w.
+
+    The statistics are the exact trajectory integrals ``t``,
+    ``sx = int x dt``, ``sx2 = int x^2 dt`` and ``sx4 = int x^4 dt``, so
+    the moments are time averages with no discretisation."""
+
+    def init_lift(state, draws):
+        one = torch.ones_like(state.x)
+        return {"v": torch.where(draws.bernoulli(), one, -one)}
+
+    def event_step(state, lift, draws):
+        x, beta, v = state.x, state.beta, lift["v"]
+        exp_draw = -torch.log(draws.uniform())         # E ~ Exp(1)
+        xv = x * v
+        w = torch.clamp(xv, min=0.0)
+        t = (-torch.clamp(xv, max=0.0) + torch.sqrt(w * w + exp_draw / beta)
+             - w)
+        xn = x + v * t
+
+        def poly_int(k):                              # int_0^t (x + v s)^k ds
+            return (_ipow(xn, k + 1) - _ipow(x, k + 1)) / ((k + 1) * v)
+
+        stats = {"t": t, "sx": poly_int(1), "sx2": poly_int(2),
+                 "sx4": poly_int(4)}
+        new_state = dataclasses.replace(state, x=xn, e=xn * xn)
+        return new_state, {"v": -v}, stats
+
+    return EventChainModel(init_lift=init_lift, event_step=event_step,
+                           name="ZigZagHarmonic1D")

@@ -13,7 +13,8 @@ MC, and the closures the checkerboard cell-MC path takes
 positions are one (M, N, dim) tensor (``init_chains(dim=3)`` gives the 3-D
 glass former).
 
-Event-chain MC is not ported yet.
+Straight event chains with exact factor events (:func:`ecmc_model`) run
+under :class:`~montecarlo_tpu_torch.core.ecmc.EventChain`.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import functools
 import numpy as np
 import torch
 
+from ..core.ecmc import (CHECK_EVERY, EventChainModel, StraightChain,
+                         run_chain, squared_norm)
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
 from ..utils.device import resolve_device
@@ -45,6 +48,7 @@ __all__ = [
     "callback_energy_per_particle",
     "callback_density",
     "cell_closures",
+    "ecmc_model",
 ]
 
 
@@ -343,3 +347,96 @@ def cell_closures(params: PolyParams):
     # sigma_ij <= max(d_i, d_j): the non-additive term only shrinks it
     rcut_max = params.xc * params.d_max
     return pair_energy, rcut2_of, rcut_max
+
+
+# ---------------------------------------------------------------------------
+# Event-chain MC for the smoothed IPL potential (exact factor events)
+# ---------------------------------------------------------------------------
+
+def ecmc_model(chain_length: float, params: PolyParams = PolyParams(),
+               max_events_per_chain: int = 512, bisect_iters: int = 26,
+               check_every: int = CHECK_EVERY):
+    """Straight event chains for the polydisperse smoothed-IPL mixture.
+
+    The factorized scheme of ``lennard_jones.ecmc_model``, simplified by
+    monotonicity: the smoothed IPL-12 is purely repulsive, so a factor's
+    cumulative uphill energy is nonzero only while approaching,
+    ``E(s) = u(r(s)) - u(r0)``, and saturates at the impact parameter,
+    ``E_max = u(b) - u(r0)``.  The inversion ``u(r_ev) = u(r0) + dE`` has no
+    closed form (the C2-smoothing polynomial), so it runs ``bisect_iters``
+    bisection steps on the bracket [b^2, min(r0, rc)^2] over every pair at
+    once.  Receding pairs never fire, so the ``excess`` statistic (signed
+    separation at the event) is positive, and
+    ``beta P / rho = 1 + <excess per chain> / chain_length``.
+    ``check_every`` is the loop's
+    :func:`~montecarlo_tpu_torch.core.ecmc.event_loop` interval; it changes
+    no result."""
+
+    c0, c2, c4 = params.coeffs()
+    rcut_max = params.xc * params.d_max
+    xc2 = params.xc ** 2
+
+    def event_step(state, lift, draws):
+        pos0, box, beta = state.pos, state.box, state.beta
+        n, dim = pos0.shape[1:]
+        s_cap = torch.clamp(box / 2.0 - rcut_max, min=0.0)
+        a0, d = draws.start(n, dim)
+        geo = StraightChain(pos0, d, box)
+
+        def body(carry, i):
+            pos, a, budget, ncoll, niter, excess = carry
+            mask_a, p, rel = geo.active(pos, a)
+            d_a = geo.at(state.diam, a)
+            rel = geo.min_image(rel)
+            along = geo.along(rel)
+            r0sq = squared_norm(rel)
+            w2 = torch.clamp(r0sq - along * along, min=0.0)
+
+            sig = _sigma_ij(d_a[:, None], state.diam, params.eps)
+            sig2 = torch.clamp(sig * sig, min=1e-12)
+
+            def u_r2(r2):
+                x2 = r2 / sig2
+                inv2 = 1.0 / torch.clamp(x2, min=1e-12)
+                inv12 = inv2 * inv2 * inv2
+                inv12 = inv12 * inv12
+                u = inv12 + c0 + c2 * x2 + c4 * x2 * x2
+                return torch.where(x2 < xc2, u, 0.0)
+
+            d_e = -torch.log(draws.thresholds(i, n)) / beta[:, None]
+            approaching = along > 0.0
+            v = u_r2(r0sq) + d_e                      # target energy
+            e_max = u_r2(w2)                          # u at impact parameter
+            fires = approaching & (v < e_max) & ~mask_a
+
+            # bisection for u(r_ev) = v on [b, min(r0, rc)] (u decreasing)
+            lo = w2
+            hi = torch.minimum(r0sq, xc2 * sig2)
+            for _ in range(bisect_iters):
+                mid = 0.5 * (lo + hi)
+                gt = u_r2(mid) >= v
+                lo, hi = torch.where(gt, mid, lo), torch.where(gt, hi, mid)
+            r_ev2 = 0.5 * (lo + hi)
+            s_j = along - torch.sqrt(torch.clamp(r_ev2 - w2, min=0.0))
+            s_j = torch.where(fires, torch.clamp(s_j, min=0.0), torch.inf)
+
+            s_min, j_star = geo.first_hit(s_j)
+            limit = torch.minimum(budget, s_cap)
+            hit = s_min < limit
+            s = torch.minimum(s_min, limit)
+            pos = geo.advance(pos, mask_a, p, s)
+            a = torch.where(hit, j_star, a)
+            excess = excess + torch.where(hit, geo.at(along, j_star) - s,
+                                          0.0)
+            return (pos, a, budget - s, ncoll + hit.to(torch.int32),
+                    niter + 1, excess)
+
+        pos, stats = run_chain(body, pos0, a0, chain_length,
+                               max_events_per_chain, check_every)
+        return dataclasses.replace(state, pos=pos), lift, stats
+
+    def init_lift(state, draws):
+        return {}
+
+    return EventChainModel(init_lift=init_lift, event_step=event_step,
+                           name="PolyIPLStraightECMC")

@@ -7,7 +7,8 @@ mesh with its chains on the CPU, and runs each scenario of the tests in
 turn: the reference's multihost configuration (harmonic chains on the
 fused path's plain version), the generic path with PGMC, an LJ and a poly
 pool on the fused path, a cell-path pool with and without a forced
-overflow on rank 1, and a run resumed from its checkpoint.  Simulations
+overflow on rank 1, a run resumed from its checkpoint, and replica
+exchange across the ranks' boundary.  Simulations
 write under ``<outdir>/runs``; each rank leaves what the tests compare
 under ``<outdir>/results/rank<r>``.  Off rank 0, every attempt to create or
 write a file under ``<outdir>/runs`` is recorded, and the list saved.
@@ -36,7 +37,8 @@ from montecarlo_tpu_torch.models import polydisperse as poly  # noqa: E402
 from montecarlo_tpu_torch.ops import cell_mc  # noqa: E402
 from montecarlo_tpu_torch.parallel import fetch, initialize, make_mesh  # noqa: E402
 from torch_mesh_helpers import (REF_STEPS, pgmc_sim,  # noqa: E402
-                                 reference_algorithms, state_arrays)
+                                 reference_algorithms, state_arrays,
+                                 tempering_sim)
 
 RUNS = os.path.join(outdir, "runs")
 RESULTS = os.path.join(outdir, "results", f"rank{rank}")
@@ -183,13 +185,26 @@ def resume(mesh):
     save("resume_generators", equal=np.asarray(gens))
 
 
+def tempering(mesh):
+    """Replica exchange with and without the generic path's moves; each
+    rank keeps its own final slice, rank 0 the gathered swap-only run."""
+    for name, metropolis in (("tempering", True), ("swaps", False)):
+        sim = tempering_sim(os.path.join(RUNS, name), mesh, metropolis)
+        sim.run()
+        save(name, **state_arrays(sim.device_state))
+        whole = fetch(sim.device_state, mesh)
+        if rank == 0:
+            save(name + "_whole", **state_arrays(whole))
+
+
 def main():
     initialize(f"localhost:{port}", world, rank, backend="gloo")
     try:
         mesh = make_mesh(device="cpu")
         assert (mesh.rank, mesh.size, mesh.backend) == (rank, world, "gloo")
         os.makedirs(RESULTS, exist_ok=True)
-        for scenario in (reference_config, pgmc, particles, cell, resume):
+        for scenario in (reference_config, pgmc, particles, cell, resume,
+                         tempering):
             scenario(mesh)
             print(f"rank {rank}: {scenario.__name__} done", flush=True)
         save("violations", paths=np.asarray(violations, dtype=str))

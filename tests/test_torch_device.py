@@ -17,6 +17,7 @@ import montecarlo_tpu_torch as tmc
 from montecarlo_tpu_torch import interop
 from montecarlo_tpu_torch import policy_guided as pg
 from montecarlo_tpu_torch.models import hard_disks as hd
+from montecarlo_tpu_torch.models import ising, ising2d, potts
 from montecarlo_tpu_torch.models import lennard_jones as lj
 from montecarlo_tpu_torch.models import particle1d as p1d
 from montecarlo_tpu_torch.models import polydisperse as poly
@@ -42,6 +43,14 @@ ENTRY_POINTS = {
         lambda **kw: pg.init_gradient_data(2, **kw).g,
     "software_bits":
         lambda **kw: fused_sweep.software_bits(7, 0, (8, 128), **kw),
+    "ising.init_chains":
+        lambda **kw: ising.init_chains(2, 8, beta=0.5, **kw).spins,
+    "ising2d.init_chains":
+        lambda **kw: ising2d.init_chains(2, 4, beta=0.5, **kw).spins,
+    "potts.init_chains":
+        lambda **kw: potts.init_chains(2, 4, q=3, beta=0.5, **kw).spins,
+    "tile_ladder":
+        lambda **kw: tmc.tile_ladder([1.0, 2.0], 3, **kw),
 }
 
 

@@ -16,7 +16,10 @@ spawn; each test reads what its scenario left:
 4. a cell-path pool: the same plan on both ranks, and an overflow on one
    rank sends both to the fallback;
 5. a run resumed from its backup equals the uncut one bit for bit; the
-   checkpoint does not resume on one rank.
+   checkpoint does not resume on one rank;
+6. replica exchange with a ladder straddling the ranks' boundary: with
+   the generic path's moves each rank equals the emulation's rank, and
+   alone (its swaps the only randomness) equals one process.
 
 Each worker has its own timeout, so a rank left waiting in a collective
 fails the tests instead of hanging them.
@@ -40,8 +43,9 @@ from montecarlo_tpu_torch import checkpoint
 from montecarlo_tpu_torch.models import lennard_jones as lj
 from montecarlo_tpu_torch.models import polydisperse as poly
 from montecarlo_tpu_torch.parallel import make_mesh, run_emulated
-from torch_mesh_helpers import (PGMC_STEPS, REF_STEPS, pgmc_sim,
-                                reference_algorithms, state_arrays)
+from torch_mesh_helpers import (PGMC_STEPS, REF_STEPS, TEMPERING_STEPS,
+                                pgmc_sim, reference_algorithms, state_arrays,
+                                tempering_sim)
 
 WORKER = os.path.join(os.path.dirname(__file__), "_torch_mesh_worker.py")
 ATOL = 1e-5            # the Gaussian gate of tests/test_torch_sweep.py
@@ -209,3 +213,31 @@ def test_resumed_two_rank_run_equals_uncut(runs, tmp_path):
         sim = pgmc_sim(str(tmp_path / "one"), mesh)
         with pytest.raises(ValueError, match="mesh of 2 rank"):
             checkpoint.resume_state(sim, ckpt)
+
+
+def test_replica_exchange_across_the_ranks(runs, tmp_path):
+    root, _ = runs
+
+    def emulate(mesh):
+        sim = tempering_sim(str(tmp_path / "emul"), mesh)
+        sim.run()
+        return state_arrays(sim.device_state)
+
+    emulated = run_emulated(emulate, 2, "cpu")
+    for r in range(2):
+        with np.load(_result(root, r, "tempering.npz")) as f:
+            got = dict(f)
+        assert sorted(got) == sorted(emulated[r])
+        for k in got:
+            np.testing.assert_array_equal(got[k], emulated[r][k], err_msg=k)
+        assert got["sys/x"].shape == (6,)
+        assert int(got["replica_exchange/calls"]) == TEMPERING_STEPS // 3
+    assert int(got["replica_exchange/counters"][:, 0].sum()) > 0
+    one = tempering_sim(str(tmp_path / "one"), None, metropolis=False)
+    one.run()
+    want = state_arrays(one.device_state)
+    with np.load(_result(root, 0, "swaps_whole.npz")) as f:
+        for k in ("sys/x", "sys/e", "sys/beta", "replica_exchange/counters"):
+            np.testing.assert_array_equal(f[k], want[k], err_msg=k)
+    rate = np.loadtxt(root / "runs" / "tempering" / "swap_rate.dat")
+    assert rate.shape == (TEMPERING_STEPS // 3 + 1, 2)

@@ -67,3 +67,27 @@ def state_arrays(ds):
     return {"/".join(str(k) for k in path): leaf.detach().cpu().numpy()
             for path, leaf in tree_leaves_with_path(ds)
             if torch.is_tensor(leaf)}
+
+
+TEMPERING_STEPS = 30
+
+
+def tempering_sim(path, mesh, metropolis=True):
+    """Replica exchange on 12 chains in ladders of 4 (the middle ladder
+    straddles the boundary of two ranks), a swap every 3 steps, after the
+    generic path's harmonic moves (or alone: then every rank count gives
+    the same chains)."""
+    chains = p1d.init_chains(12, beta=tmc.tile_ladder([0.5, 1.0, 2.0, 4.0],
+                                                      3, device="cpu"),
+                             seed=5, device="cpu")
+    algos = [dict(algorithm=tmc.ReplicaExchange, n_temps=4, seed=9,
+                  scheduler=np.arange(3, TEMPERING_STEPS + 1, 3)),
+             dict(algorithm=tmc.StoreCallbacks,
+                  callbacks=(tmc.callback_swap_rate,),
+                  scheduler=np.arange(3, TEMPERING_STEPS + 1, 3))]
+    if metropolis:
+        algos.insert(0, dict(algorithm=tmc.Metropolis,
+                             pool=(p1d.displacement_move(sigma=1.0),),
+                             seed=8, fused="off"))
+    return tmc.Simulation(p1d.make_system(p1d.harmonic), chains, algos,
+                          TEMPERING_STEPS, path=path, mesh=mesh)
