@@ -151,7 +151,21 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
    samplers, the 1-D ring) at an exactly enumerable size against the exact
    moments in its reference test's band; 11d. one step of each lattice
    sampler, one replica-exchange call and one event of each ECMC hook on
-   the card and on the CPU from the same inputs and draws.
+   the card and on the CPU from the same inputs and draws;
+12. the continuous and quantum lattice models and Wang-Landau (plain
+   torch): 12a and 12b, ``CheckerboardXY`` and ``CheckerboardHeisenberg``
+   with one over-relaxation sweep after each of 4 Metropolis sweeps a
+   step at ``tools/bench_ising2d.py``'s widths (1024 x 64^2, 200 steps):
+   spin-update attempts/s, launches a step, the busy share and the cached
+   energy against a float64 recompute; 12c, both models' checkerboard and
+   single-rotation paths on the 2 x 2 lattice against the exact moments
+   (256 chains), TFIM against ED at ``tests/test_tfim.py``'s size and
+   through ``examples/torch/tfim_quantum.py`` at its widths; 12d,
+   Wang-Landau at ``examples/wang_landau_ising.py``'s widths: proposals/s
+   and launches a proposal, then the reference test's gate over the full
+   60,000 steps if the measured rate fits them in 240 s, else on the 3 x 3
+   lattice (the 4 x 4 run cut, with where its log f got); 12e, each new
+   step on the card and on the CPU from the same inputs and draws.
 
 Prints its findings on lines before the last, a ``{"kernels": [...]}``
 line (``ms`` and ``plain_ms`` per call at the main path's segment of
@@ -166,7 +180,7 @@ line.
 
 Usage: python3 chip_smoke.py [--parent CSRC_DIR] [--kernels-only]
 [--cell-only] [--npt-only] [--mesh-only] [--ecmc-only] [--lattice-only]
-[--nccl-pair]
+[--spins-only] [--nccl-pair]
 
 ``--parent CSRC_DIR`` names a directory with an earlier version of
 ``fused_sweep.cu``, ``lj_sweep.cu`` and ``poly_sweep.cu`` (and their
@@ -180,9 +194,9 @@ and 4, the poly kernel where its block is one warp (N <= 32, the same sum
 order).  ``--kernels-only`` stops after phase 4b (and the comparison with
 ``--parent``); ``--cell-only`` runs phase 7 alone after the build,
 ``--npt-only`` phase 8, ``--mesh-only`` phase 9, ``--ecmc-only`` phase
-10, ``--lattice-only`` phase 11.  ``--nccl-pair`` is no
-phase: after the build it starts two ``nccl`` ranks on the one card and
-prints what NCCL does with them.
+10, ``--lattice-only`` phase 11, ``--spins-only`` phase 12.
+``--nccl-pair`` is no phase: after the build it starts two ``nccl`` ranks
+on the one card and prints what NCCL does with them.
 """
 
 import argparse
@@ -3116,7 +3130,8 @@ def _series(sim_path, name):
 
 def _busy_share(fn, card, what):
     """The card's busy share over one call of ``fn`` under
-    ``torch.profiler``: the kernels' device time over the call's wall."""
+    ``torch.profiler`` (the kernels' device time over the call's wall), and
+    the kernel launches the call made."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3132,7 +3147,7 @@ def _busy_share(fn, card, what):
           f"{busy / 1e3!r} ms of {wall * 1e3!r} ms wall under the profiler "
           f"({100 * share!r} % busy) [{card}]")
     check(launches > 0 and busy > 0, f"{what}: the profiler saw no launch")
-    return share
+    return share, launches
 
 
 def ecmc_hard_disks(tmc, root, card):
@@ -3193,8 +3208,9 @@ def ecmc_hard_disks(tmc, root, card):
     # the card's busy share over 5 more steps of the same run
     st = sim_e.device_state
     alg = sim_e.device_algos[0]
-    share = _busy_share(lambda: alg.step(st, sim_e.steps + 1), card,
-                        f"hard-disk ECMC, one step of {c['events']} events")
+    share, _ = _busy_share(lambda: alg.step(st, sim_e.steps + 1), card,
+                           f"hard-disk ECMC, one step of {c['events']} "
+                           f"events")
     return ncoll / wall_e, share
 
 
@@ -3449,8 +3465,8 @@ def lattice_checkerboard(tmc, root, card):
     check(0.05 < acc < 0.95, f"11a: acceptance {acc}")
     check(-1.6 < e_spin < -1.2, f"11a: e/spin {e_spin} at beta 0.44")
     alg, ds = sim.device_algos[0], sim.device_state
-    share = _busy_share(lambda: alg.step(ds, c["steps"] + 1), card,
-                        f"checkerboard, one step of {c['sweeps']} sweeps")
+    share, _ = _busy_share(lambda: alg.step(ds, c["steps"] + 1), card,
+                           f"checkerboard, one step of {c['sweeps']} sweeps")
     return attempts / wall, share
 
 
@@ -3720,6 +3736,417 @@ def lattice_phases(tmc, device, kernels, card):
     print(f"phase 11: {time.perf_counter() - t0!r} s [{card}]")
 
 
+# -- phase 12: continuous and quantum lattice models, Wang-Landau (plain torch) --
+
+# 12a and 12b: tools/bench_ising2d.py's widths (1024 chains x 64^2, 4
+# sweeps a step, 200 steps), each Metropolis sweep followed by one
+# over-relaxation sweep
+SPIN_CB = dict(chains=1024, size=64, sweeps=4, overrelax=1, steps=200,
+               beta=1.0, delta=1.0)
+# 12c: the reference tests' own sizes and bands
+SPIN_EXACT = dict(chains=256, size=2, cb=(1200, 200), rot=(2000, 400),
+                  beta_xy=0.8, beta_hb=0.7, band=0.03, band_rot_hb=0.04)
+TFIM_ED = dict(chains=256, n=6, m=48, beta=1.0, fields=(0.6, 1.2),
+               steps=150, sweeps=15, burn=70,
+               bands=(("sx", 0.025), ("szsz", 0.025), ("mz2", 0.035)))
+# examples/tfim_quantum.py's widths, held to the same bands from its tail
+TFIM_EXAMPLE = dict(n=8, m=64, beta=2.0, fields=(0.4, 1.0, 1.6), chains=256,
+                    steps=200, sweeps=15)
+# 12d: examples/wang_landau_ising.py's widths; the full depth runs if the
+# measured rate fits it in WL_BUDGET_S, else the 3 x 3 gate runs in full
+WL = dict(chains=8, size=4, steps=60_000, refine=250, log_f_min=1e-4,
+          probe_steps=500)
+WL_BUDGET_S = 240.0
+WL_L3 = dict(chains=32, size=3, steps=3000, refine=250)
+
+
+def _spin_energy64(kind, st):
+    """Each chain's energy recomputed in float64 from the final state."""
+    import torch
+    if kind == "xy":
+        th = st.theta.double()
+        return -(torch.cos(th - th.roll(1, 1))
+                 + torch.cos(th - th.roll(1, 2))).sum(dim=(1, 2))
+    sp = st.spins.double()
+    return -(sp * (sp.roll(1, 1) + sp.roll(1, 2))).sum(dim=(1, 2, 3))
+
+
+def spin_checkerboard(tmc, root, card, kind):
+    """12a (XY) and 12b (Heisenberg): the checkerboard sampler with
+    over-relaxation at full width; attempts/s, launches a step, the card's
+    busy share, and the cached energy against a float64 recompute."""
+    import torch
+    from montecarlo_tpu_torch.models import heisenberg, xy
+    mod, algo, key = {
+        "xy": (xy, xy.CheckerboardXY, "checkerboard_xy"),
+        "heisenberg": (heisenberg, heisenberg.CheckerboardHeisenberg,
+                       "checkerboard_heisenberg")}[kind]
+    c = SPIN_CB
+    chains = mod.init_chains(c["chains"], c["size"], beta=c["beta"], seed=42)
+    sim = tmc.Simulation(mod.make_system(), chains, [
+        dict(algorithm=algo, sweeps=c["sweeps"], overrelax=c["overrelax"],
+             delta=c["delta"], seed=42)], c["steps"],
+        path=os.path.join(root, kind))
+    wall = timed_run(sim)
+    attempts = c["chains"] * c["size"] ** 2 * c["sweeps"] * c["steps"]
+    st = sim.device_state["sys"]
+    err = float((st.energy.double() - _spin_energy64(kind, st)).abs().max())
+    n_bonds = 2 * c["size"] ** 2
+    cnt = sim.device_state[key]["counters"]
+    acc = float(cnt[..., 0].sum()) / float(cnt[..., 1].sum())
+    e_spin = float(st.energy.mean()) / c["size"] ** 2
+    alg, ds = sim.device_algos[0], sim.device_state
+    share, launches = _busy_share(
+        lambda: alg.step(ds, c["steps"] + 1), card,
+        f"{kind} checkerboard, one step of {c['sweeps']} sweeps")
+    print(f"spins: {kind} checkerboard {c['chains']} x {c['size']}^2, beta "
+          f"{c['beta']}, {c['sweeps']} sweeps + {c['overrelax']} "
+          f"over-relaxation a step, {c['steps']} steps: {wall!r} s, "
+          f"{attempts / wall!r} spin-update attempts/s, {launches} launches "
+          f"a step, busy {100 * share!r} %, acceptance {acc!r}, e/spin "
+          f"{e_spin!r}, cached energy within {err!r} of float64 (bound "
+          f"{5e-5 * n_bonds!r}) [{card}]")
+    check(err < 5e-5 * n_bonds, f"12: {kind} cached energy off by {err}")
+    check(0.05 < acc < 0.95, f"12: {kind} acceptance {acc}")
+    check(bool(torch.isfinite(st.energy).all()), f"12: {kind} energies")
+    return attempts / wall, launches, share
+
+
+def spin_exact(tmc, root, card):
+    """12c: XY and Heisenberg on the 2 x 2 lattice against the quadrature
+    and the ring's exact energy, checkerboard and single rotation; TFIM
+    against ED at the reference test's size and at the example's."""
+    from montecarlo_tpu_torch.models import heisenberg, xy
+    c = SPIN_EXACT
+    e_xy, m_xy = xy.exact_moments(c["beta_xy"])
+    e_hb = heisenberg.exact_energy_2x2(c["beta_hb"])
+    cases = [
+        ("xy checkerboard", xy, c["beta_xy"], c["cb"],
+         dict(algorithm=xy.CheckerboardXY, seed=3, delta=1.5, overrelax=1),
+         (e_xy, m_xy), c["band"]),
+        ("xy single rotation", xy, c["beta_xy"], c["rot"],
+         dict(algorithm=tmc.Metropolis, pool=(xy.rotation_move(1.5),),
+              sweepstep=4, seed=3), (e_xy, m_xy), c["band"]),
+        ("heisenberg checkerboard", heisenberg, c["beta_hb"], c["cb"],
+         dict(algorithm=heisenberg.CheckerboardHeisenberg, seed=3,
+              delta=1.5, overrelax=1), (e_hb, None), c["band"]),
+        ("heisenberg single rotation", heisenberg, c["beta_hb"], c["rot"],
+         dict(algorithm=tmc.Metropolis, pool=(heisenberg.rotation_move(1.5),),
+              sweepstep=4, seed=3), (e_hb, None), c["band_rot_hb"])]
+    for what, mod, beta, (steps, burn), algo, (e_ex, m_ex), band in cases:
+        path = os.path.join(root, what.replace(" ", "_"))
+        sim = tmc.Simulation(
+            mod.make_system(),
+            mod.init_chains(c["chains"], c["size"], beta=beta, seed=7), [
+                algo,
+                dict(algorithm=tmc.StoreCallbacks,
+                     callbacks=(mod.callback_energy_per_spin,
+                                mod.callback_magnetisation),
+                     scheduler=tmc.build_schedule(steps, burn, 1))],
+            steps, path=path)
+        wall = timed_run(sim)
+        e = float(np.loadtxt(os.path.join(path, "energy_per_spin.dat"))[
+            :, 1].mean())
+        m = float(np.loadtxt(os.path.join(path, "magnetisation.dat"))[
+            :, 1].mean())
+        print(f"spins: {what} 2x2, beta {beta}, {c['chains']} chains, "
+              f"{steps} steps ({wall!r} s): e/spin {e!r} (exact {e_ex!r}), "
+              f"m {m!r}" + (f" (exact {m_ex!r})" if m_ex is not None else "")
+              + f", band {band} [{card}]")
+        check(abs(e - e_ex) < band, f"12c: {what} e/spin {e} off {e_ex}")
+        check(m_ex is None or abs(m - m_ex) < band,
+              f"12c: {what} magnetisation {m} off {m_ex}")
+    tfim_gates(tmc, root, card)
+
+
+def tfim_gates(tmc, root, card):
+    """12c: PIMC against dense ED, at tests/test_tfim.py's size and at
+    examples/tfim_quantum.py's widths (through the ported example)."""
+    import importlib.util
+    from montecarlo_tpu_torch.models import tfim
+    c = TFIM_ED
+    for h in c["fields"]:
+        path = os.path.join(root, f"tfim_h{h}")
+        chains = tfim.init_chains(c["chains"], c["n"], c["m"], c["beta"],
+                                  h=h, seed=4)
+        sim = tmc.Simulation(tfim.make_system(), chains, [
+            dict(algorithm=tfim.TFIMCheckerboard, sweeps=c["sweeps"],
+                 seed=4),
+            dict(algorithm=tmc.StoreCallbacks,
+                 callbacks=(tfim.make_sx_callback(c["beta"], h, c["m"]),
+                            tfim.callback_szsz, tfim.callback_sz2),
+                 scheduler=tmc.build_schedule(c["steps"], 0, 2))],
+            c["steps"], path=path)
+        wall = timed_run(sim)
+        got = {}
+        for key, name in (("sx", "sx"), ("szsz", "szsz"), ("mz2", "sz2")):
+            d = np.loadtxt(os.path.join(path, f"{name}.dat"))
+            got[key] = float(d[d[:, 0] >= c["burn"], 1].mean())
+        _tfim_check(f"{c['chains']} x {c['n']} x {c['m']}, h {h}, "
+                    f"{c['steps']} x {c['sweeps']} sweeps ({wall!r} s)",
+                    got, tfim.ed_observables(c["n"], c["beta"], 1.0, h),
+                    card)
+    spec = importlib.util.spec_from_file_location(
+        "tfim_quantum", os.path.join(ROOT, "examples", "torch",
+                                     "tfim_quantum.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    e = TFIM_EXAMPLE
+    t0 = time.perf_counter()
+    out = example.main(n_sites=e["n"], m_slices=e["m"], beta=e["beta"],
+                       n_chains=e["chains"], steps=e["steps"],
+                       sweeps=e["sweeps"], fields=e["fields"],
+                       root=os.path.join(root, "tfim_example"))
+    wall = time.perf_counter() - t0
+    for h, (qmc, ex) in out.items():
+        _tfim_check(f"examples/torch/tfim_quantum.py, N {e['n']}, M "
+                    f"{e['m']}, beta {e['beta']}, h {h} ({wall!r} s for "
+                    f"all three)", qmc, ex, card)
+
+
+def _tfim_check(what, got, exact, card):
+    print(f"spins: tfim {what}: " + ", ".join(
+        f"{k} {float(got[k])!r} (ED {exact[k]!r})"
+        for k in ("sx", "szsz", "mz2"))
+        + f" [{card}]")
+    for key, band in TFIM_ED["bands"]:
+        check(abs(got[key] - exact[key]) < band,
+              f"12c: tfim {what}: {key} {got[key]} off ED {exact[key]}")
+
+
+def _wl_sim(tmc, path, c, steps, seed=1):
+    from montecarlo_tpu_torch.models import ising2d
+    chains = ising2d.init_chains(c["chains"], c["size"], beta=1.0,
+                                 seed=seed)
+    return tmc.Simulation(ising2d.make_system(), chains, [
+        dict(algorithm=tmc.WangLandau, model=ising2d.wl_model(c["size"]),
+             moves_per_step=c["size"] ** 2, seed=seed),
+        dict(algorithm=tmc.WangLandauRefine, flatness=0.8,
+             log_f_min=WL["log_f_min"], dependencies=(tmc.WangLandau,),
+             scheduler=np.arange(c["refine"], steps + 1, c["refine"]))],
+        steps, path=path)
+
+
+def _wl_gate(slc, size, what, card):
+    """The reference test's gate on one run's walkers: the support found,
+    max |d log g| < 0.35, <E> within 2 % and var E within 12 % at beta
+    0.2, 0.4407 and 1.0, every walker's log f < 0.01."""
+    from montecarlo_tpu_torch.core.wanglandau import mean_log_g, reweight
+    from montecarlo_tpu_torch.models import ising2d
+    log_g, support = mean_log_g(slc, anchor_bin=0, anchor_log_g=np.log(2.0))
+    exact = ising2d.exact_log_g(size)
+    energies = ising2d.wl_bin_energies(size)
+    err = float(np.abs(log_g[support] - exact[support]).max())
+    rel = []
+    for beta in (0.2, 0.4406868, 1.0):
+        _, e_wl, var_wl = reweight(log_g, energies, beta)
+        _, e_ex, var_ex = reweight(exact, energies, beta)
+        rel.append((abs(e_wl - e_ex) / abs(e_ex),
+                    abs(var_wl - var_ex) / max(var_ex, 1.0)))
+    log_f = float(slc["log_f"].max())
+    print(f"wang-landau: {what}: max log f {log_f!r}, max |d log g| {err!r}, "
+          f"(<E>, var E) relative errors at beta 0.2, 0.4407, 1.0: {rel!r} "
+          f"[{card}]")
+    check(np.array_equal(support, np.isfinite(exact)),
+          f"12d: {what}: support {support} against {np.isfinite(exact)}")
+    check(err < 0.35, f"12d: {what}: max |d log g| {err}")
+    check(all(e < 0.02 and v < 0.12 for e, v in rel),
+          f"12d: {what}: moments {rel}")
+    check(log_f < 0.01, f"12d: {what}: log f {log_f}")
+
+
+def wang_landau_phase(tmc, root, card):
+    """12d: Wang-Landau at examples/wang_landau_ising.py's widths; the
+    proposals/s of a probe run decide whether the full 60,000 steps fit in
+    WL_BUDGET_S, else the 4 x 4 run is cut (where its log f got is printed)
+    and the reference test's gate holds on the 3 x 3 lattice in full."""
+    c = WL
+    probe = _wl_sim(tmc, os.path.join(root, "wl_probe"), c,
+                    c["probe_steps"])
+    wall = timed_run(probe)
+    rate = c["probe_steps"] * c["size"] ** 2 / wall
+    alg, ds = probe.device_algos[0], probe.device_state
+    share, launches = _busy_share(lambda: alg.step(ds, c["probe_steps"] + 1),
+                                  card, f"Wang-Landau, one step of "
+                                  f"{c['size'] ** 2} proposals")
+    per = launches / c["size"] ** 2
+    need = c["steps"] * c["size"] ** 2 / rate
+    print(f"wang-landau: {c['chains']} walkers, L {c['size']}, "
+          f"{c['size'] ** 2} proposals a step: {rate!r} proposals/s a "
+          f"walker ({c['chains'] * rate!r} in all), {per!r} launches a "
+          f"proposal, busy {100 * share!r} %; {c['steps']} steps would take "
+          f"{need!r} s (budget {WL_BUDGET_S}) [{card}]")
+    if need <= WL_BUDGET_S:
+        sim = _wl_sim(tmc, os.path.join(root, "wl_full"), c, c["steps"])
+        wall = timed_run(sim)
+        print(f"wang-landau: the full {c['steps']} steps in {wall!r} s "
+              f"[{card}]")
+        _wl_gate(sim.device_state["wang_landau"], c["size"],
+                 f"L {c['size']}, {c['chains']} walkers, {c['steps']} steps",
+                 card)
+    else:
+        cut = int(WL_BUDGET_S / 4 * rate / c["size"] ** 2)
+        cut = max(c["refine"], cut - cut % c["refine"])
+        sim = _wl_sim(tmc, os.path.join(root, "wl_cut"), c, cut)
+        wall = timed_run(sim)
+        log_f = sim.device_state["wang_landau"]["log_f"].cpu().numpy()
+        print(f"wang-landau: depth cut to {cut} of {c['steps']} steps "
+              f"({wall!r} s): log f per walker {log_f.tolist()!r}; the gate "
+              f"holds on L {WL_L3['size']} [{card}]")
+        l3 = _wl_sim(tmc, os.path.join(root, "wl_l3"), WL_L3,
+                     WL_L3["steps"], seed=3)
+        wall = timed_run(l3)
+        _wl_gate(l3.device_state["wang_landau"], WL_L3["size"],
+                 f"L {WL_L3['size']}, {WL_L3['chains']} walkers, "
+                 f"{WL_L3['steps']} steps ({wall!r} s)", card)
+    return rate, per, share
+
+
+def spins_card_vs_cpu(device, card):
+    """12e: each new step on the card and on the CPU from the same inputs
+    and draws: XY and Heisenberg within the CPU tests' tolerances against
+    the reference, TFIM spins, one Wang-Landau step and a refinement equal
+    outright."""
+    import torch
+    from montecarlo_tpu_torch.core.wanglandau import refine, wl_step
+    from montecarlo_tpu_torch.models import heisenberg as hb
+    from montecarlo_tpu_torch.models import ising2d, tfim, xy
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(12)
+    m, size = 16, 16
+    u = lambda *s: torch.rand(s, generator=gen)
+    on = lambda st, dev: dataclasses.replace(
+        st, **{f.name: getattr(st, f.name).to(dev)
+               for f in dataclasses.fields(st)})
+    worst = {}
+
+    def compare(what, a, b, field, atol=0.0, rtol=0.0, circle=False):
+        x = getattr(a, field).double()
+        y = getattr(b, field).cpu().double()
+        d = (x - y).abs()
+        if circle:
+            d = torch.minimum(d, 2 * np.pi - d)
+        bound = atol + rtol * y.abs()
+        worst[f"{what} {field}"] = float(d.max())
+        check(bool((d <= bound).all()),
+              f"12e: {what}: {field} off by {float(d.max())}")
+
+    sx = xy.init_chains(m, size, beta=0.9, seed=1, device=cpu)
+    draws = [u(m, size, size) for _ in range(4)]
+    a, na = xy.checkerboard_sweep(sx, 1.0, *draws)
+    b, nb = xy.checkerboard_sweep(on(sx, device), 1.0,
+                                  *(d.to(device) for d in draws))
+    check(torch.equal(na, nb.cpu()), "12e: xy sweep acceptances")
+    compare("xy sweep", a, b, "theta")
+    compare("xy sweep", a, b, "energy", rtol=1e-5)
+    for parity in (0, 1):
+        a = xy.overrelax_half_sweep(sx, parity)
+        b = xy.overrelax_half_sweep(on(sx, device), parity)
+        th = sx.theta.double()
+        h = torch.hypot(*(sum(f(th).roll(s, ax) for s in (1, -1)
+                              for ax in (1, 2)) for f in (torch.cos,
+                                                          torch.sin)))
+        d = (a.theta.double() - b.theta.cpu().double()).abs()
+        d = torch.minimum(d, 2 * np.pi - d)
+        worst[f"xy over-relaxation {parity} theta"] = float(d.max())
+        check(bool((d <= 2e-6 + 2e-6 / h).all()),
+              f"12e: xy over-relaxation {parity}: {float(d.max())}")
+    act = {"site": torch.arange(m) * 5 % (size * size),
+           "dtheta": torch.linspace(-1.4, 1.4, m)}
+    move = xy.rotation_move(0.7).move
+    a, _ = move.apply(sx, act)
+    b, _ = move.apply(on(sx, device), {k: v.to(device)
+                                       for k, v in act.items()})
+    compare("xy rotation", a, b, "theta")
+    compare("xy rotation", a, b, "energy", rtol=1e-5)
+
+    sh = hb.init_chains(m, size, beta=0.9, seed=1, device=cpu)
+    draws = []
+    for _ in range(2):
+        draws += [torch.randn((m, size, size, 3), generator=gen),
+                  u(m, size, size), u(m, size, size)]
+    a, na = hb.checkerboard_sweep(sh, 1.0, *draws)
+    b, nb = hb.checkerboard_sweep(on(sh, device), 1.0,
+                                  *(d.to(device) for d in draws))
+    check(torch.equal(na, nb.cpu()), "12e: heisenberg sweep acceptances")
+    compare("heisenberg sweep", a, b, "spins", atol=2e-6)
+    compare("heisenberg sweep", a, b, "energy", rtol=1e-5)
+    for parity in (0, 1):
+        a = hb.overrelax_half_sweep(sh, parity)
+        b = hb.overrelax_half_sweep(on(sh, device), parity)
+        sp = sh.spins.double()
+        h = sum(sp.roll(s, ax) for s in (1, -1) for ax in (1, 2)).norm(
+            dim=-1, keepdim=True)
+        d = (a.spins.double() - b.spins.cpu().double()).abs()
+        worst[f"heisenberg over-relaxation {parity} spins"] = float(d.max())
+        check(bool((d <= 2e-6 + 2e-6 / h).all()),
+              f"12e: heisenberg over-relaxation {parity}: {float(d.max())}")
+    axis = torch.nn.functional.normalize(torch.randn((m, 3), generator=gen),
+                                         dim=-1)
+    act = {"site": torch.arange(m) * 5 % (size * size), "axis": axis,
+           "alpha": torch.linspace(-1.4, 1.4, m)}
+    move = hb.rotation_move(0.7).move
+    a, _ = move.apply(sh, act)
+    b, _ = move.apply(on(sh, device), {k: v.to(device)
+                                       for k, v in act.items()})
+    compare("heisenberg rotation", a, b, "spins", atol=2e-6)
+    compare("heisenberg rotation", a, b, "energy", rtol=1e-5)
+
+    st = tfim.init_chains(m, 8, 64, 2.0, h=1.0, seed=1, device=cpu)
+    draws = [u(m, 8, 64).clamp(min=np.finfo(np.float32).tiny)
+             for _ in range(2)]
+    a, na = tfim.checkerboard_sweep(st, *draws)
+    b, nb = tfim.checkerboard_sweep(on(st, device),
+                                    *(d.to(device) for d in draws))
+    check(torch.equal(a.spins, b.spins.cpu()) and torch.equal(na, nb.cpu()),
+          "12e: tfim sweep spins")
+    compare("tfim sweep", a, b, "energy", rtol=1e-6)
+
+    model = ising2d.wl_model(4)
+    wi = ising2d.init_chains(m, 4, beta=1.0, seed=2, device=cpu)
+    nb_ = model.n_bins
+    slc = {"log_g": torch.rand((m, nb_), generator=gen) * 8,
+           "hist": torch.randint(0, 50, (m, nb_), generator=gen,
+                                 dtype=torch.int32),
+           "log_f": torch.full((m,), 0.25)}
+    slc["visited"] = slc["hist"] + 3
+    sites = model.draw(gen, (m, 16), cpu)
+    uu = u(m, 16).clamp(min=np.finfo(np.float32).tiny)
+    ca = wl_step(model, wi, slc["log_g"], slc["hist"], slc["visited"],
+                 slc["log_f"], sites, uu)
+    cb = wl_step(model, on(wi, device),
+                 *(slc[k].to(device) for k in ("log_g", "hist", "visited",
+                                               "log_f")),
+                 sites.to(device), uu.to(device))
+    check(torch.equal(ca[0].spins, cb[0].spins.cpu())
+          and torch.equal(ca[0].energy, cb[0].energy.cpu())
+          and all(torch.equal(x, y.cpu()) for x, y in zip(ca[1:], cb[1:])),
+          "12e: the Wang-Landau step differs between the card and the CPU")
+    ra = refine(slc, 0.5, 1e-4)
+    rb = refine({k: v.to(device) for k, v in slc.items()}, 0.5, 1e-4)
+    check(all(torch.equal(ra[k], rb[k].cpu()) for k in ra),
+          "12e: the refinement differs between the card and the CPU")
+    print(f"spins: card against CPU, same inputs and draws: XY, Heisenberg "
+          f"and TFIM steps within the CPU tests' tolerances (worst "
+          f"{worst!r}), acceptances and TFIM spins equal; one Wang-Landau "
+          f"step of 16 proposals and a refinement equal outright [{card}]")
+
+
+def spin_phases(tmc, device, kernels, card):
+    """Phase 12: the continuous and quantum lattice models and Wang-Landau
+    on the card; no kernel is launched."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as tmp:
+        _, counts = counted(kernels, lambda: (
+            spin_checkerboard(tmc, tmp, card, "xy"),
+            spin_checkerboard(tmc, tmp, card, "heisenberg"),
+            spin_exact(tmc, tmp, card),
+            wang_landau_phase(tmc, tmp, card)))
+        check(sum(counts.values()) == 0, f"phase 12 launched {counts}")
+        spins_card_vs_cpu(device, card)
+    print(f"phase 12: {time.perf_counter() - t0!r} s [{card}]")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", metavar="CSRC_DIR", default=None,
@@ -3742,6 +4169,10 @@ def main():
     parser.add_argument("--lattice-only", action="store_true",
                         help="after the build, run only phase 11 (the "
                              "lattice models)")
+    parser.add_argument("--spins-only", action="store_true",
+                        help="after the build, run only phase 12 (the "
+                             "continuous and quantum lattice models and "
+                             "Wang-Landau)")
     parser.add_argument("--nccl-pair", action="store_true",
                         help="after the build, only try two nccl ranks on "
                              "the one card and print what NCCL does (not a "
@@ -3807,6 +4238,10 @@ def main():
     if opts.lattice_only:
         lattice_phases(tmc, device, kernels, card)
         print("chip_smoke: --lattice-only: stopping after phase 11")
+        return 0
+    if opts.spins_only:
+        spin_phases(tmc, device, kernels, card)
+        print("chip_smoke: --spins-only: stopping after phase 12")
         return 0
     if opts.nccl_pair:
         nccl_pair(card)
@@ -3990,6 +4425,8 @@ def main():
     launches["fused_lj_sweep"] += n_mh_lj
     # 11. the lattice models: no kernel launched
     lattice_phases(tmc, device, kernels, card)
+    # 12. XY, Heisenberg, TFIM and Wang-Landau: no kernel launched
+    spin_phases(tmc, device, kernels, card)
 
     m2 = CONFIG2_CHAINS
     specs = [(

@@ -5,20 +5,24 @@ both from the same state, one's chains are carried over to the other as
 numpy arrays.  Nothing here imports ``jax``: the JAX side converts its
 arrays with ``np.asarray``.
 
-Seven families are carried: particle-1d (``x``, ``beta``, ``e``),
+Every family is carried: particle-1d (``x``, ``beta``, ``e``),
 Lennard-Jones (``pos``, ``species``, ``beta``, ``energy``, ``box``),
 polydisperse soft spheres (``pos``, ``diam``, ``beta``, ``energy``,
-``box``), hard disks or spheres (``pos``, ``box``), and the lattice states
-of the 1-D and 2-D Ising and Potts models (``spins``, ``beta``, ``j``,
-``energy``); the particle families in 2-D or 3-D, the dimension being the
-last axis of ``pos``.  The three lattice states share their fields, so for
-them the class is named (``cls=``) rather than told from the fields.
+``box``), hard disks or spheres (``pos``, ``box``), the lattice states of
+the 1-D and 2-D Ising and Potts models and of the Heisenberg model
+(``spins``, ``beta``, ``j``, ``energy``), the XY model (``theta``,
+``beta``, ``j``, ``energy``) and the transverse-field Ising model
+(``spins``, ``kx``, ``ktau``, ``energy``); the particle families in 2-D or
+3-D, the dimension being the last axis of ``pos``.  The states with a
+``spins`` field are told apart by the class named (``cls=``) rather than by
+the fields.
 
 Device-state slices are carried too (:func:`slice_from_reference`,
 :func:`slice_to_reference`): the ``ecmc`` slice of ``EventChain`` (``lift``,
-``stats``, ``n_events``) and the ``replica_exchange`` slice (``calls``,
-``counters``).  The reference's threefry keys are not carried: the port's
-generators stay its own.
+``stats``, ``n_events``), the ``replica_exchange`` slice (``calls``,
+``counters``) and the ``wang_landau`` slice (``log_g``, ``hist``,
+``visited``, ``log_f``).  The reference's threefry keys are not carried:
+the port's generators stay its own.
 """
 
 from __future__ import annotations
@@ -30,12 +34,15 @@ import torch
 
 from .core.algorithms import to_numpy
 from .models.hard_disks import HardDiskState
+from .models.heisenberg import HeisenbergState
 from .models.ising import IsingState
 from .models.ising2d import Ising2DState
 from .models.lennard_jones import LJState
 from .models.particle1d import Particle1DState
 from .models.polydisperse import PolyState
 from .models.potts import PottsState
+from .models.tfim import TFIMState
+from .models.xy import XYState
 from .utils.device import resolve_device
 from .utils.tree import tree_map
 
@@ -48,12 +55,15 @@ _FIELDS = {Particle1DState: ("x", "beta", "e"),
            PolyState: ("pos", "diam", "beta", "energy", "box"),
            HardDiskState: ("pos", "box"),
            IsingState: _LATTICE, Ising2DState: _LATTICE,
-           PottsState: _LATTICE}
+           PottsState: _LATTICE, HeisenbergState: _LATTICE,
+           XYState: ("theta", "beta", "j", "energy"),
+           TFIMState: ("spins", "kx", "ktau", "energy")}
 _DTYPES = {"species": np.int32, "spins": np.int8}
 
 #: the tensors of a device-state slice that are carried, by state key
 _SLICES = {"ecmc": ("lift", "stats", "n_events"),
-           "replica_exchange": ("calls", "counters")}
+           "replica_exchange": ("calls", "counters"),
+           "wang_landau": ("log_g", "hist", "visited", "log_f")}
 
 
 def chains_from_reference(np_state, device=None, cls=None):
@@ -61,14 +71,16 @@ def chains_from_reference(np_state, device=None, cls=None):
     attributes) of chain-stacked arrays, as this package's state on
     ``device`` (the card, ``cuda``, when None).
 
-    ``cls`` names the state class; it must be named for the lattice states
-    (:class:`IsingState`, :class:`Ising2DState`, :class:`PottsState`), whose
-    fields are the same.  Without it the class is told apart by the fields:
-    a :class:`PolyState` when there is a ``diam`` field, an
-    :class:`LJState` when there is a ``species`` field, a
-    :class:`HardDiskState` when there is a ``pos`` field and neither of
-    those, a :class:`Particle1DState` when there is an ``x`` field.
-    Species stay int32 and spins int8; everything else becomes float32."""
+    ``cls`` names the state class; it must be named for the states with a
+    ``spins`` field (:class:`IsingState`, :class:`Ising2DState`,
+    :class:`PottsState`, :class:`HeisenbergState`, :class:`TFIMState`).
+    Without it the class is told apart by the fields: a :class:`PolyState`
+    when there is a ``diam`` field, an :class:`LJState` when there is a
+    ``species`` field, a :class:`HardDiskState` when there is a ``pos``
+    field and neither of those, an :class:`XYState` when there is a
+    ``theta`` field, a :class:`Particle1DState` when there is an ``x``
+    field.  Species stay int32 and spins int8 (the Heisenberg spins
+    float32); everything else becomes float32."""
     if isinstance(np_state, Mapping):
         get, has = np_state.__getitem__, np_state.__contains__
     else:
@@ -78,14 +90,17 @@ def chains_from_reference(np_state, device=None, cls=None):
     if cls is None:
         if has("spins"):
             raise ValueError(
-                "the Ising, 2-D Ising and Potts states share their fields: "
-                "name the class (cls=IsingState, Ising2DState or PottsState)")
+                "the lattice states with a spins field are not told apart "
+                "by their fields: name the class (cls=IsingState, "
+                "Ising2DState, PottsState, HeisenbergState or TFIMState)")
         cls = (PolyState if has("diam") else LJState if has("species")
-               else HardDiskState if has("pos") else Particle1DState)
+               else HardDiskState if has("pos") else XYState if has("theta")
+               else Particle1DState)
     elif cls not in _FIELDS:
         raise ValueError(f"no carried state class {cls!r}")
+    dtypes = {} if cls is HeisenbergState else _DTYPES
     return cls(**{
-        k: torch.as_tensor(np.array(get(k), dtype=_DTYPES.get(k, np.float32)),
+        k: torch.as_tensor(np.array(get(k), dtype=dtypes.get(k, np.float32)),
                            device=device)
         for k in _FIELDS[cls]})
 
@@ -99,11 +114,11 @@ def chains_to_reference(state) -> dict:
 
 
 def slice_from_reference(key: str, np_slice, like):
-    """The JAX package's device-state slice ``key`` (``"ecmc"`` or
-    ``"replica_exchange"``, a mapping of arrays and dicts of arrays) as this
-    package's, on the devices and with the dtypes of ``like`` (the port's
-    own slice, e.g. ``sim.init_device_state()[key]``), whose generator it
-    keeps."""
+    """The JAX package's device-state slice ``key`` (``"ecmc"``,
+    ``"replica_exchange"`` or ``"wang_landau"``, a mapping of arrays and
+    dicts of arrays) as this package's, on the devices and with the dtypes
+    of ``like`` (the port's own slice, e.g.
+    ``sim.init_device_state()[key]``), whose generator it keeps."""
     if key not in _SLICES:
         raise ValueError(f"no carried slice {key!r}; carried: "
                          f"{sorted(_SLICES)}")

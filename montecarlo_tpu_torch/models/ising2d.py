@@ -1,8 +1,8 @@
 """2-D Ising model on a periodic square lattice.
 
-Port of ``montecarlo_tpu/models/ising2d.py`` (without ``wl_model``, which
-waits for Wang-Landau).  Four sampling paths, each over all chains at once
-(the spins are one (M, L1, L2) int8 tensor):
+Port of ``montecarlo_tpu/models/ising2d.py``.  Four sampling paths, each
+over all chains at once (the spins are one (M, L1, L2) int8 tensor), and
+the Wang-Landau binding :func:`wl_model`:
 
 - :func:`spin_flip_move` — a single-site Metropolis move through the generic
   move protocol (O(1) delta-energy from the four-neighbour local field);
@@ -14,7 +14,10 @@ waits for Wang-Landau).  Four sampling paths, each over all chains at once
   dilation (:func:`~montecarlo_tpu_torch.ops.cluster.seed_component_mask`);
 - :class:`SwendsenWang` — every activated-bond component labelled
   (:func:`~montecarlo_tpu_torch.ops.cluster.component_labels`) and given a
-  fresh spin.
+  fresh spin;
+- :func:`wl_model` — a uniform single-site flip for
+  :class:`~montecarlo_tpu_torch.core.wanglandau.WangLandau`, binned by
+  energy level.
 
 The step functions (:func:`checkerboard_half_sweep`,
 :func:`checkerboard_sweep`, :func:`wolff_step`,
@@ -43,7 +46,7 @@ from .ising import random_spins
 __all__ = ["Ising2DState", "make_system", "init_chains", "spin_flip_move",
            "CheckerboardMetropolis", "WolffCluster", "wolff_step",
            "SwendsenWang", "swendsen_wang_step",
-           "wl_bin_energies", "exact_log_g",
+           "wl_model", "wl_bin_energies", "exact_log_g",
            "exact_moments",
            "callback_energy_per_spin", "callback_magnetisation",
            "callback_checkerboard_acceptance", "callback_mean_cluster_size"]
@@ -203,15 +206,19 @@ def checkerboard_sweep(state: Ising2DState, u0, u1):
 
 
 class LatticeSampler(DeviceAlgorithm):
-    """What the lattice samplers share: the lattice shape, one generator
+    """What the lattice samplers share: the lattice shape (the two axes
+    after the chains' of the state's ``lattice_field``), one generator
     seeded with ``seed`` (the rank folded in on a chain mesh) and a
     ``counters`` slice of shape (M, 1, 2)."""
+
+    lattice_field = "spins"
 
     def __init__(self, sim, seed: int = 1):
         self.seed = int(seed)
         self.n_chains = sim.n_chains
         self.device = sim.device
-        self.lattice_shape = tuple(int(d) for d in sim.chains0.spins.shape[1:])
+        lattice = getattr(sim.chains0, self.lattice_field)
+        self.lattice_shape = tuple(int(d) for d in lattice.shape[1:3])
         mesh = getattr(sim, "mesh", None)
         self.stream_seed = self.seed
         if mesh is not None:
@@ -228,6 +235,10 @@ class LatticeSampler(DeviceAlgorithm):
     def uniform(self, slc, shape):
         return torch.rand(shape, generator=slc["generator"],
                           device=self.device)
+
+    def normal(self, slc, shape):
+        return torch.randn(shape, generator=slc["generator"],
+                           device=self.device)
 
     def count(self, dstate, sys, total, per_step):
         """The device state with ``sys`` and (total, per_step) added to each
@@ -454,6 +465,62 @@ class SwendsenWang(LatticeSampler):
         io.write(f"\t\tLattice sweeps per simulation step: {self.sweeps}\n")
         io.write(f"\t\tLattice: {self.lattice_shape}\n")
         io.write(f"\t\tSeed: {self.seed}\n")
+
+
+# ---------------------------------------------------------------------------
+# Path 5: Wang-Landau binding (density-of-states random walk)
+# ---------------------------------------------------------------------------
+
+def wl_model(size: int, j: float = 1.0):
+    """Wang-Landau model of the L x L periodic Ising lattice.
+
+    Energy levels are ``E = -2 N j + 4 j k`` for bin ``k in [0, N]`` (N =
+    L²; k = 1 and k = N-1 are unreachable on the periodic lattice, and
+    flatness is measured over visited bins only).  The proposal is a
+    uniform single-site flip (symmetric, as Wang-Landau needs); its draw is
+    the site, an int64 index in [0, N) per chain and proposal.  A proposal
+    gathers the site and its four neighbours through a neighbour table made
+    once, and updates the cached energy from their local field as
+    :func:`spin_flip_move` does.  ``j`` is the coupling the bins are laid
+    out for; the chains' own ``j`` enters the energies and the bins.
+    """
+    from ..core.wanglandau import WangLandauModel
+
+    n = size * size
+    ii, kk = np.divmod(np.arange(n), size)
+    # each site and its four neighbours (the reference's order of the sum)
+    table = np.stack([ii * size + kk,
+                      (ii - 1) % size * size + kk,
+                      (ii + 1) % size * size + kk,
+                      ii * size + (kk - 1) % size,
+                      ii * size + (kk + 1) % size], axis=1)
+    tables = {}
+
+    def bin_index(state: Ising2DState):
+        return torch.round((state.energy + 2.0 * n * state.j)
+                           / (4.0 * state.j)).to(torch.int64)
+
+    def propose(state: Ising2DState, site):
+        s = state.spins
+        m = s.shape[0]
+        dev = s.device
+        if dev not in tables:
+            tables[dev] = torch.as_tensor(table, device=dev)
+        flat = s.reshape(m, n)
+        near = flat.gather(1, tables[dev][site]).to(torch.float32)
+        nsum = near[:, 1:].sum(1)              # small integers: exact
+        d_e = 2.0 * state.j * near[:, 0] * nsum
+        spins = flat.scatter(1, site[:, None],
+                             (-near[:, :1]).to(s.dtype)).reshape(s.shape)
+        return dataclasses.replace(state, spins=spins,
+                                   energy=state.energy + d_e)
+
+    def draw(generator, shape, device):
+        return torch.randint(0, n, shape, generator=generator,
+                             device=device)
+
+    return WangLandauModel(n_bins=n + 1, bin_index=bin_index,
+                           propose=propose, draw=draw)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ import montecarlo_tpu_torch as tmc
 from montecarlo_tpu_torch import interop
 from montecarlo_tpu_torch import policy_guided as pg
 from montecarlo_tpu_torch.models import hard_disks as hd
+from montecarlo_tpu_torch.models import heisenberg, tfim, xy
 from montecarlo_tpu_torch.models import ising, ising2d, potts
 from montecarlo_tpu_torch.models import lennard_jones as lj
 from montecarlo_tpu_torch.models import particle1d as p1d
@@ -51,6 +52,12 @@ ENTRY_POINTS = {
         lambda **kw: potts.init_chains(2, 4, q=3, beta=0.5, **kw).spins,
     "tile_ladder":
         lambda **kw: tmc.tile_ladder([1.0, 2.0], 3, **kw),
+    "xy.init_chains":
+        lambda **kw: xy.init_chains(2, 4, beta=0.5, **kw).theta,
+    "heisenberg.init_chains":
+        lambda **kw: heisenberg.init_chains(2, 4, beta=0.5, **kw).spins,
+    "tfim.init_chains":
+        lambda **kw: tfim.init_chains(2, 4, 8, 1.0, **kw).spins,
 }
 
 

@@ -35,6 +35,10 @@ def test_port_imports_without_jax():
         "import montecarlo_tpu_torch.models.ising\n"
         "import montecarlo_tpu_torch.models.ising2d\n"
         "import montecarlo_tpu_torch.models.potts\n"
+        "import montecarlo_tpu_torch.models.xy\n"
+        "import montecarlo_tpu_torch.models.heisenberg\n"
+        "import montecarlo_tpu_torch.models.tfim\n"
+        "import montecarlo_tpu_torch.core.wanglandau\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'montecarlo_tpu', 'triton')]\n"
         "assert not bad, bad\n")
@@ -86,8 +90,8 @@ def test_cell_mc_and_hard_disk_exports_follow_reference():
 def test_slice_exports_follow_reference():
     """Event-chain MC, replica exchange, the cluster ops and the lattice
     models keep the reference's names: the ported modules' public names are
-    the reference's, bar the port's draws class and loop (``core/ecmc.py``)
-    and ``ising2d.wl_model`` (not ported yet)."""
+    the reference's, bar the port's draws class and loop
+    (``core/ecmc.py``)."""
     from montecarlo_tpu.core import ecmc as ref_ecmc
     from montecarlo_tpu.core import tempering as ref_tempering
     from montecarlo_tpu.models import ising as ref_ising
@@ -99,7 +103,7 @@ def test_slice_exports_follow_reference():
     from montecarlo_tpu_torch.ops import cluster
     assert set(ecmc.__all__) - {"GeneratorEventDraws", "event_loop"} \
         == set(ref_ecmc.__all__)
-    assert set(ising2d.__all__) == set(ref_ising2d.__all__) - {"wl_model"}
+    assert set(ising2d.__all__) == set(ref_ising2d.__all__)
     for mine, ref in ((tempering, ref_tempering), (cluster, ref_cluster),
                       (ising, ref_ising), (potts, ref_potts)):
         assert set(mine.__all__) == set(ref.__all__), mine.__name__
@@ -112,3 +116,27 @@ def test_slice_exports_follow_reference():
         ref = getattr(mc.models, mod)
         hooks = {n for n in ref.__all__ if n.startswith(("ecmc", "zigzag"))}
         assert hooks and hooks <= set(mine.__all__), mod
+
+
+def test_public_api_is_complete():
+    """Every public name of the JAX package has its counterpart in the
+    port: ``montecarlo_tpu.__all__``, the ``__all__`` of each model module
+    and of ``core/wanglandau.py``, with the same names of functions and
+    classes; the port's own extras are ``interop`` and the device
+    helpers."""
+    from montecarlo_tpu.core import wanglandau as ref_wl
+    from montecarlo_tpu_torch.core import wanglandau
+    assert set(tmc.__all__) - {"interop"} == set(mc.__all__)
+    assert set(tmc.models.__all__) == set(mc.models.__all__)
+    pairs = [(tmc, mc), (wanglandau, ref_wl)] + [
+        (getattr(tmc.models, name), getattr(mc.models, name))
+        for name in mc.models.__all__]
+    for mine, ref in pairs:
+        missing = [n for n in ref.__all__ if not hasattr(mine, n)]
+        assert not missing, (ref.__name__, missing)
+        for name in ref.__all__:
+            theirs = getattr(ref, name)
+            if isinstance(theirs, type) or callable(theirs) and hasattr(
+                    theirs, "__name__"):
+                assert getattr(mine, name).__name__ == theirs.__name__, (
+                    ref.__name__, name)

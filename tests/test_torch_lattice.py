@@ -32,22 +32,9 @@ from montecarlo_tpu.models import ising2d as ref_i2
 from montecarlo_tpu.models import potts as ref_potts
 from montecarlo_tpu_torch import interop
 from montecarlo_tpu_torch.models import ising, ising2d, potts
+from torch_lattice_helpers import (_one_torch_thread, carry,  # noqa: F401
+                                   ref_keys, vrandint, vsplit, vuniform)
 from torch_ecmc_helpers import T
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the test runner runs several files at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def _carry(ref_state, cls):
-    return interop.chains_from_reference(
-        {k: np.asarray(getattr(ref_state, k))
-         for k in ("spins", "beta", "j", "energy")}, device="cpu", cls=cls)
 
 
 def _same(port_state, ref_state):
@@ -55,24 +42,6 @@ def _same(port_state, ref_state):
                                   np.asarray(ref_state.spins))
     np.testing.assert_array_equal(port_state.energy.numpy(),
                                   np.asarray(ref_state.energy))
-
-
-def _keys(seed, m):
-    return jax.random.split(jax.random.key(seed), m)
-
-
-def _vsplit(keys, n):
-    ks = jax.vmap(lambda k: jax.random.split(k, n))(keys)
-    return [ks[:, i] for i in range(n)]
-
-
-def _vuniform(keys, shape):
-    return T(jax.vmap(lambda k: jax.random.uniform(k, shape))(keys))
-
-
-def _vrandint(keys, shape, lo, hi, dtype=jnp.int32):
-    return T(jax.vmap(lambda k: jax.random.randint(k, shape, lo, hi,
-                                                   dtype=dtype))(keys))
 
 
 # -- interop -----------------------------------------------------------------------
@@ -85,7 +54,7 @@ def test_lattice_states_roundtrip_with_the_class_named(name):
                             ising2d.Ising2DState),
                 "potts": (ref_potts.init_chains(3, 4, q=3, beta=0.5, seed=1),
                           potts.PottsState)}[name]
-    st = _carry(ref, cls)
+    st = carry(ref, cls)
     assert type(st) is cls and st.spins.dtype == torch.int8
     assert st.energy.dtype == torch.float32
     _same(st, ref)
@@ -117,12 +86,12 @@ def test_init_chains_energy_and_device():
 def test_ising2d_checkerboard_sweep_value_for_value():
     m, size = 8, 6
     ref = ref_i2.init_chains(m, size, beta=0.44, seed=5)
-    keys = _keys(1, m)
+    keys = ref_keys(1, m)
     want, acc = jax.vmap(ref_i2.checkerboard_sweep)(ref, keys)
-    k0, k1 = _vsplit(keys, 2)
+    k0, k1 = vsplit(keys, 2)
     got, a = ising2d.checkerboard_sweep(
-        _carry(ref, ising2d.Ising2DState),
-        _vuniform(k0, (size, size)), _vuniform(k1, (size, size)))
+        carry(ref, ising2d.Ising2DState),
+        vuniform(k0, (size, size)), vuniform(k1, (size, size)))
     _same(got, want)
     np.testing.assert_array_equal(a.numpy(), np.asarray(acc))
 
@@ -130,13 +99,13 @@ def test_ising2d_checkerboard_sweep_value_for_value():
 def test_ising2d_wolff_step_value_for_value():
     m, size = 8, 6
     ref = ref_i2.init_chains(m, size, beta=0.44, seed=6)
-    keys = _keys(2, m)
+    keys = ref_keys(2, m)
     want, n = jax.vmap(ref_i2.wolff_step)(ref, keys)
-    k_seed, k_right, k_down = _vsplit(keys, 3)
+    k_seed, k_right, k_down = vsplit(keys, 3)
     got, size_ = ising2d.wolff_step(
-        _carry(ref, ising2d.Ising2DState), _vuniform(k_right, (size, size)),
-        _vuniform(k_down, (size, size)),
-        _vrandint(k_seed, (), 0, size * size).long())
+        carry(ref, ising2d.Ising2DState), vuniform(k_right, (size, size)),
+        vuniform(k_down, (size, size)),
+        vrandint(k_seed, (), 0, size * size).long())
     _same(got, want)
     np.testing.assert_array_equal(size_.numpy(), np.asarray(n))
 
@@ -144,14 +113,14 @@ def test_ising2d_wolff_step_value_for_value():
 def test_ising2d_swendsen_wang_step_value_for_value():
     m, size = 8, 5                 # odd: SW needs no 2-colouring
     ref = ref_i2.init_chains(m, size, beta=0.44, seed=7)
-    keys = _keys(3, m)
+    keys = ref_keys(3, m)
     want, n = jax.vmap(ref_i2.swendsen_wang_step)(ref, keys)
-    k_right, k_down, k_spin = _vsplit(keys, 3)
+    k_right, k_down, k_spin = vsplit(keys, 3)
     fresh = T(jax.vmap(lambda k: 2 * jax.random.bernoulli(
         k, 0.5, (size * size,)).astype(jnp.int8) - 1)(k_spin))
     got, nc = ising2d.swendsen_wang_step(
-        _carry(ref, ising2d.Ising2DState), _vuniform(k_right, (size, size)),
-        _vuniform(k_down, (size, size)), fresh)
+        carry(ref, ising2d.Ising2DState), vuniform(k_right, (size, size)),
+        vuniform(k_down, (size, size)), fresh)
     _same(got, want)
     np.testing.assert_array_equal(nc.numpy(), np.asarray(n))
 
@@ -159,15 +128,15 @@ def test_ising2d_swendsen_wang_step_value_for_value():
 def test_potts_checkerboard_sweep_value_for_value():
     m, size, q = 8, 6, 3
     ref = ref_potts.init_chains(m, size, q=q, beta=0.8, seed=5)
-    keys = _keys(4, m)
+    keys = ref_keys(4, m)
     want, acc = jax.vmap(lambda s, k: ref_potts.checkerboard_sweep(
         s, q, k))(ref, keys)
     draws = []
-    for half in _vsplit(keys, 2):
-        k_col, k_acc = _vsplit(half, 2)
-        draws += [_vrandint(k_col, (size, size), 0, q - 1),
-                  _vuniform(k_acc, (size, size))]
-    got, a = potts.checkerboard_sweep(_carry(ref, potts.PottsState), q,
+    for half in vsplit(keys, 2):
+        k_col, k_acc = vsplit(half, 2)
+        draws += [vrandint(k_col, (size, size), 0, q - 1),
+                  vuniform(k_acc, (size, size))]
+    got, a = potts.checkerboard_sweep(carry(ref, potts.PottsState), q,
                                       *draws)
     _same(got, want)
     np.testing.assert_array_equal(a.numpy(), np.asarray(acc))
@@ -176,14 +145,14 @@ def test_potts_checkerboard_sweep_value_for_value():
 def test_potts_wolff_step_value_for_value():
     m, size, q = 8, 5, 3
     ref = ref_potts.init_chains(m, size, q=q, beta=0.9, seed=6)
-    keys = _keys(5, m)
+    keys = ref_keys(5, m)
     want, n = jax.vmap(lambda s, k: ref_potts.wolff_step(s, q, k))(ref, keys)
-    k_seed, k_right, k_down, k_col = _vsplit(keys, 4)
+    k_seed, k_right, k_down, k_col = vsplit(keys, 4)
     got, size_ = potts.wolff_step(
-        _carry(ref, potts.PottsState), q, _vuniform(k_right, (size, size)),
-        _vuniform(k_down, (size, size)),
-        _vrandint(k_seed, (), 0, size * size).long(),
-        _vrandint(k_col, (), 0, q - 1))
+        carry(ref, potts.PottsState), q, vuniform(k_right, (size, size)),
+        vuniform(k_down, (size, size)),
+        vrandint(k_seed, (), 0, size * size).long(),
+        vrandint(k_col, (), 0, q - 1))
     _same(got, want)
     np.testing.assert_array_equal(size_.numpy(), np.asarray(n))
 
@@ -191,14 +160,14 @@ def test_potts_wolff_step_value_for_value():
 def test_potts_swendsen_wang_step_value_for_value():
     m, size, q = 8, 5, 4
     ref = ref_potts.init_chains(m, size, q=q, beta=0.9, seed=7)
-    keys = _keys(6, m)
+    keys = ref_keys(6, m)
     want, n = jax.vmap(lambda s, k: ref_potts.swendsen_wang_step(
         s, q, k))(ref, keys)
-    k_right, k_down, k_col = _vsplit(keys, 3)
+    k_right, k_down, k_col = vsplit(keys, 3)
     got, nc = potts.swendsen_wang_step(
-        _carry(ref, potts.PottsState), q, _vuniform(k_right, (size, size)),
-        _vuniform(k_down, (size, size)),
-        _vrandint(k_col, (size * size,), 0, q, dtype=jnp.int8))
+        carry(ref, potts.PottsState), q, vuniform(k_right, (size, size)),
+        vuniform(k_down, (size, size)),
+        vrandint(k_col, (size * size,), 0, q, dtype=jnp.int8))
     _same(got, want)
     np.testing.assert_array_equal(nc.numpy(), np.asarray(n))
 
@@ -230,7 +199,7 @@ def test_generic_move_value_for_value(name):
         ref_act = {"site": jnp.asarray(site), "color": jnp.asarray(color)}
         act = {"site": torch.as_tensor(site), "color": torch.as_tensor(color)}
     want, dlogp = jax.vmap(ref_move.move.apply)(ref, ref_act)
-    got, d = move.move.apply(_carry(ref, cls), act)
+    got, d = move.move.apply(carry(ref, cls), act)
     _same(got, want)
     np.testing.assert_array_equal(d.numpy(), np.asarray(dlogp))
 

@@ -19,30 +19,16 @@ from montecarlo_tpu.ops.fused_sweep import fused_gaussian_sweep as ref_sweep
 from montecarlo_tpu_torch.models import particle1d as p1d
 from montecarlo_tpu_torch.ops.fused_sweep import (fused_gaussian_sweep,
                                                   kernel_potential)
+from torch_lattice_helpers import warm_up_transcendentals
 
 ATOL = 1e-5
 
 
-def _warm_up_transcendentals():
-    """Call each transcendental the comparisons use once before any of them.
-
-    On this MKL build of torch the first call of a vector math function in
-    a process can come back at reduced accuracy (relative error ~1e-4, on a
-    few percent of the elements; later calls are accurate:
-    ``tests/torch_first_call_probe.py``).  The first test of this file to
-    reach ``torch.log`` (``double_well-4-1-gridded``) can be, in a fresh
-    test worker, the process's first call; so it once put x up to 2.6e-5
-    off.  Pytest
-    imports every test module before it runs any test, so this call, at
-    import, comes first in every worker; on one thread and on many (a
-    tensor above the intra-op grain size)."""
-    for n in (64, 1 << 17):
-        u = torch.linspace(0.01, 0.99, n)
-        for fn in (torch.log, torch.cos, torch.sin, torch.exp, torch.sqrt):
-            fn(u)
-
-
-_warm_up_transcendentals()
+# The first test of this file to reach ``torch.log``
+# (``double_well-4-1-gridded``) can be, in a fresh test worker, the process's
+# first vector call of it, which once put x up to 2.6e-5 off; warming every
+# transcendental up at import, before any test runs, keeps that away.
+warm_up_transcendentals()
 POTENTIALS = {"harmonic": (ref_p1d.harmonic, p1d.harmonic),
               "double_well": (ref_p1d.double_well, p1d.double_well)}
 # (M, block_rows): one block, and a 3-block grid that folds pid into the seed
