@@ -6,8 +6,9 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit (``nvidia-smi``);
-2. build: compiles ``csrc/fused_sweep.cu``, ``csrc/lj_sweep.cu`` and
-   ``csrc/poly_sweep.cu`` with one nvcc each, started together;
+2. build: compiles ``csrc/fused_sweep.cu``, ``csrc/lj_sweep.cu``,
+   ``csrc/poly_sweep.cu`` and ``csrc/threefry.cu`` with one nvcc each,
+   started together;
 3. the Gaussian sweep kernel vs its plain version, harmonic and double
    well, at M = 10, 10^4 and 10^6 (one M for each lane-group width T that
    ``group_lanes`` picks on an H100: 32, 8, 1; the T used is printed), even
@@ -165,7 +166,22 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
    and launches a proposal, then the reference test's gate over the full
    60,000 steps if the measured rate fits them in 240 s, else on the 3 x 3
    lattice (the 4 x 4 run cut, with where its log f got); 12e, each new
-   step on the card and on the CPU from the same inputs and draws.
+   step on the card and on the CPU from the same inputs and draws;
+13. the reference's per-chain random streams (``utils/prng.py`` over the
+   threefry kernel ``csrc/threefry.cu``): 13a, the kernel against its plain
+   twin at 10^7 values (10^4 keys x 1000) in each mode (words, bits,
+   uniform, randint bit for bit; normal within 4 ulps), timed there and at
+   the generic path's shape; 13b, config 2's system (10^4 chains, 1000
+   steps) and config 4 (256 x N 256, 2 sweeps) on the generic path
+   (``fused='off'``) with the threefry launches set to 0 just before and
+   read just after: moves/s, kernel launches a Metropolis step and the
+   card's busy share under ``torch.profiler`` (with ``--parent-tree TREE``
+   the same runs of the package in TREE and of this one, each in a child
+   process, in turns parent, this, this, parent); 13c, the same seed's
+   generic runs on the card and on the CPU (initial chains and counters
+   equal, states within 1e-5); 13d, the generic path with PGMC on two gloo
+   ranks sharing the card equal, tensor for tensor, to one process, and
+   their backup resumed in one process equal to the uncut run.
 
 Prints its findings on lines before the last, a ``{"kernels": [...]}``
 line (``ms`` and ``plain_ms`` per call at the main path's segment of
@@ -173,14 +189,16 @@ line (``ms`` and ``plain_ms`` per call at the main path's segment of
 Metropolis sweep; ``entry_points`` names the unsharded and the sharded
 entry point that launch the kernel, ``launches`` counts both, of which
 ``mesh_launches`` those of phase 9's ranks; kernel #1's count includes
-phase 10c's segments, kernel #2's phase 10d's MH runs), and as the last line
+phase 10c's segments, kernel #2's phase 10d's MH runs; the threefry row's
+``launches`` are phase 13b's and 13d's, its times at the generic path's
+shape of one uniform for each of 10^4 chains), and as the last line
 ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero without the last
 line.
 
-Usage: python3 chip_smoke.py [--parent CSRC_DIR] [--kernels-only]
-[--cell-only] [--npt-only] [--mesh-only] [--ecmc-only] [--lattice-only]
-[--spins-only] [--nccl-pair]
+Usage: python3 chip_smoke.py [--parent CSRC_DIR] [--parent-tree TREE]
+[--kernels-only] [--cell-only] [--npt-only] [--mesh-only] [--ecmc-only]
+[--lattice-only] [--spins-only] [--streams-only] [--nccl-pair]
 
 ``--parent CSRC_DIR`` names a directory with an earlier version of
 ``fused_sweep.cu``, ``lj_sweep.cu`` and ``poly_sweep.cu`` (and their
@@ -194,7 +212,10 @@ and 4, the poly kernel where its block is one warp (N <= 32, the same sum
 order).  ``--kernels-only`` stops after phase 4b (and the comparison with
 ``--parent``); ``--cell-only`` runs phase 7 alone after the build,
 ``--npt-only`` phase 8, ``--mesh-only`` phase 9, ``--ecmc-only`` phase
-10, ``--lattice-only`` phase 11, ``--spins-only`` phase 12.
+10, ``--lattice-only`` phase 11, ``--spins-only`` phase 12,
+``--streams-only`` phase 13.  ``--parent-tree TREE`` names a checkout of an
+earlier commit (``git archive``) whose generic path phase 13b times beside
+this one's.
 ``--nccl-pair`` is no phase: after the build it starts two ``nccl`` ranks
 on the one card and prints what NCCL does with them.
 """
@@ -574,14 +595,16 @@ def config1(tmc, p1d, path):
           "config 1 summary.log")
 
 
-def config2_sim(tmc, p1d, device, path, m, steps, stride, mesh=None):
+def config2_sim(tmc, p1d, device, path, m, steps, stride, mesh=None,
+                fused="auto"):
     """BASELINE config 2: energy + acceptance, BIN trajectories."""
     sched = np.arange(stride, steps + 1, stride)
     return tmc.Simulation(
         p1d.make_system(p1d.harmonic),
         p1d.init_chains(m, beta=2.0, seed=42, device=device),
         [dict(algorithm=tmc.Metropolis,
-              pool=(p1d.displacement_move(sigma=SIGMA),), seed=42),
+              pool=(p1d.displacement_move(sigma=SIGMA),), seed=42,
+              fused=fused),
          dict(algorithm=tmc.StoreCallbacks,
               callbacks=(p1d.callback_energy, tmc.callback_acceptance),
               scheduler=sched),
@@ -787,7 +810,7 @@ def lj_main(tmc, device, path, cfg, mixed):
     return sim, time.perf_counter() - t0
 
 
-def lj_sim(tmc, device, path, cfg, mixed, mesh=None):
+def lj_sim(tmc, device, path, cfg, mixed, mesh=None, fused="auto"):
     """The Simulation of :func:`lj_main`."""
     from montecarlo_tpu_torch.models import lennard_jones as lj
     m, n, sweeps = cfg["chains"], cfg["n"], cfg["sweeps"]
@@ -800,7 +823,8 @@ def lj_sim(tmc, device, path, cfg, mixed, mesh=None):
         pool = (lj.lj_displacement_move(sigma=LJ_SIGMA),)
         sched = np.arange(cfg["stride"], sweeps + 1, cfg["stride"])
     algos = [
-        dict(algorithm=tmc.Metropolis, pool=pool, seed=42, sweepstep=n),
+        dict(algorithm=tmc.Metropolis, pool=pool, seed=42, sweepstep=n,
+             fused=fused),
         dict(algorithm=tmc.StoreCallbacks,
              callbacks=(lj.callback_energy_per_particle,
                         tmc.callback_acceptance), scheduler=sched)]
@@ -1484,11 +1508,10 @@ def pgmc5_resume(tmc, device, root, full):
     ckpt = os.path.join(path, "checkpoints", f"ckpt_t{cut}.npz")
     resumed = pgmc5_sim(tmc, device, os.path.join(root, "resumed"))
     checkpoint.resume_state(resumed, ckpt)
-    check(resumed.t == cut and isinstance(
-        resumed.device_state["pge"]["generator"], torch.Generator)
-        and resumed.device_state["pge"]["generator"].device.type
-        == device.type,
-        "config 5 checkpoint did not restore onto the card")
+    keys = resumed.device_state["pge"]["keys"]
+    check(resumed.t == cut and keys.dtype == torch.uint32
+          and keys.device.type == device.type,
+          "config 5 checkpoint did not restore onto the card")
     wall = timed_run(resumed)
     a, b = full.device_state, resumed.device_state
     pairs = {"pos": (a["sys"].pos, b["sys"].pos),
@@ -2752,6 +2775,8 @@ def mesh_sim(tmc, name, mesh, root):
         return pgmc5_sim(tmc, None, path, mesh=mesh, extra=(dict(
             algorithm=tmc.StoreBackups,
             scheduler=np.asarray([PGMC5["resume"]])),))
+    if name == "generic":
+        return generic_pgmc_sim(tmc, path, mesh)
     return poly_path_sim(tmc, None, path, mesh=mesh)[0]
 
 
@@ -2765,11 +2790,13 @@ def run_on_mesh(tmc, mesh, root, names, kernels=None):
     for name in names:
         sim = mesh_sim(tmc, name, mesh, root)
         before = dict(mesh.counts) if mesh is not None else None
+        threefry0 = _threefry_launches()
         if kernels is None:
             wall, counts = timed_run(sim), None
         else:
             wall, counts = counted(kernels, lambda: timed_run(sim))
-        r = dict(sim=sim, wall=wall, counts=counts)
+        r = dict(sim=sim, wall=wall, counts=counts,
+                 threefry=_threefry_launches() - threefry0)
         if mesh is not None:
             r.update(gathers=mesh.counts["all_gather"] - before["all_gather"],
                      gathered_bytes=mesh.counts["all_gather_bytes"]
@@ -2841,6 +2868,7 @@ def mesh_worker(opts):
                          **r["whole"])
             summary["runs"][name] = {
                 "wall": r["wall"], "counts": r["counts"],
+                "threefry": r["threefry"],
                 "gathers": r["gathers"],
                 "gathered_bytes": r["gathered_bytes"], "sliced": r["sliced"],
                 "device": str(st["sys"].pos.device if hasattr(
@@ -4147,6 +4175,325 @@ def spin_phases(tmc, device, kernels, card):
     print(f"phase 12: {time.perf_counter() - t0!r} s [{card}]")
 
 
+# -- phase 13: the reference's per-chain streams (the threefry kernel) -----------
+#
+# 13a: the threefry kernel against its plain twin at 10^7 values (10^4 keys
+# x 1000 counts) in every mode, timed there and at the generic path's shape
+# (one value for each of config 2's 10^4 chains); 13b: config 2's system
+# (10^4 chains) and config 4 (256 x N 256) on the generic path
+# (fused='off'): moves a second, launches a step and the card's busy share,
+# beside the parent commit's version when --parent-tree names it; 13c: a
+# generic run on the card against the same run on the CPU; 13d: the generic
+# path with PGMC on two gloo ranks against one process, and the ranks'
+# backup resumed in one process.
+STREAMS = dict(keys=10 ** 4, per_key=1000, reps=20, plain_reps=3,
+               config2_steps=1000, config2_stride=100, config4_sweeps=2,
+               profile_steps=20, twin_p1d=(1000, 200), twin_lj=(8, 64, 4),
+               mesh_chains=10 ** 4, mesh_steps=40, mesh_backup=20)
+# kernel against twin for normals: both call CUDA's log1pf and sqrt, so
+# they are expected to agree bit for bit; a toolkit whose log1pf differs
+# from the one torch was built with may move the last bits, by at most this
+THREEFRY_NORMAL_ULPS = 4
+# operations a value, counted from csrc/threefry.cu's source: a block is
+# 20 rounds of add, funnel shift and xor, five injections of three adds and
+# the parity word (2 + 60 + 15 + 2 = 79), with the grid-stride loop's index
+# split and loads (~10); a bits value adds an xor, a uniform a shift, an
+# or, a subtract, a multiply-add and a max, a normal the uniform's and
+# log1pf (~20), a select, a sqrt, 8 multiply-adds and three products;
+# randint is four blocks and three modulos
+THREEFRY_OPS = {"words": 89, "bits": 90, "uniform": 95, "normal": 135,
+                "randint": 4 * 79 + 40}
+THREEFRY_OUT_BYTES = {"words": 8, "bits": 4, "uniform": 4, "normal": 4,
+                      "randint": 4}
+
+
+def _threefry_launches():
+    """The threefry kernel's launch count, 0 where the package has none (a
+    tree before it)."""
+    try:
+        from montecarlo_tpu_torch.ops.threefry import THREEFRY_KERNEL
+    except ImportError:
+        return 0
+    return THREEFRY_KERNEL.launches
+
+
+def threefry_bound(n_keys, per_key, mode):
+    """The threefry function's bound: each key read once (8 bytes), each
+    value written once, and its operations a value."""
+    n = n_keys * per_key
+    return bound(8 * n_keys + THREEFRY_OUT_BYTES[mode] * n,
+                 n * THREEFRY_OPS[mode])
+
+
+def threefry_vs_plain(device, card):
+    """Phase 13a; returns (the largest |kernel - plain| over the float
+    modes, the generic path's shape's (kernel ms, plain ms, (bound ms,
+    bound by)))."""
+    import torch
+    from montecarlo_tpu_torch.ops.threefry import threefry
+    from montecarlo_tpu_torch.utils import prng
+    b, n = STREAMS["keys"], STREAMS["per_key"]
+    keys = prng.split(prng.key(SEED, device), b)
+    spans = (torch.arange(b, device=device, dtype=torch.int32) * 37) % 1024 + 1
+    cases = {"words": {}, "bits": {}, "uniform": dict(lo=-1.0, hi=1.0),
+             "normal": {}, "randint": dict(ilo=0, ihi=spans)}
+    err = 0.0
+    for mode, kw in cases.items():
+        got = threefry(keys, n, mode, **kw)
+        want = threefry(keys, n, mode, interpret=True, **kw)
+        torch.cuda.synchronize()
+        note = "bit for bit"
+        if mode == "normal":
+            ulps = (got.view(torch.int32).long()
+                    - want.view(torch.int32).long()).abs()
+            worst = int(ulps.max())
+            same = float((ulps == 0).double().mean())
+            note = (f"{100 * same!r} % bit for bit, at most {worst} ulps "
+                    f"apart (bound {THREEFRY_NORMAL_ULPS})")
+            check(worst <= THREEFRY_NORMAL_ULPS,
+                  f"13a: threefry normals {worst} ulps from the plain twin")
+        else:
+            check(torch.equal(got, want),
+                  f"13a: threefry {mode} differs from its plain twin")
+        if got.is_floating_point():
+            err = max(err, float((got - want).abs().max()))
+        k_ms = cuda_time(lambda: threefry(keys, n, mode, **kw),
+                         STREAMS["reps"])
+        p_ms = cuda_time(lambda: threefry(keys, n, mode, interpret=True,
+                                          **kw), STREAMS["plain_reps"])
+        b_ms, by = threefry_bound(b, n, mode)
+        print(f"13a: threefry {mode} at {b} keys x {n} values: kernel "
+              f"{note} against its plain twin; {k_ms!r} ms a launch, plain "
+              f"{p_ms!r} ms, bound {b_ms!r} ms (by {by}): "
+              f"{100 * b_ms / k_ms!r} % of the bound's rate [{card}]")
+    # the generic path's shape: one uniform a chain (the accept draw)
+    k_ms = cuda_time(lambda: threefry(keys, 1, "uniform"), 200)
+    p_ms = cuda_time(lambda: threefry(keys, 1, "uniform", interpret=True),
+                     20)
+    b_ms, by = threefry_bound(b, 1, "uniform")
+    print(f"13a: threefry uniform at the generic path's shape ({b} keys x "
+          f"1): {k_ms!r} ms a launch, plain {p_ms!r} ms, bound {b_ms!r} ms "
+          f"(by {by}); no PyTorch call computes threefry2x32 [{card}]")
+    return err, (k_ms, p_ms, (b_ms, by))
+
+
+def generic_bench(tmc, device, root, card):
+    """Phase 13b's two runs on the generic path with any tree of the package
+    (the parent commit's too): {name: {first, wall, moves, rate,
+    launches_step, busy}}: a short first run of each (its wall holds the
+    process's first launches of every op), the timed run from an idle card
+    to an idle card, then a short run under ``torch.profiler`` for the
+    launches a Metropolis step and the card's busy share."""
+    from montecarlo_tpu_torch.models import particle1d as p1d
+    out = {}
+    m, steps, stride = (CONFIG2_CHAINS, STREAMS["config2_steps"],
+                        STREAMS["config2_stride"])
+    short = STREAMS["profile_steps"]
+    first = timed_run(config2_sim(tmc, p1d, device, os.path.join(
+        root, "config2_first"), m, short, short, fused="off"))
+    sim = config2_sim(tmc, p1d, device, os.path.join(root, "config2_off"), m,
+                      steps, stride, fused="off")
+    check(not sim.device_algos[0].supports_fused, "13b: config 2 fused")
+    wall = timed_run(sim)
+    config2_checks(tmc, sim.device_state["sys"].x.device.type, device,
+                   os.path.join(root, "config2_off"), m, steps, stride, wall)
+    prof = config2_sim(tmc, p1d, device, os.path.join(root, "config2_prof"),
+                       m, short, short, fused="off")
+    busy, launches = _busy_share(prof.run, card, "13b config 2 generic")
+    out["config2"] = dict(first=first, wall=wall, moves=m * steps,
+                          rate=m * steps / wall,
+                          launches_step=launches / short, busy=busy)
+    cfg = dict(CONFIG4, sweeps=STREAMS["config4_sweeps"], stride=1)
+    first = timed_run(lj_sim(tmc, device, os.path.join(root, "config4_first"),
+                             dict(cfg, sweeps=1), False, fused="off"))
+    sim = lj_sim(tmc, device, os.path.join(root, "config4_off"), cfg, False,
+                 fused="off")
+    check(not sim.device_algos[0].supports_fused, "13b: config 4 fused")
+    wall = timed_run(sim)
+    moves = cfg["chains"] * cfg["n"] * cfg["sweeps"]
+    cnt = sim.device_state["metropolis"]["counters"]
+    check(int(cnt[..., 1].sum()) == moves and int(cnt[..., 0].sum()) > 0,
+          "13b: config 4 attempts")
+    prof = lj_sim(tmc, device, os.path.join(root, "config4_prof"),
+                  dict(cfg, sweeps=1), False, fused="off")
+    busy, launches = _busy_share(prof.run, card, "13b config 4 generic")
+    out["config4"] = dict(first=first, wall=wall, moves=moves,
+                          rate=moves / wall,
+                          launches_step=launches / cfg["n"], busy=busy)
+    for name, r in out.items():
+        print(f"13b: {name} on the generic path: a first short run "
+              f"{r['first']!r} s; {r['moves']} moves in "
+              f"{r['wall']!r} s, {r['rate']!r} moves/s, "
+              f"{r['launches_step']!r} kernel launches a Metropolis step, "
+              f"the card {100 * r['busy']!r} % busy [{card}]")
+    return out
+
+
+def bench_tree(tree):
+    """13b run by a child process on the package in ``tree``: its result."""
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--streams-bench", tree],
+        capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"13b on {tree}: {out.stderr[-3000:]}")
+    line = [ln for ln in out.stdout.splitlines()
+            if ln.startswith("STREAMS_BENCH ")][-1]
+    return json.loads(line.split(" ", 1)[1])
+
+
+def streams_card_vs_cpu(tmc, device, root, card):
+    """Phase 13c: the same seed's generic runs on the card and on the CPU:
+    initial chains equal, counters equal, states within 1e-5 (energies rtol
+    1e-5)."""
+    import torch
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.models import particle1d as p1d
+    cpu = torch.device("cpu")
+    m, steps = STREAMS["twin_p1d"]
+    mc_, n, sweeps = STREAMS["twin_lj"]
+    cfg = dict(chains=mc_, n=n, sweeps=sweeps, stride=sweeps,
+               w_disp=POOL5["w_disp"])
+    runs = {}
+    for dev in (device, cpu):
+        a = config2_sim(tmc, p1d, dev, os.path.join(root, f"twin1_{dev.type}"),
+                        m, steps, steps, fused="off")
+        b = lj_sim(tmc, dev, os.path.join(root, f"twin4_{dev.type}"), cfg,
+                   True, fused="off")
+        inits = (a.chains0.x.cpu(), b.chains0.pos.cpu())
+        a.run()
+        b.run()
+        runs[dev.type] = (inits, a.device_state, b.device_state)
+    (ia, pa, la), (ib, pb, lb) = runs[device.type], runs["cpu"]
+    check(all(torch.equal(x, y) for x, y in zip(ia, ib)),
+          "13c: init_chains differ on the card and on the CPU")
+    worst = 0.0
+    for what, sa, sb, fields in (("config 2's system", pa, pb, ("x", "e")),
+                                 ("the config-5 pool", la, lb,
+                                  ("pos", "species", "energy"))):
+        ca, cb = (s["metropolis"]["counters"].cpu() for s in (sa, sb))
+        check(torch.equal(ca, cb), f"13c: {what} counters differ on the "
+              f"card and on the CPU")
+        for f in fields:
+            x, y = (getattr(s["sys"], f).cpu().double() for s in (sa, sb))
+            d = float((x - y).abs().max())
+            tol = 1e-5 * (1 + float(y.abs().max())) if f in ("e", "energy") \
+                else 1e-5
+            check(d <= tol, f"13c: {what} {f} differs by {d!r}")
+            if f not in ("e", "energy", "species"):
+                worst = max(worst, d)
+    print(f"13c: the same seed's generic runs on the card and on the CPU "
+          f"({m} chains x {steps} steps of config 2's system, {mc_} x N {n} "
+          f"x {sweeps} sweeps of the config-5 pool): initial chains and "
+          f"counters equal, positions within {worst!r} [{card}]")
+
+
+def generic_pgmc_sim(tmc, path, mesh, device=None):
+    """Phase 13d: config 2's system on the generic path with PGMC (VPG on
+    the second of two displacement moves, estimator every 2 steps, update
+    every 10), a backup at ``mesh_backup``; no ``device=`` argument."""
+    from montecarlo_tpu_torch import policy_guided as pg
+    from montecarlo_tpu_torch.models import particle1d as p1d
+    steps = STREAMS["mesh_steps"]
+    pool = (p1d.displacement_move(sigma=0.2, weight=0.5),
+            p1d.displacement_move(sigma=0.2, weight=0.5))
+    return tmc.Simulation(
+        p1d.make_system(p1d.harmonic),
+        p1d.init_chains(STREAMS["mesh_chains"], beta=2.0, seed=42,
+                        device=device), [
+            dict(algorithm=tmc.Metropolis, pool=pool, seed=42, fused="off"),
+            dict(algorithm=pg.PolicyGradientEstimator,
+                 dependencies=(tmc.Metropolis,),
+                 optimisers=(pg.Static(), pg.VPG(0.05)), q_batch_size=2,
+                 scheduler=np.arange(2, steps + 1, 2)),
+            dict(algorithm=pg.PolicyGradientUpdate,
+                 dependencies=(pg.PolicyGradientEstimator,),
+                 scheduler=np.arange(10, steps + 1, 10)),
+            dict(algorithm=tmc.StoreParameters,
+                 dependencies=(tmc.Metropolis,),
+                 scheduler=np.arange(10, steps + 1, 10)),
+            dict(algorithm=tmc.StoreBackups,
+                 scheduler=np.asarray([STREAMS["mesh_backup"]]))],
+        steps, path=path, mesh=mesh)
+
+
+def streams_mesh(tmc, root, card):
+    """Phase 13d; returns the threefry launches of the two ranks."""
+    from montecarlo_tpu_torch import checkpoint
+    gloo = os.path.join(root, "gloo")
+    ranks = spawn_ranks(gloo, 2, "gloo", ("generic",))
+    single = run_on_mesh(tmc, None, os.path.join(root, "single"),
+                         ("generic",))["generic"]
+    whole = state_arrays(single["sim"].device_state)
+    m = STREAMS["mesh_chains"]
+    for r in range(2):
+        got = _load(gloo, r, "generic")
+        check(sorted(got) == sorted(whole), f"13d: rank {r} state's leaves")
+        for k, w in whole.items():
+            if w.ndim and w.shape[0] == m:
+                w = w[r * m // 2:(r + 1) * m // 2]
+            check(np.array_equal(got[k], w),
+                  f"13d: rank {r} {k} differs from one process")
+    sigma = float(whole["params/1/sigma"])
+    check(sigma != np.float32(0.2), "13d: sigma did not move")
+    resumed = generic_pgmc_sim(tmc, os.path.join(root, "resumed"), None)
+    checkpoint.resume_state(resumed, os.path.join(
+        gloo, "runs", "generic", "checkpoints",
+        f"ckpt_t{STREAMS['mesh_backup']}.npz"))
+    check(resumed.t == STREAMS["mesh_backup"], "13d: resume step")
+    timed_run(resumed)
+    got = state_arrays(resumed.device_state)
+    diff = [k for k in whole if not np.array_equal(got[k], whole[k])]
+    check(not diff, f"13d: resumed on one rank differs: {diff}")
+    n = [s["runs"]["generic"]["threefry"] for s in ranks]
+    check(all(k > 0 for k in n), f"13d: threefry launches on the ranks {n}")
+    print(f"13d: the generic path with PGMC ({m} chains, "
+          f"{STREAMS['mesh_steps']} steps) on 2 gloo ranks equals one "
+          f"process in every tensor of each rank's slice (positions, "
+          f"counters, keys, sigma {sigma!r}, the estimator's sums); the "
+          f"ranks' step-{STREAMS['mesh_backup']} backup resumed in one "
+          f"process equals the uncut run; threefry launches on the ranks "
+          f"{n}; walls {[s['runs']['generic']['wall'] for s in ranks]} s on "
+          f"two ranks sharing the card, {single['wall']!r} s in one process "
+          f"[{card}]")
+    return sum(n)
+
+
+def streams_phases(tmc, device, kernels, card, parent_tree=None):
+    """Phase 13 (13a-13d); returns the threefry row's numbers."""
+    from montecarlo_tpu_torch.ops.threefry import THREEFRY_KERNEL
+    err, (k_ms, p_ms, (b_ms, by)) = threefry_vs_plain(device, card)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as tmp:
+        for k in kernels:
+            k.launches = 0
+        THREEFRY_KERNEL.launches = 0
+        bench = generic_bench(tmc, device, tmp, card)
+        n_main = THREEFRY_KERNEL.launches
+        row_counts = {k.symbol: k.launches for k in kernels}
+        print(f"main path: 13b generic runs launched threefry {n_main} "
+              f"times, the row kernels {row_counts}")
+        check(n_main > 0, "13b: the generic path did not launch threefry")
+        check(not any(row_counts.values()),
+              "13b: the generic path launched a row kernel")
+        if parent_tree is not None:
+            turns = [("parent", parent_tree), ("change", ROOT),
+                     ("change", ROOT), ("parent", parent_tree)]
+            res = [(who, bench_tree(tree)) for who, tree in turns]
+            for name in ("config2", "config4"):
+                for who in ("parent", "change"):
+                    rates = [r[name]["rate"] for w, r in res if w == who]
+                    busy = [r[name]["busy"] for w, r in res if w == who]
+                    lps = [r[name]["launches_step"] for w, r in res
+                           if w == who]
+                    firsts = [r[name]["first"] for w, r in res if w == who]
+                    print(f"13b: {name} generic, {who} (turns parent, "
+                          f"change, change, parent): moves/s {rates}, "
+                          f"launches a step {lps}, busy {busy}, first "
+                          f"short run {firsts} s [{card}]")
+        streams_card_vs_cpu(tmc, device, tmp, card)
+        n_mesh = streams_mesh(tmc, tmp, card)
+    return dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                launches=n_main + n_mesh, mesh_launches=n_mesh, bench=bench)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", metavar="CSRC_DIR", default=None,
@@ -4173,6 +4520,16 @@ def main():
                         help="after the build, run only phase 12 (the "
                              "continuous and quantum lattice models and "
                              "Wang-Landau)")
+    parser.add_argument("--streams-only", action="store_true",
+                        help="after the build, run only phase 13 (the "
+                             "threefry streams)")
+    parser.add_argument("--parent-tree", metavar="TREE", default=None,
+                        help="a checkout of an earlier commit whose generic "
+                             "path phase 13b times against this one's, in "
+                             "turns")
+    # phase 13b on the package of another tree, in a child process
+    parser.add_argument("--streams-bench", metavar="TREE", default=None,
+                        help=argparse.SUPPRESS)
     parser.add_argument("--nccl-pair", action="store_true",
                         help="after the build, only try two nccl ranks on "
                              "the one card and print what NCCL does (not a "
@@ -4191,6 +4548,18 @@ def main():
         return 1
     if opts.mesh_rank is not None:
         return mesh_worker(opts)
+    if opts.streams_bench is not None:
+        tree = os.path.abspath(opts.streams_bench)
+        sys.path.insert(0, tree)
+        import montecarlo_tpu_torch as tmc
+        check(os.path.abspath(tmc.__file__).startswith(tree + os.sep),
+              f"13b: imported {tmc.__file__}, not the package in {tree}")
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke-",
+                                         dir=ROOT) as tmp:
+            res = generic_bench(tmc, torch.device("cuda", 0), tmp,
+                                card_line())
+        print("STREAMS_BENCH " + json.dumps(res))
+        return 0
     sys.path.insert(0, ROOT)
     import montecarlo_tpu_torch as tmc
     from montecarlo_tpu_torch.core.simulation import _select_advance
@@ -4198,6 +4567,7 @@ def main():
     from montecarlo_tpu_torch.ops.fused_sweep import SWEEP_KERNEL
     from montecarlo_tpu_torch.ops.lj_sweep import LJ_KERNEL, LJ_MIXED_KERNEL
     from montecarlo_tpu_torch.ops.poly_sweep import POLY_KERNEL
+    from montecarlo_tpu_torch.ops.threefry import THREEFRY_KERNEL
     kernels = (SWEEP_KERNEL, LJ_KERNEL, LJ_MIXED_KERNEL, POLY_KERNEL)
 
     # 1. device
@@ -4210,10 +4580,11 @@ def main():
 
     # 2. build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         list(pool.map(lambda k: k.build(),
-                      (SWEEP_KERNEL, LJ_KERNEL, POLY_KERNEL)))
-    for k in kernels:
+                      (SWEEP_KERNEL, LJ_KERNEL, POLY_KERNEL,
+                       THREEFRY_KERNEL)))
+    for k in kernels + (THREEFRY_KERNEL,):
         k.build()
         print(f"build: {k.symbol} from {k.library_path()} "
               f"(nvcc wall {k.build_seconds!r} s)")
@@ -4242,6 +4613,10 @@ def main():
     if opts.spins_only:
         spin_phases(tmc, device, kernels, card)
         print("chip_smoke: --spins-only: stopping after phase 12")
+        return 0
+    if opts.streams_only:
+        streams_phases(tmc, device, kernels, card, opts.parent_tree)
+        print("chip_smoke: --streams-only: stopping after phase 13")
         return 0
     if opts.nccl_pair:
         nccl_pair(card)
@@ -4427,6 +4802,8 @@ def main():
     lattice_phases(tmc, device, kernels, card)
     # 12. XY, Heisenberg, TFIM and Wang-Landau: no kernel launched
     spin_phases(tmc, device, kernels, card)
+    # 13. the reference's per-chain streams: the threefry kernel
+    streams = streams_phases(tmc, device, kernels, card, opts.parent_tree)
 
     m2 = CONFIG2_CHAINS
     specs = [(
@@ -4475,6 +4852,22 @@ def main():
               f"{by}): {100 * b_ms / k_ms!r} % of the bound's rate; plain "
               f"version {p_ms!r} ms; no single PyTorch call computes a "
               f"Metropolis sweep [{card}]")
+    rows.append({
+        "name": "threefry", "route": "cuda",
+        "source": "montecarlo_tpu_torch/csrc/threefry.cu",
+        "replaces": "jax/_src/prng.py:883 (XLA's threefry2x32 lowering; "
+                    "no Pallas kernel)",
+        "launches": streams["launches"], "max_abs_err": streams["err"],
+        "ms": streams["ms"], "plain_ms": streams["plain_ms"],
+        "bound_ms": streams["bound_ms"], "bound_by": streams["bound_by"],
+        "library_ms": None, "shape": [STREAMS["keys"], 1],
+        "entry_points": ["threefry"],
+        "mesh_launches": streams["mesh_launches"]})
+    print(f"bound: threefry at the generic path's shape ({STREAMS['keys']} "
+          f"keys x 1 uniform): {streams['ms']!r} ms a launch against a bound "
+          f"of {streams['bound_ms']!r} ms (by {streams['bound_by']}); plain "
+          f"version {streams['plain_ms']!r} ms; no PyTorch call computes "
+          f"threefry2x32 [{card}]")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,13 @@
 
 Port of ``montecarlo_tpu/checkpoint.py``.  The reference's ``StoreBackups``
 writes restart text files with no loader (``src/algorithms.jl:264-303``);
-here the complete device state — chains, generators, acceptance counters,
-move parameters, the PGMC accumulators and the step counter — round-trips
-through one ``.npz`` file with a JSON ``__meta__`` entry, so a run can
-resume exactly.
+here the complete device state — chains, the per-chain threefry keys,
+generators, acceptance counters, move parameters, the PGMC accumulators
+and the step counter — round-trips through one ``.npz`` file with a JSON
+``__meta__`` entry, so a run can resume exactly.
 
+Keys are uint32 tensors and are stored as uint32 data, as the reference
+stores ``jax.random.key_data`` (``montecarlo_tpu/checkpoint.py:55-56``).
 A ``torch.Generator`` is stored as its ``get_state()`` bytes and its
 device, and restored with ``set_state`` on a new generator of that device;
 the Python-int step counter is stored as an int64 and restored as an int.
@@ -14,9 +16,14 @@ the Python-int step counter is stored as an int64 and restored as an int.
 On a chain mesh saving is collective (the reference's all-gather): the
 sliced leaves are gathered whole, each generator is stored as one state per
 rank (an (S, bytes) array) and the rank count as ``__mesh_size__``, and
-rank 0 writes the file.  A checkpoint resumes on a mesh of the same rank
-count only, each rank taking its slice and its own generators back; one
-written without a mesh resumes without one.
+rank 0 writes the file.  A state without generators (the generic and
+fused paths, PGMC) is whole in the file, so its checkpoint resumes on any
+rank count, with a mesh or without, each rank taking its slice of the
+chains and their keys, as the reference's resumes on any mesh
+(``montecarlo_tpu/checkpoint.py:91-94``).  A state that holds generators
+(the cell path, ECMC, the lattice samplers, Wang–Landau, replica exchange)
+resumes on a mesh of the same rank count only, each rank taking its own
+generators back; one written without a mesh resumes without one.
 """
 
 from __future__ import annotations
@@ -80,15 +87,17 @@ def restore(path: str, like: Any, mesh=None) -> Any:
     template: tensors go to the device of ``like``'s leaf.
 
     The tree comes back whole.  With ``mesh`` each generator is this rank's
-    own, on the device of ``like``'s generator; a checkpoint written by a
-    mesh of another rank count, or with a mesh where none is given (or the
-    other way round), raises."""
+    own, on the device of ``like``'s generator; a checkpoint that holds
+    generators and was written by a mesh of another rank count, or with a
+    mesh where none is given (or the other way round), raises.  One without
+    generators restores on any mesh or none."""
     with np.load(path) as data:
         meta = json.loads(bytes(data["__meta__"]).decode())
         arrays = {k: data[k] for k in data.files}
     saved = int(arrays[_MESH_SIZE]) if _MESH_SIZE in arrays else None
     want = None if mesh is None else mesh.size
-    if saved != want:
+    has_generators = any(_GEN_MARK in e for e in meta.values())
+    if has_generators and saved != want:
         def ranks(n):
             return "no mesh" if n is None else f"a mesh of {n} rank(s)"
         raise ValueError(f"checkpoint {path} was written with {ranks(saved)} "
@@ -121,7 +130,7 @@ def restore(path: str, like: Any, mesh=None) -> Any:
 def resume_state(simulation, path: str) -> None:
     """Load a checkpoint into ``simulation`` so that its next ``run``
     continues from the checkpointed step; on a mesh each rank takes back
-    its slice of the chains and its own generators."""
+    its slice of the chains (with their keys) and its own generators."""
     mesh = simulation.mesh
     dstate = restore(path, simulation.init_device_state(), mesh=mesh)
     if mesh is not None:

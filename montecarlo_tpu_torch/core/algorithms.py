@@ -494,7 +494,8 @@ class StoreBackups(ObservableRecorder):
     Per chain, ``trajectories/<c>/restart_t<t>.dat`` holds the frame in the
     system's ``format_frame`` line format, as the reference's; besides,
     ``checkpoints/ckpt_t<t>.npz`` holds the whole device state (chains,
-    generators, counters, move parameters, PGMC accumulators, step), which
+    the chains' keys and any generators, counters, move parameters, PGMC
+    accumulators, step), which
     :func:`montecarlo_tpu_torch.checkpoint.resume_state` loads to resume.
     Before the checkpoint is saved, every chain-major trajectory store of
     the run is committed (``StoreTrajectories.commit``), and at a step that

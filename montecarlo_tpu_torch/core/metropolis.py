@@ -6,22 +6,23 @@ tensor operations over the chain axis (:func:`mc_step`), a sweep is a
 Python loop of steps (:func:`mc_sweep`), and rejection is a ``torch.where``
 select.
 
-Randomness: the generic path draws from one ``torch.Generator`` per
-:class:`Metropolis`, on the state's device, seeded with ``seed``.  Its
-stream is not the JAX package's threefry stream, so the generic path is
-held to the reference by statistics.  The fused path draws from the
+Randomness, the reference's design (``src/metropolis.jl:262-263``
+replaced by counter-based keys): each chain owns the threefry key
+``fold_in(key(seed), chain_id)``; step t of the generic path folds t into
+it, a sweep splits that key ``sweepstep`` ways, and a step splits its key
+into three: the move pick (``categorical`` over the log weights), the
+policy's sample and the accept uniform (``utils/prng.py``, the
+``jax.random`` stream bit for bit).  So the same seed gives the JAX
+package's numbers on any device, and a chain's numbers do not depend on
+how the chains are split over ranks.  The fused path draws from the
 reference's counter-hash stream and reproduces its interpret-mode results
-(``ops/fused_sweep.py``).  The checkerboard cell-MC path
-(``ops/cell_mc.py``) draws its per-cell numbers from the same generator and
-its per-substep variants from a counter-based host generator keyed by
-(seed, micro-step).
-
-On a chain mesh (``Simulation(mesh=...)``) each rank steps its own slice of
-the chains: the fused path through the ``sharded_*`` sweep entry points,
-which fold the rank into the sweep seed, and the generic and cell paths
-with a generator seeded from the same fold (:attr:`Metropolis.stream_seed`).
-So a run's streams depend on its rank count; a run on a fixed count is
-reproducible.
+(``ops/fused_sweep.py``); on a chain mesh its ``sharded_*`` entry points
+fold the rank into the sweep seed, as the reference's do.  The
+checkerboard cell-MC path (``ops/cell_mc.py``) draws its per-cell numbers
+from a ``torch.Generator`` that exists only where a cell plan does, seeded
+with :attr:`Metropolis.stream_seed` (on a mesh the rank folded in), and its
+per-substep variants from a counter-based host generator keyed by (seed,
+micro-step).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils import prng
 from ..utils.tree import tree_leaves, tree_map
 from .algorithms import DeviceAlgorithm, ObservableRecorder, SimView
 from .moves import Move, MoveDef, tree_select
@@ -89,30 +91,26 @@ def build_move_groups(pool):
     return groups, group_of, within_of
 
 
-def _n_chains(state) -> int:
-    return int(tree_leaves(state)[0].shape[0])
-
-
-def _pick_moves(log_weights, n_moves, m, generator, device):
-    """Per-chain categorical move choice (all zeros for a one-move pool)."""
+def _pick_moves(log_weights, n_moves, kid):
+    """Per-chain categorical move choice from the keys ``kid`` (all zeros
+    for a one-move pool, which draws nothing)."""
     if n_moves == 1:
-        return torch.zeros(m, dtype=torch.int64, device=device)
-    probs = torch.softmax(log_weights.to(device), 0).expand(m, n_moves)
-    return torch.multinomial(probs, 1, generator=generator).squeeze(1)
+        return torch.zeros(kid.shape[0], dtype=torch.int64,
+                           device=kid.device)
+    return prng.categorical(kid, log_weights.to(kid.device))
 
 
-def _propose(md, p, state, generator):
+def _propose(md, p, state, ksample, kaccept):
     """Stages 1-7 of ``mc_step!`` for all chains: sample, forward logq,
     apply, invert, backward logq, accept test.  Returns the selected state
     and the (M,) accept mask."""
-    action = md.policy.sample(p, generator, state)
+    action = md.policy.sample(p, ksample, state)
     logq_f = md.policy.log_density(p, action, state)
     new_st, dlogp = md.apply(state, action)
     inv = md.invert(action, new_st)
     logq_b = md.policy.log_density(p, inv, new_st)
     log_ratio = dlogp + logq_b - logq_f
-    u = torch.rand(log_ratio.shape, generator=generator,
-                   dtype=log_ratio.dtype, device=log_ratio.device)
+    u = prng.uniform(kaccept, (), log_ratio.dtype)
     accept = torch.log(u) < log_ratio
     return tree_select(accept, new_st, state), accept
 
@@ -125,13 +123,15 @@ def _count(counters, move_id, accept, n_moves):
 
 
 def mc_step(movedefs: Sequence[MoveDef], params: Sequence, log_weights,
-            state, counters, generator):
+            state, counters, key):
     """One Metropolis–Hastings step on every chain.
 
     The 8-stage recipe of ``mc_step!`` + the categorical move selection of
-    ``mc_sweep!`` (``src/metropolis.jl:176-212``): each chain picks a move,
-    every move's proposal runs over all chains, and each chain keeps the
-    result of its own pick.
+    ``mc_sweep!`` (``src/metropolis.jl:176-212``): each chain splits its key
+    in three (pick, sample, accept), picks a move, every move's proposal
+    runs over all chains with the same sample and accept keys (as the
+    reference's ``lax.switch`` branches do under ``vmap``), and each chain
+    keeps the result of its own pick.
 
     Args:
       movedefs: tuple of :class:`MoveDef` (the pool).
@@ -139,18 +139,19 @@ def mc_step(movedefs: Sequence[MoveDef], params: Sequence, log_weights,
       log_weights: ``log(weight)`` tensor, shape ``(K,)``.
       state: chain-batched system state.
       counters: ``(M, K, 2)`` int32 tensor of (accepted, total) per move.
-      generator: ``torch.Generator`` on the state's device.
+      key: ``(M, 2)`` uint32 tensor of this step's per-chain keys.
 
     Returns:
       ``(new_state, new_counters)``.
     """
     n_moves = len(movedefs)
-    m = _n_chains(state)
-    move_id = _pick_moves(log_weights, n_moves, m, generator,
-                          counters.device)
-    new_state, accept = _propose(movedefs[0], params[0], state, generator)
+    kid, ksample, kaccept = prng.split(key, 3).unbind(-2)
+    move_id = _pick_moves(log_weights, n_moves, kid)
+    new_state, accept = _propose(movedefs[0], params[0], state, ksample,
+                                 kaccept)
     for k in range(1, n_moves):
-        st_k, acc_k = _propose(movedefs[k], params[k], state, generator)
+        st_k, acc_k = _propose(movedefs[k], params[k], state, ksample,
+                               kaccept)
         mine = move_id == k
         new_state = tree_select(mine, st_k, new_state)
         accept = torch.where(mine, acc_k, accept)
@@ -158,7 +159,7 @@ def mc_step(movedefs: Sequence[MoveDef], params: Sequence, log_weights,
 
 
 def grouped_mc_step(groups, group_of, within_of, params, log_weights,
-                    n_moves, state, counters, generator):
+                    n_moves, state, counters, key):
     """Like :func:`mc_step`, but moves with identical structure are grouped:
     a group's proposal runs once, with each chain's parameters gathered from
     the members' stacked parameters, instead of once per move.  Selection,
@@ -169,9 +170,9 @@ def grouped_mc_step(groups, group_of, within_of, params, log_weights,
       group_of / within_of: int arrays mapping global move id to (group
         index, index within the group's stacked params).
     """
-    m = _n_chains(state)
     device = counters.device
-    move_id = _pick_moves(log_weights, n_moves, m, generator, device)
+    kid, ksample, kaccept = prng.split(key, 3).unbind(-2)
+    move_id = _pick_moves(log_weights, n_moves, kid)
     w = torch.as_tensor(within_of, device=device).long()[move_id]
     g = torch.as_tensor(group_of, device=device).long()[move_id]
     new_state = accept = None
@@ -181,7 +182,7 @@ def grouped_mc_step(groups, group_of, within_of, params, log_weights,
         else:
             p = tree_map(lambda *xs: torch.stack(xs)[w],
                          *[params[lid] for lid in members])
-        st_g, acc_g = _propose(md, p, state, generator)
+        st_g, acc_g = _propose(md, p, state, ksample, kaccept)
         if new_state is None:
             new_state, accept = st_g, acc_g
         else:
@@ -191,15 +192,19 @@ def grouped_mc_step(groups, group_of, within_of, params, log_weights,
     return new_state, _count(counters, move_id, accept, n_moves)
 
 
-def mc_sweep(movedefs, params, log_weights, state, counters, generator,
+def mc_sweep(movedefs, params, log_weights, state, counters, key,
              mc_steps: int = 1, step_fn=None):
     """``mc_steps`` MH steps on every chain (ref ``mc_sweep!``,
-    ``src/metropolis.jl:203-212``)."""
+    ``src/metropolis.jl:203-212``): one step takes ``key`` itself, more
+    split it ``mc_steps`` ways, a key a step, as the reference's scan."""
     if step_fn is None:
-        step_fn = lambda st, cnt, gen: mc_step(
-            movedefs, params, log_weights, st, cnt, gen)
-    for _ in range(mc_steps):
-        state, counters = step_fn(state, counters, generator)
+        step_fn = lambda st, cnt, k: mc_step(
+            movedefs, params, log_weights, st, cnt, k)
+    if mc_steps == 1:
+        return step_fn(state, counters, key)
+    keys = prng.split(key, mc_steps)
+    for s in range(mc_steps):
+        state, counters = step_fn(state, counters, keys[:, s])
     return state, counters
 
 
@@ -263,8 +268,9 @@ class Metropolis(DeviceAlgorithm):
         self.sweepstep = int(sweepstep)
         self.seed = int(seed)
         self.mesh = getattr(sim, "mesh", None)
-        #: the seed of this rank's generator: ``seed`` itself without a
-        #: mesh, else the rank folded in as the fused path folds it
+        #: the seed of this rank's cell-path generator: ``seed`` itself
+        #: without a mesh, else the rank folded in as the fused path folds
+        #: it
         self.stream_seed = self.seed
         if self.mesh is not None:
             from ..ops.fused_sweep import _shard_seed
@@ -450,12 +456,17 @@ class Metropolis(DeviceAlgorithm):
             super().__init__("cell-MC bind became invalid during the run")
 
     def init_state(self, sim):
+        # chain c's key fold_in(key(seed), c) over the global chain ids: a
+        # mesh slices it with the chains, so streams do not depend on ranks
+        chain_ids = torch.arange(self.n_chains, device=self.device)
+        keys = prng.fold_in(prng.key(self.seed, self.device)[None],
+                            chain_ids)
         counters = torch.zeros((self.n_chains, self.n_moves, 2),
                                dtype=torch.int32, device=self.device)
-        gen = torch.Generator(device=self.device).manual_seed(
-            self.stream_seed)
-        slc = {"counters": counters, "generator": gen}
+        slc = {"keys": keys, "counters": counters}
         if self._cell_plan is not None:
+            slc["generator"] = torch.Generator(
+                device=self.device).manual_seed(self.stream_seed)
             # a latched flag, read on the host at every sync point: a cell
             # bind became invalid.  cell_debt carries the fractional-substep
             # credit between segments, in the reference's float32
@@ -500,15 +511,15 @@ class Metropolis(DeviceAlgorithm):
         slc = dstate[self.state_key]
         params = dstate[self.params_key]
 
-        def step_fn(st, cnt, gen):
+        def step_fn(st, cnt, k):
             return grouped_mc_step(self.groups, self.group_of, self.within_of,
                                    params, self.log_weights, self.n_moves,
-                                   st, cnt, gen)
+                                   st, cnt, k)
 
         sys, counters = mc_sweep(self.movedefs, params, self.log_weights,
                                  dstate["sys"], slc["counters"],
-                                 slc["generator"], self.sweepstep,
-                                 step_fn=step_fn)
+                                 prng.fold_in(slc["keys"], t),
+                                 self.sweepstep, step_fn=step_fn)
         return {**dstate, "sys": sys,
                 self.state_key: {**slc, "counters": counters}}
 

@@ -43,8 +43,12 @@ class Policy:
 
     Concrete policies implement two functions over all chains at once:
 
-    - ``sample(params, generator, state) -> action``: draw one action per
-      chain from ``generator`` (a ``torch.Generator`` on the state's device).
+    - ``sample(params, key, state) -> action``: draw one action per chain,
+      chain c's from its own key ``key[c]``: ``key`` is the ``(M, 2)``
+      uint32 tensor of per-chain threefry keys, and the draws come from
+      :mod:`montecarlo_tpu_torch.utils.prng`, whose functions take a batch
+      of keys (``prng.normal(key, (d,))`` is ``(M, d)``), so a policy that
+      draws as the reference's does per chain gives its numbers.
     - ``log_density(params, action, state) -> (M,) tensor``: log proposal
       density per chain.
 
@@ -53,7 +57,7 @@ class Policy:
     chain axis.
     """
 
-    def sample(self, params, generator, state):
+    def sample(self, params, key, state):
         raise NotImplementedError(
             f"No sample is defined for {type(self).__name__}")
 

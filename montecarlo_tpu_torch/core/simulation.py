@@ -384,9 +384,11 @@ def _select_advance(sim: Simulation):
 def _execute(sim: Simulation):
     """Run the time loop, falling back (and resuming from the last committed
     sync point, whose records are all that was written) when an
-    auto-selected cell-MC bind overflows.  The generator is not rewound:
-    the segments after the fallback draw on from where the dropped ones
-    left it."""
+    auto-selected cell-MC bind overflows.  Nothing is rewound: the generic
+    path draws each step's numbers from the chains' keys and t, and the
+    row kernels from the seed and the micro-step, so the steps after the
+    fallback draw what they would have drawn without the dropped segments;
+    the cell path's generator is not drawn from again."""
     from .metropolis import Metropolis
     while True:
         try:

@@ -1,9 +1,13 @@
 """Chain state carried between the JAX package and this one.
 
-The two packages draw initial chains from different generators, so to run
-both from the same state, one's chains are carried over to the other as
-numpy arrays.  Nothing here imports ``jax``: the JAX side converts its
-arrays with ``np.asarray``.
+The particle models' ``init_chains`` (particle-1d, Lennard-Jones,
+polydisperse, hard disks) draw from the reference's threefry stream, so
+both packages make the same chains from the same seed.  To run both from
+any other state (the lattice models' initial chains, a state one package
+has advanced), one's chains are carried over to the other as numpy arrays;
+the reference's per-chain keys are carried by :func:`keys_from_reference`.
+Nothing here imports ``jax``: the JAX side converts its arrays with
+``np.asarray`` (keys with ``jax.random.key_data``).
 
 Every family is carried: particle-1d (``x``, ``beta``, ``e``),
 Lennard-Jones (``pos``, ``species``, ``beta``, ``energy``, ``box``),
@@ -21,8 +25,7 @@ Device-state slices are carried too (:func:`slice_from_reference`,
 :func:`slice_to_reference`): the ``ecmc`` slice of ``EventChain`` (``lift``,
 ``stats``, ``n_events``), the ``replica_exchange`` slice (``calls``,
 ``counters``) and the ``wang_landau`` slice (``log_g``, ``hist``,
-``visited``, ``log_f``).  The reference's threefry keys are not carried:
-the port's generators stay its own.
+``visited``, ``log_f``).  A slice's generator stays the port's own.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from .utils.device import resolve_device
 from .utils.tree import tree_map
 
 __all__ = ["chains_from_reference", "chains_to_reference",
+           "keys_from_reference", "keys_to_reference",
            "slice_from_reference", "slice_to_reference"]
 
 _LATTICE = ("spins", "beta", "j", "energy")
@@ -111,6 +115,24 @@ def chains_to_reference(state) -> dict:
     ``Ising2DState(**...)`` and so on)."""
     return {k: getattr(state, k).detach().cpu().numpy()
             for k in _FIELDS[type(state)]}
+
+
+def keys_from_reference(key_data, device=None) -> torch.Tensor:
+    """The reference's keys, given as their ``jax.random.key_data`` (a
+    ``(..., 2)`` uint32 array), as this package's keys
+    (:mod:`~montecarlo_tpu_torch.utils.prng`) on ``device`` (the card,
+    ``cuda``, when None): the same words, so the same draws."""
+    data = np.asarray(key_data)
+    if data.dtype != np.uint32 or data.ndim < 1 or data.shape[-1] != 2:
+        raise ValueError(f"expected (..., 2) uint32 key data, got "
+                         f"{data.shape} {data.dtype}")
+    return torch.as_tensor(data.copy(), device=resolve_device(device))
+
+
+def keys_to_reference(keys) -> np.ndarray:
+    """The inverse: the keys' words as a uint32 numpy array, for
+    ``jax.random.wrap_key_data``."""
+    return keys.detach().cpu().numpy()
 
 
 def slice_from_reference(key: str, np_slice, like):

@@ -23,6 +23,7 @@ from ..core.ecmc import (CHECK_EVERY, EventChainModel, StraightChain,
                          run_chain, squared_norm)
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
+from ..utils import prng
 from ..utils.device import resolve_device
 from .lennard_jones import UniformLogVolume, _jittered, _lattice
 
@@ -80,10 +81,9 @@ def init_chains(n_chains: int, n_disks: int, eta: float, seed: int = 42,
     at packing fraction ``eta`` (area fraction in 2-D, volume fraction in
     3-D; the lattice must have no overlap: eta < pi/4 ~ 0.785 in 2-D,
     < pi/6 ~ 0.524 in 3-D), each particle jittered uniformly by up to 0.45
-    of the lattice's free spacing.  The jitter comes from a
-    ``torch.Generator`` seeded with ``seed`` — a different stream than the
-    JAX package's, so ``interop.chains_from_reference`` carries its chains
-    over instead.  The chains are made on ``device``, the card (``cuda``)
+    of the lattice's free spacing.  The jitter is the reference's draw
+    from ``seed``, so the JAX package's ``init_chains`` gives the same
+    positions.  The chains are made on ``device``, the card (``cuda``)
     when it is None."""
     device = resolve_device(device)
     if dim == 2:
@@ -196,12 +196,12 @@ def cell_closures():
 class UniformSquare(Policy):
     """Uniform particle pick + uniform square displacement (symmetric)."""
 
-    def sample(self, params, generator, state):
-        m, n, d = state.pos.shape
-        dev = state.pos.device
-        i = torch.randint(0, n, (m,), generator=generator, device=dev)
-        delta = params["delta"][..., None] * (2.0 * torch.rand(
-            (m, d), generator=generator, device=dev) - 1.0)
+    def sample(self, params, key, state):
+        ki, kd = prng.split(key).unbind(-2)
+        _, n, d = state.pos.shape
+        i = prng.randint(ki, (), 0, n, dtype=torch.int64)
+        delta = params["delta"][..., None] * prng.uniform(
+            kd, (d,), minval=-1.0, maxval=1.0)
         return {"i": i, "delta": delta}
 
     def log_density(self, params, action, state):

@@ -35,6 +35,7 @@ import torch
 from ..core.algorithms import _n_calls
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
+from ..utils import prng
 from ..utils.device import resolve_device
 from .ising2d import LatticeSampler, _require_even, parity_mask
 
@@ -126,13 +127,12 @@ class AxisAngleRotation(Policy):
     ``alpha ~ U[-delta, delta]``.  Symmetric: the inverse action (same axis,
     ``-alpha``) has the same density."""
 
-    def sample(self, params, generator, state):
-        m, lx, ly, _ = state.spins.shape
-        dev = state.spins.device
-        site = torch.randint(0, lx * ly, (m,), generator=generator,
-                             device=dev)
-        axis = _unit(torch.randn((m, 3), generator=generator, device=dev))
-        u = torch.rand((m,), generator=generator, device=dev)
+    def sample(self, params, key, state):
+        k_site, k_axis, k_ang = prng.split(key, 3).unbind(-2)
+        _, lx, ly, _ = state.spins.shape
+        site = prng.randint(k_site, (), 0, lx * ly, dtype=torch.int64)
+        axis = _unit(prng.normal(k_axis, (3,)))
+        u = prng.uniform(k_ang)
         return {"site": site, "axis": axis,
                 "alpha": params["delta"] * (2.0 * u - 1.0)}
 

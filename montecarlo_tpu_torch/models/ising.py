@@ -19,6 +19,7 @@ import torch
 
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
+from ..utils import prng
 from ..utils.device import resolve_device
 
 __all__ = ["IsingState", "make_system", "init_chains", "spin_flip_move",
@@ -81,10 +82,9 @@ def init_chains(n_chains: int, n_spins: int, beta: float, j: float = 1.0,
 class UniformSiteFlip(Policy):
     """Pick a site uniformly; the proposal is symmetric and self-inverse."""
 
-    def sample(self, params, generator, state):
-        m, n = state.spins.shape
-        return torch.randint(0, n, (m,), generator=generator,
-                             device=state.spins.device)
+    def sample(self, params, key, state):
+        n = state.spins.shape[1]
+        return prng.randint(key, (), 0, n, dtype=torch.int64)
 
     def log_density(self, params, action, state):
         m, n = state.spins.shape

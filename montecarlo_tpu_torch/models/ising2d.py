@@ -40,6 +40,7 @@ import torch
 from ..core.algorithms import DeviceAlgorithm, SimView, _n_calls
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
+from ..utils import prng
 from ..utils.device import resolve_device
 from .ising import random_spins
 
@@ -118,10 +119,9 @@ def _pick(spins, i, k):
 class UniformSiteFlip2D(Policy):
     """Pick a lattice site uniformly; symmetric, self-inverse proposal."""
 
-    def sample(self, params, generator, state):
-        m, lx, ly = state.spins.shape
-        return torch.randint(0, lx * ly, (m,), generator=generator,
-                             device=state.spins.device)
+    def sample(self, params, key, state):
+        _, lx, ly = state.spins.shape
+        return prng.randint(key, (), 0, lx * ly, dtype=torch.int64)
 
     def log_density(self, params, action, state):
         m, lx, ly = state.spins.shape

@@ -26,6 +26,7 @@ from ..core.ecmc import (CHECK_EVERY, EventChainModel, StraightChain,
                          run_chain, squared_norm)
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
+from ..utils import prng
 from ..utils.device import resolve_device
 
 __all__ = [
@@ -206,12 +207,12 @@ def _lattice(n_particles: int, box: float, dim: int):
 
 def _jittered(base, spacing_amp, n_chains, box, seed, device):
     """(M, N, dim) lattice ``base`` plus a uniform jitter in
-    ``[-spacing_amp, spacing_amp)`` per coordinate, from a
-    ``torch.Generator`` seeded with ``seed``, wrapped into the box."""
+    ``[-spacing_amp, spacing_amp)`` per coordinate, drawn from
+    ``jax.random.key(seed)``'s stream as the reference draws it, wrapped
+    into the box."""
     n, dim = base.shape
-    gen = torch.Generator(device=device).manual_seed(seed)
-    jitter = spacing_amp * (2.0 * torch.rand(
-        (n_chains, n, dim), generator=gen, device=device) - 1.0)
+    jitter = spacing_amp * prng.uniform(
+        prng.key(seed, device), (n_chains, n, dim), minval=-1.0, maxval=1.0)
     return (torch.as_tensor(base, dtype=torch.float32, device=device)[None]
             + jitter) % box
 
@@ -230,10 +231,9 @@ def init_chains(n_chains: int, n_particles: int, rho: float, beta: float,
                 dim: int = 2) -> LJState:
     """Chain-stacked initial state: square (``dim=2``) or cubic (``dim=3``)
     lattice + small jitter (avoids overlaps), species assigned round-robin
-    to hit ``frac_b``.  The jitter comes from a ``torch.Generator`` seeded
-    with ``seed`` — a different stream than the JAX package's, so
-    ``interop.chains_from_reference`` carries its chains over instead.  The
-    chains are made on ``device``, the card (``cuda``) when it is None."""
+    to hit ``frac_b``.  The jitter is the reference's draw from ``seed``, so
+    the JAX package's ``init_chains`` gives the same positions.  The chains
+    are made on ``device``, the card (``cuda``) when it is None."""
     device = resolve_device(device)
     box = float((n_particles / rho) ** (1.0 / dim))
     base, spacing = _lattice(n_particles, box, dim)
@@ -268,13 +268,11 @@ class GaussianDisplacement2D(Policy):
     the generic step and cancel in the ratio.
     """
 
-    def sample(self, params, generator, state):
-        m, n, d = state.pos.shape
-        dev = state.pos.device
-        i = torch.randint(0, n, (m,), generator=generator, device=dev)
-        sigma = params["sigma"]
-        delta = sigma[..., None] * torch.randn(
-            (m, d), generator=generator, dtype=sigma.dtype, device=dev)
+    def sample(self, params, key, state):
+        ki, kd = prng.split(key).unbind(-2)
+        _, n, d = state.pos.shape
+        i = prng.randint(ki, (), 0, n, dtype=torch.int64)
+        delta = params["sigma"][..., None] * prng.normal(kd, (d,))
         return {"i": i, "delta": delta}
 
     def log_density(self, params, action, state):
@@ -338,20 +336,14 @@ class UniformPairSwap(Policy):
     """Pick an (A, B) pair uniformly; proposal is symmetric (self-inverse),
     so logq_f == logq_b by construction."""
 
-    def sample(self, params, generator, state):
-        m, n = state.species.shape
-        dev = state.species.device
+    def sample(self, params, key, state):
+        ki, kj = prng.split(key).unbind(-2)
+        n = state.species.shape[1]
         is_b = state.species == 1
         n_b = torch.sum(is_b, dim=1)
         n_a = n - n_b
-
-        def rank(count):     # uniform in [0, max(count, 1))
-            hi = torch.clamp(count, min=1)
-            u = torch.rand((m,), generator=generator, dtype=torch.float64,
-                           device=dev)
-            return torch.minimum((u * hi).to(torch.int64), hi - 1)
-
-        ka, kb = rank(n_a), rank(n_b)
+        ka = prng.randint(ki, (), 0, torch.clamp(n_a, min=1))
+        kb = prng.randint(kj, (), 0, torch.clamp(n_b, min=1))
         # index of the k-th A (resp. B) particle via cumulative counts
         a_rank = torch.cumsum(~is_b, dim=1) - 1
         b_rank = torch.cumsum(is_b, dim=1) - 1
@@ -480,12 +472,9 @@ def callback_pressure(view, params: LJParams = LJParams()):
 class UniformLogVolume(Policy):
     """Symmetric uniform step in ln V (the standard NPT volume proposal)."""
 
-    def sample(self, params, generator, state):
-        m = state.pos.shape[0]
-        dlnv = params["dlnv"]
-        return dlnv * (2.0 * torch.rand(
-            (m,), generator=generator, dtype=dlnv.dtype,
-            device=state.pos.device) - 1.0)
+    def sample(self, params, key, state):
+        return params["dlnv"] * prng.uniform(key, (), minval=-1.0,
+                                             maxval=1.0)
 
     def log_density(self, params, action, state):
         return (-torch.log(2.0 * params["dlnv"])).expand(action.shape)

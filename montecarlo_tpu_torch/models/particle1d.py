@@ -21,6 +21,7 @@ import torch
 from ..core.ecmc import EventChainModel
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
+from ..utils import prng
 from ..utils.device import resolve_device
 
 __all__ = [
@@ -82,16 +83,13 @@ def init_chains(n_chains: int, beta: float, seed: int = 42,
                 potential=harmonic, dtype=torch.float32,
                 device=None) -> Particle1DState:
     """Chain-batched initial state with x0 ~ U[-2, 2) (the reference
-    scripts' ``4rand(rng) - 2`` init) and ``beta`` a number or one value a
-    chain (:func:`~montecarlo_tpu_torch.core.tempering.tile_ladder`), x0
-    drawn from a ``torch.Generator``
-    seeded with ``seed`` — a different stream than the JAX package's, so
-    ``interop.chains_from_reference`` carries its chains over instead.  The
-    chains are made on ``device``, the card (``cuda``) when it is None."""
+    scripts' ``4rand(rng) - 2`` init) drawn from ``jax.random.key(seed)``'s
+    stream, so the JAX package's ``init_chains`` gives the same x0, and
+    ``beta`` a number or one value a chain
+    (:func:`~montecarlo_tpu_torch.core.tempering.tile_ladder`).  The chains
+    are made on ``device``, the card (``cuda``) when it is None."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    x = 4.0 * torch.rand((n_chains,), generator=gen, dtype=dtype,
-                         device=device) - 2.0
+    x = 4.0 * prng.uniform(prng.key(seed, device), (n_chains,), dtype) - 2.0
     beta = torch.broadcast_to(torch.as_tensor(beta, dtype=dtype,
                                               device=device), (n_chains,))
     return Particle1DState(x=x, beta=beta.clone(), e=potential(x))
@@ -100,10 +98,9 @@ def init_chains(n_chains: int, beta: float, seed: int = 42,
 class StandardGaussian(Policy):
     """Zero-mean Gaussian over displacements, parameter ``sigma``."""
 
-    def sample(self, params, generator, state):
+    def sample(self, params, key, state):
         sigma = params["sigma"]
-        return sigma * torch.randn(state.x.shape, generator=generator,
-                                   dtype=sigma.dtype, device=state.x.device)
+        return sigma * prng.normal(key, (), sigma.dtype)
 
     def log_density(self, params, action, state):
         sigma = params["sigma"]
@@ -164,11 +161,9 @@ class LangevinGaussian(Policy):
     def _drift(self, params, state):
         return -params["step"] * state.beta * self.grad_u(state.x)
 
-    def sample(self, params, generator, state):
+    def sample(self, params, key, state):
         eps = params["step"]
-        noise = torch.sqrt(2.0 * eps) * torch.randn(
-            state.x.shape, generator=generator, dtype=eps.dtype,
-            device=state.x.device)
+        noise = torch.sqrt(2.0 * eps) * prng.normal(key, (), eps.dtype)
         return self._drift(params, state) + noise
 
     def log_density(self, params, action, state):

@@ -29,6 +29,7 @@ from ..core.ecmc import (CHECK_EVERY, EventChainModel, StraightChain,
                          run_chain, squared_norm)
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
+from ..utils import prng
 from ..utils.device import resolve_device
 from . import lennard_jones as _lj
 from .lennard_jones import (GaussianDisplacement2D, _full_batching,
@@ -201,10 +202,9 @@ def init_chains(n_chains: int, n_particles: int, rho: float, beta: float,
     jitter; every chain gets the same diameter draw (the composition is
     quenched disorder shared across chains),
     ``sample_diameters(n_particles, params, seed + 1)`` as in the reference.
-    The jitter comes from a ``torch.Generator`` seeded with ``seed`` — a
-    different stream than the JAX package's, so
-    ``interop.chains_from_reference`` carries its chains over instead.  The
-    chains are made on ``device``, the card (``cuda``) when it is None."""
+    The jitter is the reference's draw from ``seed``, so the JAX package's
+    ``init_chains`` gives the same positions.  The chains are made on
+    ``device``, the card (``cuda``) when it is None."""
     device = resolve_device(device)
     box = float((n_particles / rho) ** (1.0 / dim))
     base, spacing = _lattice(n_particles, box, dim)
@@ -268,12 +268,12 @@ class UniformPair(Policy):
     """Uniform unordered particle pair with j != i; a self-inverse swap
     proposal."""
 
-    def sample(self, params, generator, state):
-        m, n = state.diam.shape
-        dev = state.diam.device
-        i = torch.randint(0, n, (m,), generator=generator, device=dev)
+    def sample(self, params, key, state):
+        ki, kj = prng.split(key).unbind(-2)
+        n = state.diam.shape[1]
+        i = prng.randint(ki, (), 0, n, dtype=torch.int64)
         # j uniform over the other n-1 indices
-        j = torch.randint(0, n - 1, (m,), generator=generator, device=dev)
+        j = prng.randint(kj, (), 0, n - 1, dtype=torch.int64)
         return {"i": i, "j": torch.where(j >= i, j + 1, j)}
 
     def log_density(self, params, action, state):

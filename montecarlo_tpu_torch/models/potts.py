@@ -33,6 +33,7 @@ import torch
 from ..core.algorithms import _n_calls
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
+from ..utils import prng
 from ..utils.device import resolve_device
 from .ising2d import (CheckerboardMetropolis, SwendsenWang, WolffCluster,
                       _require_even, bond_activation, fresh_by_label,
@@ -122,15 +123,13 @@ class UniformRecolor(Policy):
     def __init__(self, q: int):
         self.q = int(q)
 
-    def sample(self, params, generator, state):
+    def sample(self, params, key, state):
+        k_site, k_col = prng.split(key).unbind(-2)
         m, lx, ly = state.spins.shape
-        dev = state.spins.device
-        site = torch.randint(0, lx * ly, (m,), generator=generator,
-                             device=dev)
+        site = prng.randint(k_site, (), 0, lx * ly, dtype=torch.int64)
         old = state.spins.reshape(m, -1).gather(1, site[:, None])[:, 0].to(
             torch.int64)
-        r = torch.randint(0, self.q - 1, (m,), generator=generator,
-                          device=dev)
+        r = prng.randint(k_col, (), 0, self.q - 1, dtype=torch.int64)
         return {"site": site, "color": _other_color(r, old).to(torch.int8)}
 
     def log_density(self, params, action, state):

@@ -36,6 +36,7 @@ import torch
 from ..core.algorithms import _n_calls
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
+from ..utils import prng
 from ..utils.device import resolve_device
 from .ising2d import LatticeSampler, _require_even, parity_mask
 
@@ -117,20 +118,21 @@ def _log_sites(state):
                                     * state.theta.shape[2])))
 
 
-def _random_site(generator, state):
-    m, lx, ly = state.theta.shape
-    return torch.randint(0, lx * ly, (m,), generator=generator,
-                         device=state.theta.device)
+def _site_and_angle_keys(key, state):
+    """A uniform site per chain and the key of its angle draw, split from
+    each chain's key as the reference splits it."""
+    k_site, k_ang = prng.split(key).unbind(-2)
+    _, lx, ly = state.theta.shape
+    return prng.randint(k_site, (), 0, lx * ly, dtype=torch.int64), k_ang
 
 
 class UniformRotation(Policy):
     """(site, dtheta) with site uniform over L² and ``dtheta ~ U[-delta,
     delta]``: symmetric, ``delta`` a learnable parameter."""
 
-    def sample(self, params, generator, state):
-        site = _random_site(generator, state)
-        u = torch.rand(site.shape, generator=generator,
-                       device=state.theta.device)
+    def sample(self, params, key, state):
+        site, k_ang = _site_and_angle_keys(key, state)
+        u = prng.uniform(k_ang)
         return {"site": site, "dtheta": params["delta"] * (2.0 * u - 1.0)}
 
     def log_density(self, params, action, state):
@@ -146,11 +148,9 @@ class GaussianRotation(Policy):
     1/sigma`` does, and reaches the estimator through ``torch.autograd``.
     """
 
-    def sample(self, params, generator, state):
-        site = _random_site(generator, state)
-        z = torch.randn(site.shape, generator=generator,
-                        device=state.theta.device)
-        return {"site": site, "dtheta": params["sigma"] * z}
+    def sample(self, params, key, state):
+        site, k_ang = _site_and_angle_keys(key, state)
+        return {"site": site, "dtheta": params["sigma"] * prng.normal(k_ang)}
 
     def log_density(self, params, action, state):
         sigma = params["sigma"]

@@ -8,8 +8,11 @@ process group, this process's rank in it and the device its chains live on.
 Every rank builds the same whole ensemble; :func:`shard_device_state` keeps
 rank r's contiguous slice ``[r M/S, (r+1) M/S)`` of each leaf whose leading
 dimension is the chain count M, the reference's rule, and leaves the rest
-whole (move parameters, the step counter, the estimator's sums,
-generators).  Each chain reduction is one explicit collective, at the place
+whole (move parameters, the step counter, the estimator's sums, the cell
+path's generator).  The per-chain threefry keys of the generic path and
+the estimator are such leaves: a rank holds the keys of its global chains,
+so those paths give every chain the numbers of a one-process run, on any
+rank count.  Each chain reduction is one explicit collective, at the place
 of the reference's ``psum``: the estimator's sums (:meth:`Mesh.all_reduce`),
 the observables, computed on the gathered view (:func:`fetch`), and the
 checkpoint.
@@ -77,10 +80,12 @@ class Mesh:
 
     def _to_backend(self, t):
         """A copy of ``t`` the backend takes: on this rank's device under
-        ``nccl``, in host memory otherwise; bool as uint8."""
+        ``nccl``, in host memory otherwise; bool as uint8, the keys' uint32
+        as int64."""
         dev = self.device if self.backend == "nccl" else torch.device("cpu")
-        x = t.to(device=dev, dtype=torch.uint8 if t.dtype == torch.bool
-                 else t.dtype, copy=True)
+        dtype = {torch.bool: torch.uint8, torch.uint32: torch.int64}.get(
+            t.dtype, t.dtype)
+        x = t.to(device=dev, dtype=dtype, copy=True)
         return x.contiguous()
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:

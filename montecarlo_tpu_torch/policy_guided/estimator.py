@@ -2,24 +2,31 @@
 
 Port of ``montecarlo_tpu/policy_guided/estimator.py`` (ref
 ``src/PolicyGuided/estimator.jl``).  At each of its steps, for every
-learnable move, the state is repeated ``q_batch_size`` times along the chain
-axis, one action per (chain, q-sample) is drawn and probed
+learnable move, each chain is repeated ``q_batch_size`` times along the
+chain axis (chain c's copies side by side, the reference's order), one
+action per (chain, q-sample) is drawn and probed
 (:func:`~.gradients.sample_gradient_data`), and the per-sample
-:class:`~.gradients.GradientData` are summed into the move's accumulator.
+:class:`~.gradients.GradientData` are summed, over each chain's q-batch
+first and then over the chains, into the move's accumulator.
 
 The estimator is off-policy: it samples proposals at the current state but
 never advances the chains, so it composes with Metropolis at the same step
 as the reference's in-order algorithm list does.
 
-Randomness: one ``torch.Generator`` on the state's device, seeded from the
-Metropolis seed (its ``stream_seed``: on a mesh, the rank folded in) and
-:data:`_PGE_TAG`, where the reference folds per-chain threefry keys; the
-estimator is held to the reference by statistics.
+Randomness, the reference's: chain c's key is
+``fold_in(fold_in(key(seed), _PGE_TAG), c)`` with the Metropolis seed, and
+at step t the q-batch of move ``lid`` takes
+``split(fold_in(fold_in(key_c, t), lid), q_batch_size)``
+(``montecarlo_tpu/policy_guided/estimator.py:83-107``), so the estimator
+gives the reference's sums from the same seed, on any device and any rank
+count.
 
-On a chain mesh each rank samples its own chains, and each step's sums are
-all-reduced over the ranks before they are added (the reference's
-``psum``), so the accumulators, and the parameters the update computes
-from them, stay the same on every rank.
+On a chain mesh each rank samples its own chains, and each chain's sums
+are gathered from every rank before they are added over the chains (where
+the reference adds partial sums by ``psum``): every rank then adds the same
+values in the same order as one process does, so the accumulators, and
+the parameters the update computes from them, are the same on every rank
+and on every rank count.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 
 from ..core.algorithms import DeviceAlgorithm, _n_calls
 from ..core.metropolis import Metropolis, _n_devices
+from ..utils import prng
 from ..utils.tree import ravel, tree_map
 from .gradients import add, init_gradient_data, sample_gradient_data
 from .learning import PolicyGradient, Static
@@ -66,13 +74,14 @@ class PolicyGradientEstimator(DeviceAlgorithm):
             for lid in self.learn_ids]
 
     def init_state(self, sim):
-        gen = torch.Generator(device=self.device).manual_seed(
-            (_PGE_TAG << 32) | (self.metropolis.stream_seed & 0xFFFFFFFF))
+        base = prng.fold_in(prng.key(self.seed, self.device), _PGE_TAG)
+        keys = prng.fold_in(base[None], torch.arange(sim.n_chains,
+                                                     device=self.device))
         gd = tuple(init_gradient_data(p, device=self.device)
                    for p in self.param_dims)
         obj = torch.zeros((len(self.learn_ids),), dtype=torch.float32,
                           device=self.device)
-        return {"generator": gen, "gd": gd, "obj": obj}
+        return {"keys": keys, "gd": gd, "obj": obj}
 
     def step(self, dstate, t):
         slc = dstate[self.state_key]
@@ -80,16 +89,22 @@ class PolicyGradientEstimator(DeviceAlgorithm):
         obj = slc["obj"].clone()
         params = dstate[self.metropolis.params_key]
         q = self.q_batch_size
-        # the q-batch as q copies of the chains along the chain axis
+        # the q-batch: each chain's q copies side by side on the chain axis
         state = dstate["sys"] if q == 1 else tree_map(
-            lambda x: x.repeat((q,) + (1,) * (x.dim() - 1)), dstate["sys"])
+            lambda x: x.repeat_interleave(q, dim=0), dstate["sys"])
+        step_keys = prng.fold_in(slc["keys"], t)
         for acc_idx, lid in enumerate(self.learn_ids):
+            ks = prng.split(prng.fold_in(step_keys, lid), q)
             per = sample_gradient_data(self.movedefs[lid], params[lid], state,
-                                       slc["generator"])
-            total = tree_map(lambda x: x.sum(0).to(x.dtype), per)
+                                       ks.reshape(-1, 2))
+            # over each chain's q-batch, then over the chains
+            per_chain = tree_map(
+                lambda x: x.reshape((-1, q) + x.shape[1:]).sum(1), per)
             if self.mesh is not None:
-                # the chain reduction over the ranks, one all_reduce a field
-                total = tree_map(self.mesh.all_reduce, total)
+                # every chain's sums on every rank, one all_gather a field,
+                # so the sum over the chains is the one-process sum
+                per_chain = tree_map(self.mesh.all_gather, per_chain)
+            total = tree_map(lambda x: x.sum(0).to(x.dtype), per_chain)
             gd = add(gds[acc_idx], total)
             gds[acc_idx] = gd
             obj[acc_idx] = gd.j / gd.n.to(gd.j.dtype)

@@ -146,10 +146,11 @@ def pgmc_estimate(movedef: MoveDef, flat_params, unravel, state,
 
 
 def sample_gradient_data(movedef: MoveDef, params, state,
-                         generator) -> GradientData:
-    """Sample one action per chain from the policy, then estimate (ref
+                         key) -> GradientData:
+    """Sample one action per chain from the policy, chain c's from its key
+    ``key[c]`` (an ``(M, 2)`` uint32 tensor), then estimate (ref
     ``sample_gradient_data``, ``gradients.jl:117-121``)."""
     flat_params, unravel = ravel(params)
     with torch.no_grad():
-        action = movedef.policy.sample(params, generator, state)
+        action = movedef.policy.sample(params, key, state)
     return pgmc_estimate(movedef, flat_params, unravel, state, action)

@@ -165,7 +165,8 @@ def cell(mesh):
 
 def resume(mesh):
     """A PGMC run with a backup at step 20, and a fresh run resumed from
-    that backup; rank 0 keeps both gathered final states."""
+    that backup; rank 0 keeps both gathered final states, each rank whether
+    its own slice of the chains' keys came back."""
     whole = pgmc_sim(os.path.join(RUNS, "uncut"), mesh, backups=[20])
     whole.run()
     resumed = pgmc_sim(os.path.join(RUNS, "resumed"), mesh)
@@ -174,15 +175,14 @@ def resume(mesh):
     resumed.run()
     a = fetch(whole.device_state, mesh)
     b = fetch(resumed.device_state, mesh)
-    gens = [torch.equal(x.get_state(), y.get_state()) for x, y in zip(
-        (whole.device_state["metropolis"]["generator"],
-         whole.device_state["pge"]["generator"]),
-        (resumed.device_state["metropolis"]["generator"],
-         resumed.device_state["pge"]["generator"]))]
+    keys = [torch.equal(whole.device_state[k]["keys"],
+                        resumed.device_state[k]["keys"])
+            for k in ("metropolis", "pge")]
     if rank == 0:
         save("resume_uncut", **state_arrays(a))
         save("resume_resumed", **state_arrays(b))
-    save("resume_generators", equal=np.asarray(gens))
+    save("resume_keys", equal=np.asarray(keys),
+         rows=np.asarray(whole.device_state["metropolis"]["keys"].shape[0]))
 
 
 def tempering(mesh):

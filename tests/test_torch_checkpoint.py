@@ -3,11 +3,13 @@
 As in the JAX package's ``tests/test_checkpoint.py``: a run interrupted at
 a backup and resumed from its checkpoint in a fresh ``Simulation`` ends in
 the same state, bit for bit, as the run that was not interrupted.  Here
-that holds on the generic path (the generator's state is saved), on the
-fused path's CPU stand-in (the stream is keyed by the step), and with PGMC
-(the estimator's generator and accumulators are saved).  A chain-major BIN
-store resumed in its own directory appends, where the JAX package's
-truncates.
+that holds on the generic path (the chains' threefry keys are saved, as
+uint32 data), on the fused path's CPU stand-in (the stream is keyed by the
+step), and with PGMC (the estimator's keys and accumulators are saved).  A
+state without generators resumes on any rank count: a checkpoint written
+by two ranks resumes in one process and one written by one process on two
+ranks, each equal to the uncut run.  A chain-major BIN store resumed in its
+own directory appends, where the JAX package's truncates.
 """
 
 import glob
@@ -26,7 +28,9 @@ from montecarlo_tpu_torch.core import simulation
 from montecarlo_tpu_torch.core.simulation import _select_advance
 from montecarlo_tpu_torch.models import lennard_jones as lj
 from montecarlo_tpu_torch.models import particle1d as p1d
+from montecarlo_tpu_torch.parallel import run_emulated
 from montecarlo_tpu_torch.utils.tree import tree_leaves_with_path
+from torch_mesh_helpers import pgmc_sim, state_arrays
 
 STEPS, BACKUP = 60, 30
 
@@ -109,18 +113,27 @@ def _simulation(case, path, **kw):
 
 
 def test_roundtrip_save_restore(tmp_path):
-    """Tensors, generators (also mid-stream) and the step come back equal,
-    and a restored generator continues the saved one's stream."""
+    """Tensors (the chains' keys as uint32 data), generators (also
+    mid-stream: the cell path's) and the step come back equal, and a
+    restored generator continues the saved one's stream."""
     sim = _simulation("pgmc", tmp_path / "rt")
     sim.run()
-    ds = sim.device_state
+    gen = torch.Generator().manual_seed(9)
+    torch.rand(3, generator=gen)
+    ds = {**sim.device_state, "cell": {"generator": gen}}
     path = str(tmp_path / "state.npz")
     checkpoint.save(path, ds)
-    restored = checkpoint.restore(path, sim.init_device_state())
+    like = {**sim.init_device_state(),
+            "cell": {"generator": torch.Generator()}}
+    restored = checkpoint.restore(path, like)
     _same(ds, restored)
     assert restored["t"] == STEPS and isinstance(restored["t"], int)
-    gen, gen2 = ds["metropolis"]["generator"], restored["metropolis"][
-        "generator"]
+    keys = restored["metropolis"]["keys"]
+    assert keys.dtype == torch.uint32 and keys.shape == (16, 2)
+    with np.load(path) as data:
+        stored = [data[k] for k in data.files if data[k].shape == (16, 2)]
+    assert len(stored) == 2 and all(a.dtype == np.uint32 for a in stored)
+    gen2 = restored["cell"]["generator"]
     assert torch.equal(torch.rand(5, generator=gen),
                        torch.rand(5, generator=gen2))
     assert len(restored["pge"]["gd"]) == 1
@@ -334,3 +347,42 @@ def test_restart_text_files_written(tmp_path):
     last = checkpoint.restore(ckpts[-1], sim.init_device_state())
     _same(sim.device_state, last)
     assert not tmc.StoreBackups.buffered_ok
+
+
+@pytest.mark.parametrize("written, resumed", [(2, None), (None, 2), (4, 2)])
+def test_checkpoint_resumes_on_another_rank_count(tmp_path, written,
+                                                  resumed):
+    """The generic path with PGMC (no generator in its state) cut at a
+    backup on ``written`` ranks (None: one process) and resumed on
+    ``resumed``: every rank's state equals its slice of the uncut
+    one-process run, bit for bit."""
+    uncut = pgmc_sim(str(tmp_path / "uncut"), None)
+    uncut.run()
+    want = state_arrays(uncut.device_state)
+
+    def cut(mesh):
+        sim = pgmc_sim(str(tmp_path / "cut"), mesh, backups=[20])
+        sim.run()
+
+    if written is None:
+        cut(None)
+    else:
+        run_emulated(cut, written, "cpu")
+    ckpt = str(tmp_path / "cut" / "checkpoints" / "ckpt_t20.npz")
+
+    def resume(mesh):
+        sim = pgmc_sim(str(tmp_path / "resumed"), mesh)
+        checkpoint.resume_state(sim, ckpt)
+        assert sim.t == 20
+        sim.run()
+        return state_arrays(sim.device_state)
+
+    outs = ([resume(None)] if resumed is None
+            else run_emulated(resume, resumed, "cpu"))
+    m = 16 // len(outs)
+    for r, got in enumerate(outs):
+        assert sorted(got) == sorted(want)
+        for k, w in want.items():
+            if w.ndim and w.shape[0] == 16:          # a chain leaf
+                w = w[r * m:(r + 1) * m]
+            np.testing.assert_array_equal(got[k], w, err_msg=k)

@@ -460,8 +460,8 @@ def test_resume_on_cuda_is_bitwise_exact(cuda, tmp_path):
     b = _particle_pgmc(cuda, tmp_path / "b")
     checkpoint.resume_state(b, str(tmp_path / "a" / "checkpoints" /
                                    "ckpt_t20.npz"))
-    gen = b.device_state["pge"]["generator"]
-    assert b.t == 20 and gen.device.type == "cuda"
+    keys = b.device_state["pge"]["keys"]
+    assert b.t == 20 and keys.is_cuda and keys.dtype == torch.uint32
     b.run()
     for x, y in zip(tree_leaves(ref.device_state),
                     tree_leaves(b.device_state)):
@@ -560,3 +560,59 @@ def test_emulated_two_rank_run_on_the_card(cuda, tmp_path):
     assert SWEEP_KERNEL.launches - before == 2 * (4 + 1)
     e = np.loadtxt(tmp_path / "energy.dat")
     assert e.shape == (5, 2)
+
+
+# -- the threefry kernel (utils/prng.py's draws) ------------------------------
+
+@pytest.mark.parametrize("mode, kw", [
+    ("words", {}), ("bits", {}), ("uniform", dict(lo=-2.0, hi=3.0)),
+    ("uniform", {}), ("normal", {}), ("randint", dict(ilo=-3, ihi=1000))])
+@pytest.mark.parametrize("b, n", [(1, 1), (10 ** 4 + 7, 1), (37, 1001)])
+def test_threefry_kernel_matches_plain(cuda, mode, kw, b, n):
+    """Every mode bit for bit against the plain twin on the card, with the
+    keys' rows strided (a split's keys, unbound) and contiguous."""
+    from montecarlo_tpu_torch.ops.threefry import THREEFRY_KERNEL, threefry
+    from montecarlo_tpu_torch.utils import prng
+    keys = prng.split(prng.key(7, cuda), (b, 3))[:, 1]
+    assert keys.stride(0) == 6
+    for k in (keys, keys.contiguous()):
+        before = THREEFRY_KERNEL.launches
+        got = threefry(k, n, mode, **kw)
+        assert THREEFRY_KERNEL.launches == before + 1
+        want = threefry(k, n, mode, interpret=True, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_threefry_folds_and_per_key_bounds_match_plain(cuda):
+    from montecarlo_tpu_torch.ops.threefry import threefry
+    from montecarlo_tpu_torch.utils import prng
+    keys = prng.split(prng.key(3, cuda), 5000)
+    data = torch.arange(5000, device=cuda) * 7919
+    hi = torch.arange(5000, device=cuda, dtype=torch.int32) % 300 + 1
+    for kw in (dict(data=12345), dict(data=data)):
+        assert torch.equal(threefry(keys, 1, "words", **kw),
+                           threefry(keys, 1, "words", interpret=True, **kw))
+    assert torch.equal(threefry(keys, 4, "randint", ilo=0, ihi=hi),
+                       threefry(keys, 4, "randint", ilo=0, ihi=hi,
+                                interpret=True))
+
+
+def test_generic_path_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """One seed's generic run (a two-move pool: the categorical pick too)
+    on the card and on the CPU: initial chains and counters equal, states
+    within 1e-5."""
+    pool = lambda: (p1d.displacement_move(0.4), p1d.mala_move(0.1))
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        chains = p1d.init_chains(500, beta=2.0, seed=11, device=dev)
+        sim = tmc.Simulation(p1d.make_system(), chains, [
+            dict(algorithm=tmc.Metropolis, pool=pool(), seed=5,
+                 fused="off")], 100, path=str(tmp_path / dev.type))
+        sim.run()
+        runs.append((chains.x.cpu(), sim.device_state))
+    (x0a, a), (x0b, b) = runs
+    assert torch.equal(x0a, x0b)
+    assert torch.equal(a["metropolis"]["counters"].cpu(),
+                       b["metropolis"]["counters"])
+    assert float((a["sys"].x.cpu() - b["sys"].x).abs().max()) <= 1e-5

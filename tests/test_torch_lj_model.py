@@ -23,6 +23,7 @@ import montecarlo_tpu_torch as tmc
 from montecarlo_tpu.models import lennard_jones as ref_lj
 from montecarlo_tpu_torch import interop
 from montecarlo_tpu_torch.models import lennard_jones as lj
+from montecarlo_tpu_torch.utils import prng
 
 RTOL = 1e-6
 
@@ -134,11 +135,11 @@ def test_swap_move_matches_reference():
 
 
 def test_swap_policy_picks_a_uniform_ab_pair():
-    _, st = _state(m=4, n=20)
+    ref, st = _state(m=4, n=20)
     st = dataclasses.replace(st, species=st.species[:1].expand(4000, -1),
                              pos=st.pos[:1].expand(4000, -1, -1))
-    gen = torch.Generator().manual_seed(0)
-    action = lj.UniformPairSwap().sample({}, gen, st)
+    keys = prng.split(prng.key(0, "cpu"), 4000)
+    action = lj.UniformPairSwap().sample({}, keys, st)
     spc = st.species[0]
     assert torch.all(spc[action["i"]] == 0) and torch.all(
         spc[action["j"]] == 1)
@@ -147,6 +148,13 @@ def test_swap_policy_picks_a_uniform_ab_pair():
     # 4000 draws over n_a slots: within 5 binomial sigmas of uniform
     expect = 4000 / n_a
     assert torch.all((counts - expect).abs() < 5 * expect ** 0.5)
+    # the reference's picks from the same keys
+    ref = jax.tree_util.tree_map(
+        lambda x: jnp.broadcast_to(x[:1], (4000,) + x.shape[1:]), ref)
+    want = jax.vmap(ref_lj.UniformPairSwap().sample, (None, 0, 0))(
+        {}, jax.random.wrap_key_data(jnp.asarray(keys.numpy())), ref)
+    for k in ("i", "j"):
+        np.testing.assert_array_equal(action[k].numpy(), np.asarray(want[k]))
 
 
 def test_system_frame_and_callback_match_reference():

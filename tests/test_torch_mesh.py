@@ -9,14 +9,17 @@ spawn; each test reads what its scenario left:
    same folded seeds): ``energy.dat`` and every ``trajectory.dat`` within
    the Gaussian gate (atol 1e-5), one writer of every file;
 2. the generic path with PGMC against a one-process emulation
-   (``parallel.run_emulated``: each rank's chains and seeds, the
-   estimator's sums added): sigma within rtol 1e-6, and moved;
+   (``parallel.run_emulated``) and against one process without a mesh:
+   every chain draws from its own key and the estimator adds every
+   chain's sums in one order, so each rank's chains, sigma and sums equal
+   both bit for bit, and sigma moved;
 3. an LJ swap pool and a poly swap pool on the fused path: caches against
    an O(N^2) recompute within the reference's bounds;
 4. a cell-path pool: the same plan on both ranks, and an overflow on one
    rank sends both to the fallback;
-5. a run resumed from its backup equals the uncut one bit for bit; the
-   checkpoint does not resume on one rank;
+5. a run resumed from its backup equals the uncut one bit for bit, each
+   rank's slice of the keys restored; the state holds no generator, so the
+   two-rank checkpoint resumes on one rank too and equals the uncut run;
 6. replica exchange with a ladder straddling the ranks' boundary: with
    the generic path's moves each rank equals the emulation's rank, and
    alone (its swaps the only randomness) equals one process.
@@ -132,8 +135,9 @@ def test_two_ranks_match_reference_mesh(runs):
 
 
 def test_pgmc_sums_are_all_reduced(runs, tmp_path):
-    """Both ranks end with the same sigma, equal to a one-process
-    emulation's; each rank's chains equal the emulated rank's."""
+    """Both ranks end with the same sigma and sums; each rank's state
+    equals the emulated rank's and its slice of one process's run, bit for
+    bit."""
     root, _ = runs
 
     def emulate(mesh):
@@ -142,19 +146,21 @@ def test_pgmc_sums_are_all_reduced(runs, tmp_path):
         return state_arrays(sim.device_state)
 
     emulated = run_emulated(emulate, 2, "cpu")
+    one = pgmc_sim(str(tmp_path / "one"), None)
+    one.run()
+    whole = state_arrays(one.device_state)
     sigmas = []
     for r in range(2):
         with np.load(_result(root, r, "pgmc.npz")) as f:
             got = dict(f)
         want = emulated[r]
-        assert sorted(got) == sorted(want)
-        np.testing.assert_array_equal(got["metropolis/counters"],
-                                      want["metropolis/counters"])
-        np.testing.assert_allclose(got["sys/x"], want["sys/x"], rtol=1e-6)
-        np.testing.assert_allclose(got["params/1/sigma"],
-                                   want["params/1/sigma"], rtol=1e-6)
-        np.testing.assert_allclose(got["pge/obj"], want["pge/obj"],
-                                   rtol=1e-6)
+        assert sorted(got) == sorted(want) == sorted(whole)
+        for k in got:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+            w = whole[k]
+            if w.ndim and w.shape[0] == 16:          # a chain leaf
+                w = w[8 * r:8 * (r + 1)]
+            np.testing.assert_array_equal(got[k], w, err_msg=k)
         assert got["sys/x"].shape == (8,)
         sigmas.append(float(got["params/1/sigma"]))
     assert sigmas[0] == sigmas[1] != pytest.approx(0.2, abs=1e-4)
@@ -206,13 +212,20 @@ def test_resumed_two_rank_run_equals_uncut(runs, tmp_path):
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     for r in range(2):
-        with np.load(_result(root, r, "resume_generators.npz")) as f:
-            assert f["equal"].all()
+        with np.load(_result(root, r, "resume_keys.npz")) as f:
+            assert f["equal"].all() and int(f["rows"]) == 8
     ckpt = str(root / "runs" / "uncut" / "checkpoints" / "ckpt_t20.npz")
-    for mesh in (None, make_mesh(device="cpu")):
-        sim = pgmc_sim(str(tmp_path / "one"), mesh)
-        with pytest.raises(ValueError, match="mesh of 2 rank"):
-            checkpoint.resume_state(sim, ckpt)
+    with np.load(_result(root, 0, "resume_uncut.npz")) as f:
+        uncut = dict(f)
+    for i, mesh in enumerate((None, make_mesh(device="cpu"))):
+        sim = pgmc_sim(str(tmp_path / f"one{i}"), mesh)
+        checkpoint.resume_state(sim, ckpt)
+        assert sim.t == 20
+        sim.run()
+        got = state_arrays(sim.device_state)
+        assert sorted(got) == sorted(uncut)
+        for k in got:
+            np.testing.assert_array_equal(got[k], uncut[k], err_msg=k)
 
 
 def test_replica_exchange_across_the_ranks(runs, tmp_path):

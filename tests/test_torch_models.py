@@ -20,6 +20,7 @@ from montecarlo_tpu.models import particle1d as ref_p1d
 from montecarlo_tpu_torch import interop
 from montecarlo_tpu_torch.core.schedule import compress_runs
 from montecarlo_tpu_torch.models import particle1d as p1d
+from montecarlo_tpu_torch.utils import prng
 
 RTOL = 1e-6
 
@@ -55,12 +56,19 @@ def test_standard_gaussian_log_density_matches_reference(sigma):
 
 
 def test_standard_gaussian_samples_have_sigma():
-    _, _, state = _state(m=20000)
-    gen = torch.Generator().manual_seed(3)
-    a = p1d.StandardGaussian().sample({"sigma": torch.tensor(0.7)}, gen,
+    """One draw per chain from its own key: the reference's draws from the
+    same keys (within the normal's float32 ulps), and the moments."""
+    _, ref, state = _state(m=20000)
+    keys = prng.split(prng.key(3, "cpu"), 20000)
+    a = p1d.StandardGaussian().sample({"sigma": torch.tensor(0.7)}, keys,
                                       state)
     assert a.shape == state.x.shape
     assert abs(float(a.mean())) < 0.02 and abs(float(a.std()) - 0.7) < 0.02
+    want = jax.vmap(ref_p1d.StandardGaussian().sample, (None, 0, 0))(
+        {"sigma": jnp.float32(0.7)},
+        jax.random.wrap_key_data(jnp.asarray(keys.numpy())), ref)
+    np.testing.assert_allclose(a.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize("pot", ["harmonic", "double_well"])

@@ -41,7 +41,7 @@ from montecarlo_tpu_torch.ops import fused_sweep, lj_sweep, poly_sweep
 from montecarlo_tpu_torch.parallel import (CHAIN_AXIS, Mesh, fetch,
                                            make_mesh, replicate, run_emulated,
                                            shard_device_state)
-from torch_mesh_helpers import pgmc_sim
+from torch_mesh_helpers import pgmc_sim, state_arrays
 
 S = 8
 ATOL, RTOL = 1e-5, 1e-5
@@ -263,39 +263,88 @@ def test_summary_counts_ranks(tmp_path, size):
 
 
 def test_pgmc_parameters_stay_replicated(tmp_path):
-    """With the estimator's sums all-reduced, every rank's update computes
-    the same parameters: no collective in the update."""
+    """With every chain's estimator sums gathered to every rank, every
+    rank's update computes the same parameters: no collective in the
+    update, and none but the gathers."""
     def run(mesh):
         sim = pgmc_sim(str(tmp_path), mesh)
         sim.run()
         return (float(sim.device_state["params"][1]["sigma"]),
-                mesh.counts["all_reduce"])
+                mesh.counts["all_reduce"], mesh.counts["all_gather"])
 
     out = run_emulated(run, 4, "cpu")
-    sigmas = {s for s, _ in out}
+    sigmas = {s for s, _, _ in out}
     assert len(sigmas) == 1 and sigmas != {0.2}
-    # one all_reduce per GradientData field at each of the 20 estimator
-    # events, and none elsewhere (no cell flag on this path)
-    assert {n for _, n in out} == {20 * 5}
+    # no all_reduce (no cell flag on this path); one all_gather per
+    # GradientData field at each of the 20 estimator events, besides those
+    # of the recorders' views
+    assert {n for _, n, _ in out} == {0}
+    gathers = {n for _, _, n in out}
+    assert len(gathers) == 1 and gathers.pop() >= 20 * 5
 
 
 def test_generators_are_seeded_with_the_rank_folded_in(tmp_path):
-    """The generic path's and the estimator's generators draw each rank's
-    own stream: seeded as the fused path folds the rank into its seed, on
-    a one-rank mesh too."""
+    """Only the cell path keeps a generator, seeded as the fused path folds
+    the rank into its seed, on a one-rank mesh too; the generic path's and
+    the estimator's keys are those of the rank's global chains, the same
+    on every rank count, and the state of a pool without a cell plan holds
+    no generator."""
+    def keys(mesh):
+        ds = pgmc_sim(str(tmp_path), mesh).init_device_state()
+        assert "generator" not in ds["metropolis"]
+        assert "generator" not in ds["pge"]
+        return ds["metropolis"]["keys"], ds["pge"]["keys"]
+
+    whole = keys(None)
+    assert whole[0].shape == (16, 2) and whole[0].dtype == torch.uint32
+    assert not torch.equal(whole[0], whole[1])
+    for size in (1, 2, 4):
+        for r, got in enumerate(run_emulated(keys, size, "cpu")):
+            m = 16 // size
+            for g, w in zip(got, whole):
+                assert torch.equal(g, w[r * m:(r + 1) * m])
+
+    chains = lj.init_chains(2, 512, rho=1.2, beta=1.0, seed=21, device="cpu")
+
     def seeds(mesh):
-        sim = pgmc_sim(str(tmp_path), mesh)
-        met, est = sim.device_algos[:2]
-        ds = sim.init_device_state()
-        return (met.stream_seed, ds["metropolis"]["generator"].initial_seed(),
-                ds["pge"]["generator"].initial_seed())
+        sim = tmc.Simulation(lj.make_system(), chains, [
+            dict(algorithm=tmc.Metropolis,
+                 pool=(lj.lj_displacement_move(0.08),), seed=42,
+                 fused="cell")], 4, path=str(tmp_path), mesh=mesh)
+        met = sim.device_algos[0]
+        gen = sim.init_device_state()["metropolis"]["generator"]
+        return met.stream_seed, gen.initial_seed()
 
     for size in (1, 2):
-        for r, (stream, gen, pge) in enumerate(run_emulated(seeds, size,
-                                                            "cpu")):
+        for r, (stream, gen) in enumerate(run_emulated(seeds, size, "cpu")):
             assert stream == fused_sweep._shard_seed(r, 42) == gen
-            assert pge == (0x50474D43 << 32) | stream
-    assert seeds(None)[:2] == (42, 42)
+    assert seeds(None) == (42, 42)
+
+
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_generic_pgmc_run_equals_one_process_on_every_rank_count(tmp_path,
+                                                                 size):
+    """The generic path with PGMC on an emulated mesh of ``size`` ranks:
+    each rank's whole state (positions, energies, counters, keys, sigma,
+    the estimator's sums) equals its slice of the one-process run, bit for
+    bit, as ``tests/test_sharding.py`` holds the reference."""
+    one = pgmc_sim(str(tmp_path / "one"), None)
+    one.run()
+    whole = state_arrays(one.device_state)
+
+    def run(mesh):
+        sim = pgmc_sim(str(tmp_path / f"mesh{size}"), mesh)
+        sim.run()
+        return state_arrays(sim.device_state)
+
+    m = 16 // size
+    for r, got in enumerate(run_emulated(run, size, "cpu")):
+        assert sorted(got) == sorted(whole)
+        for k, w in whole.items():
+            if w.ndim and w.shape[0] == 16:          # a chain leaf
+                w = w[r * m:(r + 1) * m]
+            np.testing.assert_array_equal(got[k], w, err_msg=k)
+    assert float(whole["params/1/sigma"]) != pytest.approx(0.2, abs=1e-4)
 
 
 def test_profiler_trace_spans_its_first_two_firings(tmp_path):

@@ -1,9 +1,9 @@
 """PGMC end to end in the port, held to the JAX package on the CPU.
 
-The estimator draws from a ``torch.Generator`` where the JAX package folds
-per-chain threefry keys, so the two are compared by statistics: at one
-fixed state the mean objective and its gradient agree within 5 standard
-errors.  The rest mirrors the JAX package's PGMC tests, scaled to the CPU:
+The estimator folds the JAX package's per-chain threefry keys, so at one
+fixed state both packages draw the same proposals: the summed objective,
+its gradient and the Fisher sums agree to float32 sum order (rtol 1e-5;
+16384 samples summed in another order).  The rest mirrors the JAX package's PGMC tests, scaled to the CPU:
 config 5's adaptation through the hybrid stepper (``tests/test_pgmc_lj.py``),
 the seven optimisers on the harmonic trap (``tests/test_pgmc.py``), MALA
 (``tests/test_mala.py``), PGMC on a second sampler
@@ -29,7 +29,7 @@ from montecarlo_tpu_torch import policy_guided as pg
 from montecarlo_tpu_torch.core.simulation import _select_advance
 from montecarlo_tpu_torch.models import lennard_jones as lj
 from montecarlo_tpu_torch.models import particle1d as p1d
-from montecarlo_tpu_torch.utils.tree import tree_leaves, tree_map
+from montecarlo_tpu_torch.utils.tree import tree_leaves
 
 BETA = 2.0
 
@@ -51,7 +51,7 @@ def _last_param(path, k=1):
             for t, v in (ln.split(" ", 1) for ln in lines)]
 
 
-# -- the estimator by statistics -----------------------------------------------
+# -- the estimator against the reference -----------------------------------------------
 
 def _estimator_pair(name, tmp_path):
     """The same learnable move and state in both packages' Simulations."""
@@ -91,18 +91,12 @@ def test_estimator_agrees_with_reference_by_statistics(name, tmp_path):
     got = ds["pge"]["gd"][0]
     n = 4096 * 4
     assert int(got.n) == int(want.n) == n
-    # per-sample spread, from the port's samples at the same state
-    mv = sim.device_algos[0].pool[0]
-    state = tree_map(lambda x: x.repeat((4,) + (1,) * (x.dim() - 1)),
-                     sim.chains0)
-    per = pg.sample_gradient_data(mv.move, mv.params, state,
-                                  torch.Generator().manual_seed(1))
-    for field in ("j", "grad_j"):
-        samples = getattr(per, field).double().reshape(n, -1)
-        se = samples.std(0).numpy() / np.sqrt(n)
-        g = getattr(got, field).double().numpy().reshape(-1) / n
-        w = np.asarray(getattr(want, field), np.float64).reshape(-1) / n
-        assert np.all(np.abs(g - w) < 5 * np.sqrt(2) * se), (field, g, w, se)
+    for field in ("j", "grad_j", "grad_logq_forward", "g"):
+        g = getattr(got, field).double().numpy()
+        w = np.asarray(getattr(want, field), np.float64)
+        scale = np.abs(w).max()
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5 * scale,
+                                   err_msg=field)
     assert float(ds["pge"]["obj"][0]) == pytest.approx(float(got.j) / n)
     # off-policy: the chains did not move
     for a, b in zip(tree_leaves(ds["sys"]), tree_leaves(sim.chains0)):

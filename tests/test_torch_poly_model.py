@@ -23,6 +23,7 @@ import montecarlo_tpu_torch as tmc
 from montecarlo_tpu.models import polydisperse as ref_poly
 from montecarlo_tpu_torch import interop
 from montecarlo_tpu_torch.models import polydisperse as poly
+from montecarlo_tpu_torch.utils import prng
 
 RTOL = 1e-6
 
@@ -151,11 +152,11 @@ def test_swap_move_matches_reference():
 
 
 def test_uniform_pair_gives_distinct_uniform_pairs():
-    _, st = _state(m=4, n=12)
+    ref, st = _state(m=4, n=12)
     st = dataclasses.replace(st, diam=st.diam[:1].expand(6000, -1),
                              pos=st.pos[:1].expand(6000, -1, -1))
-    gen = torch.Generator().manual_seed(0)
-    action = poly.UniformPair().sample({}, gen, st)
+    keys = prng.split(prng.key(0, "cpu"), 6000)
+    action = poly.UniformPair().sample({}, keys, st)
     i, j = action["i"], action["j"]
     assert torch.all(i != j) and int(i.min()) >= 0 and int(j.max()) < 12
     # 6000 draws over 12 slots each: within 5 binomial sigmas of uniform
@@ -168,6 +169,13 @@ def test_uniform_pair_gives_distinct_uniform_pairs():
     assert torch.all(pairs.diagonal() == 0)
     off = pairs[~torch.eye(12, dtype=torch.bool)]
     assert (off - 6000 / 132).abs().max() < 5 * (6000 / 132) ** 0.5
+    # the reference's pairs from the same keys
+    ref = jax.tree_util.tree_map(
+        lambda x: jnp.broadcast_to(x[:1], (6000,) + x.shape[1:]), ref)
+    want = jax.vmap(ref_poly.UniformPair().sample, (None, 0, 0))(
+        {}, jax.random.wrap_key_data(jnp.asarray(keys.numpy())), ref)
+    for k in ("i", "j"):
+        np.testing.assert_array_equal(action[k].numpy(), np.asarray(want[k]))
 
 
 def test_system_frame_and_callback_match_reference():

@@ -34,8 +34,8 @@ def warm_up_transcendentals():
     thread and on many (a tensor above the intra-op grain size)."""
     for n in (64, 1 << 17):
         u = torch.linspace(0.01, 0.99, n)
-        for fn in (torch.log, torch.cos, torch.sin, torch.exp, torch.sqrt,
-                   torch.tanh):
+        for fn in (torch.log, torch.log1p, torch.cos, torch.sin, torch.exp,
+                   torch.sqrt, torch.tanh):
             fn(u)
         torch.atan2(u, u.flip(0))
         torch.linalg.norm(u.reshape(-1, 2), dim=-1)
