@@ -181,7 +181,23 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
    generic runs on the card and on the CPU (initial chains and counters
    equal, states within 1e-5); 13d, the generic path with PGMC on two gloo
    ranks sharing the card equal, tensor for tensor, to one process, and
-   their backup resumed in one process equal to the uncut run.
+   their backup resumed in one process equal to the uncut run;
+14. every sampler on the reference's per-chain keys (the cell path,
+   replica exchange, ECMC, the lattice drivers, Wang-Landau): 14a, the
+   threefry kernel's ``split_uniform`` mode (the soft-potential event
+   loops' key split and thresholds in one launch) bit for bit against its
+   plain twin at the LJ event loop's shape (64 keys x 64) and at 10^7
+   values, timed beside its bound; 14b, each sampler from one seed on the
+   card and on the CPU at the CPU tests' sizes, 4 steps: counters and
+   discrete states equal, continuous ones within 1e-5 (a chain that goes
+   its own way is printed with the step and the margin at which it did);
+   14c, each path at its phase's width, cut in depth (the cell path at 32
+   x N 32768, hard-disk ECMC at 64 x N 64 eta 0.70, LJ ECMC at 64 x N 64,
+   the checkerboard, XY and Heisenberg at 1024 x 64^2, Wang-Landau at
+   examples/wang_landau_ising.py's widths, replica exchange at 10c's), the
+   threefry launches set to 0 just before and read just after: units/s,
+   launches a unit and the busy share (with ``--parent-tree TREE`` the
+   same runs of both trees in child processes, in turns).
 
 Prints its findings on lines before the last, a ``{"kernels": [...]}``
 line (``ms`` and ``plain_ms`` per call at the main path's segment of
@@ -190,15 +206,18 @@ Metropolis sweep; ``entry_points`` names the unsharded and the sharded
 entry point that launch the kernel, ``launches`` counts both, of which
 ``mesh_launches`` those of phase 9's ranks; kernel #1's count includes
 phase 10c's segments, kernel #2's phase 10d's MH runs; the threefry row's
-``launches`` are phase 13b's and 13d's, its times at the generic path's
-shape of one uniform for each of 10^4 chains), and as the last line
+``launches`` are phase 13b's, 13d's and 14c's, its times at the generic
+path's shape of one uniform for each of 10^4 chains; the
+``threefry_split_uniform`` row is the kernel's new mode, its launches 14c's,
+its times at the LJ event loop's shape), and as the last line
 ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero without the last
 line.
 
 Usage: python3 chip_smoke.py [--parent CSRC_DIR] [--parent-tree TREE]
 [--kernels-only] [--cell-only] [--npt-only] [--mesh-only] [--ecmc-only]
-[--lattice-only] [--spins-only] [--streams-only] [--nccl-pair]
+[--lattice-only] [--spins-only] [--streams-only] [--samplers-only]
+[--nccl-pair]
 
 ``--parent CSRC_DIR`` names a directory with an earlier version of
 ``fused_sweep.cu``, ``lj_sweep.cu`` and ``poly_sweep.cu`` (and their
@@ -213,9 +232,10 @@ order).  ``--kernels-only`` stops after phase 4b (and the comparison with
 ``--parent``); ``--cell-only`` runs phase 7 alone after the build,
 ``--npt-only`` phase 8, ``--mesh-only`` phase 9, ``--ecmc-only`` phase
 10, ``--lattice-only`` phase 11, ``--spins-only`` phase 12,
-``--streams-only`` phase 13.  ``--parent-tree TREE`` names a checkout of an
-earlier commit (``git archive``) whose generic path phase 13b times beside
-this one's.
+``--streams-only`` phase 13, ``--samplers-only`` phase 14.
+``--parent-tree TREE`` names a checkout of an earlier commit (``git
+archive``) whose generic path (13b) and keyed samplers (14c) are timed
+beside this one's.
 ``--nccl-pair`` is no phase: after the build it starts two ``nccl`` ranks
 on the one card and prints what NCCL does with them.
 """
@@ -1836,10 +1856,15 @@ def cell_routes(tmc, root, card):
         check(all(0.01 < r < 0.99 for r in rates), f"{label}: acceptance "
               f"{rates}")
         if bounds is None:
+            # float32 positions resolve a distance only to about their
+            # spacing at the box edge (1.5e-5 at this box of 135.6: a
+            # position is frac * box rounded), finer than overlap_free's
+            # default 1e-5 can ask: the gate is two spacings
+            tol = max(1e-5, 2 * float(np.spacing(np.float32(host_box(st4)))))
             dmin = hd.min_pair_distance(st4)
             print(f"{line}; min pair distance over 4 chains "
-                  f"{float(dmin.min())!r} [{card}]")
-            check(bool(hd.overlap_free(st4).all()),
+                  f"{float(dmin.min())!r} (gate 1 - {tol!r}) [{card}]")
+            check(bool(hd.overlap_free(st4, tol=tol).all()),
                   "hard disks overlap after the cell path")
             continue
         if mod is lj:
@@ -1891,7 +1916,6 @@ def crossover(tmc, device, card):
                 _occupancy(st, cell_mc.plan_grid(n, box, rcut).nc)))
             a_att = grid.nc ** 2 // 4
             n_sub = -(-n // a_att)       # a sweep, rounded up to substeps
-            gen = torch.Generator(device=device).manual_seed(1)
             attempts = []
 
             def row():
@@ -1901,7 +1925,7 @@ def crossover(tmc, device, card):
             def cell():
                 res = cell_mc.cell_mc_segment(
                     grid, pe, rc2, st.pos, st.species.float(), st.beta,
-                    st.energy, sigma, cell_mc.GeneratorDraws(gen, 1, 0),
+                    st.energy, sigma, cell_mc.KeyDraws(1, 0, torch.arange(m)),
                     n_sub, box=st.box)
                 attempts.append(res[4])
                 return res
@@ -1953,10 +1977,10 @@ def cell_profile(grid, pe, rc2, st, sigma, card, n_sub=20):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from montecarlo_tpu_torch.ops import cell_mc
-    gen = torch.Generator(device=st.pos.device).manual_seed(2)
+    ids = torch.arange(st.pos.shape[0])
     args = (grid, pe, rc2, st.pos, st.species.float(), st.beta, st.energy,
             sigma)
-    cell_mc.cell_mc_segment(*args, cell_mc.GeneratorDraws(gen, 2, 0), n_sub,
+    cell_mc.cell_mc_segment(*args, cell_mc.KeyDraws(2, 0, ids), n_sub,
                             box=st.box)
     torch.cuda.synchronize()
     counts = {}
@@ -1964,8 +1988,8 @@ def cell_profile(grid, pe, rc2, st, sigma, card, n_sub=20):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            cell_mc.cell_mc_segment(*args, cell_mc.GeneratorDraws(gen, 2, 0),
-                                    k, box=st.box)
+            cell_mc.cell_mc_segment(*args, cell_mc.KeyDraws(2, 0, ids), k,
+                                    box=st.box)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launches, busy = _launches_and_busy(prof)
@@ -2031,8 +2055,7 @@ def card_vs_cpu(device, card):
                              max_occupancy=_occupancy(st, cell_mc.plan_grid(
                                  n, float(st.box[0]), rcut).nc))
     variants, _ = cell_mc._make_substep(grid, pe, rc2, "species")
-    draws = cell_mc.GeneratorDraws(torch.Generator().manual_seed(cfg["seed"]),
-                                   cfg["seed"], 0)
+    draws = cell_mc.KeyDraws(cfg["seed"], 0, torch.arange(m))
     seq = draws.variants(cfg["substeps"], 4, cfg["w_disp"],
                          1.0 - cfg["w_disp"], True, False)
     shift = draws.shift(m, 2, "cpu")
@@ -2374,7 +2397,7 @@ def hard_spheres_npt(tmc, kernels, root, card):
 
 
 class _Replay:
-    """The draws of a CPU :class:`GeneratorDraws`, moved to ``device``: one
+    """The draws of a CPU :class:`KeyDraws`, moved to ``device``: one
     segment's numbers for the card, made as the CPU's run makes them."""
 
     def __init__(self, draws, device):
@@ -2434,8 +2457,7 @@ def npt_card_vs_cpu(device, card):
         args = (grid, pe, rc2)
         res = {}
         for where in ("cpu", "card"):
-            gen = torch.Generator().manual_seed(cfg["seed"])
-            draws = cell_mc.GeneratorDraws(gen, cfg["seed"], 0)
+            draws = cell_mc.KeyDraws(cfg["seed"], 0, torch.arange(m))
             if where == "cpu":
                 x = (st.pos, attr, st.beta, st.energy, st.box)
             else:
@@ -2452,7 +2474,7 @@ def npt_card_vs_cpu(device, card):
         dfrac = float((c[0] / c[3][:, None, None]
                        - g[0] / g[3][:, None, None]).abs().max())
         dbox = float(((c[3] - g[3]).abs() / c[3]).max())
-        seq = cell_mc.GeneratorDraws(None, cfg["seed"], 0).variants(
+        seq = cell_mc.KeyDraws(cfg["seed"], 0, torch.arange(m)).variants(
             cfg["substeps"], 2 ** dim, kw["w_disp"], kw.get("w_swap", 0.0),
             True, "vol" in kw)
         kinds = np.bincount(seq[:, 0], minlength=3).tolist()
@@ -2513,8 +2535,7 @@ def substep_times(lj3d_sim, poly_sim, card):
         s = torch.remainder(st.pos / st.box[:, None, None], 1.0)
         P = cell_mc._pack(cell_mc.bind_cells(
             grid, s, getattr(st, field).to(torch.float32)))
-        gen = torch.Generator(device=st.pos.device).manual_seed(3)
-        draws = cell_mc.GeneratorDraws(gen, 3, 0)
+        draws = cell_mc.KeyDraws(3, 0, torch.arange(m))
         if kind == 0:
             d = draws.substep(0, 0, m, grid.nc // 2, grid.cap, dim,
                               "gaussian", st.pos.device)
@@ -3618,14 +3639,13 @@ def lattice_exact(tmc, root, card):
 
 
 class _RecordedEventDraws:
-    """Event draws made on the CPU from a generator and recorded, so that
-    the card replays the very numbers the CPU used."""
+    """Event draws made on the CPU from the chains' keys and recorded, so
+    that the card replays the very numbers the CPU used."""
 
     def __init__(self, m, seed):
-        import torch
-        from montecarlo_tpu_torch.core.ecmc import GeneratorEventDraws
-        self.src = GeneratorEventDraws(torch.Generator().manual_seed(seed),
-                                       seed + 1, m, "cpu")
+        from montecarlo_tpu_torch.core.ecmc import KeyEventDraws
+        from montecarlo_tpu_torch.utils import prng
+        self.src = KeyEventDraws(prng.split(prng.key(seed, "cpu"), m))
         self.log = []
 
     def __getattr__(self, name):        # start, uniform, bernoulli, ...
@@ -4039,6 +4059,7 @@ def spins_card_vs_cpu(device, card):
     from montecarlo_tpu_torch.core.wanglandau import refine, wl_step
     from montecarlo_tpu_torch.models import heisenberg as hb
     from montecarlo_tpu_torch.models import ising2d, tfim, xy
+    from montecarlo_tpu_torch.utils import prng
     cpu = torch.device("cpu")
     gen = torch.Generator().manual_seed(12)
     m, size = 16, 16
@@ -4138,7 +4159,7 @@ def spins_card_vs_cpu(device, card):
                                  dtype=torch.int32),
            "log_f": torch.full((m,), 0.25)}
     slc["visited"] = slc["hist"] + 3
-    sites = model.draw(gen, (m, 16), cpu)
+    sites = model.draw(prng.split(prng.key(12, cpu), (m, 16)))
     uu = u(m, 16).clamp(min=np.finfo(np.float32).tiny)
     ca = wl_step(model, wi, slc["log_g"], slc["hist"], slc["visited"],
                  slc["log_f"], sites, uu)
@@ -4494,6 +4515,530 @@ def streams_phases(tmc, device, kernels, card, parent_tree=None):
                 launches=n_main + n_mesh, mesh_launches=n_mesh, bench=bench)
 
 
+# -- phase 14: every sampler on the reference's per-chain keys ----------------
+
+# 14a: the threefry kernel's split_uniform mode at the soft-potential event
+# loop's shape (one key a chain of 14c's LJ pool, 64 x N 64) and at 10^7
+# values (10^4 keys x 1000)
+SPLIT_UNIFORM = dict(loop=(64, 64), big=(10 ** 4, 1000), reps=200,
+                     big_reps=20, plain_reps=20, big_plain_reps=1)
+# 14b: each sampler from one seed on the card and on the CPU, at the CPU
+# tests' sizes (tests/test_torch_sampler_streams.py), a few steps each
+TWIN_STEPS = 4
+# a tie flipped at an ulp may send one chain (a swapped pair: two) its own
+# way; more is a fault
+TWIN_MAX_FLIPPED = 2
+# 14c: each path at the width its phase uses, cut in depth (steps a timed
+# run; a warm-up run and a profiled step besides): the cell path at phase
+# 7's 32 x N 32768, four segments of 2 steps (~28 substeps each);
+# hard-disk ECMC at tools/bench_ecmc.py 64 0.70 and LJ ECMC at
+# tools/bench_ecmc_lj.py's 64 x N 64 (phase 10a, 10d); the
+# checkerboard at tools/bench_ising2d.py's 1024 x 64^2 (11a); XY and
+# Heisenberg at 1024 x 64^2 with over-relaxation (12a, 12b); Wang-Landau at
+# examples/wang_landau_ising.py's widths (12d); replica exchange at 10c's
+SAMPLER_BENCH = dict(cell_steps=2, cell_calls=4, ecmc_steps=2,
+                     checkerboard_steps=60, spin_steps=24, wl_steps=200,
+                     tempering_steps=5000)
+THREEFRY_OPS["split_uniform"] = 2 * 79 + 16   # two blocks and the finish
+TINY32 = float(np.finfo(np.float32).tiny)
+
+
+def split_uniform_vs_plain(device, card):
+    """14a: the split_uniform mode against its plain twin, bit for bit (the
+    successor keys and the values), at the event loop's shape and at 10^7
+    values; returns the loop shape's (max |error|, kernel ms, plain ms,
+    (bound ms, bound by))."""
+    import torch
+    from montecarlo_tpu_torch.ops.threefry import threefry
+    from montecarlo_tpu_torch.utils import prng
+    c = SPLIT_UNIFORM
+    out = None
+    for label, (b, n), reps, plain_reps in (
+            ("the LJ event loop's shape", c["loop"], c["reps"],
+             c["plain_reps"]),
+            ("10^7 values", c["big"], c["big_reps"], c["big_plain_reps"])):
+        keys = prng.split(prng.key(SEED + 14, device), b)
+        call = lambda interpret=False: threefry(
+            keys, n, "split_uniform", lo=TINY32, hi=1.0, interpret=interpret)
+        nk, got = call()
+        pk, want = call(True)
+        torch.cuda.synchronize()
+        check(torch.equal(nk, pk) and torch.equal(got, want),
+              f"14a: split_uniform at {b} x {n} differs from its plain twin")
+        err = float((got - want).abs().max())
+        k_ms = cuda_time(call, reps)
+        p_ms = cuda_time(lambda: call(True), plain_reps, warm=False)
+        # each key read once, its successor and the values written once
+        b_ms, by = bound(16 * b + 4 * b * n,
+                         b * n * THREEFRY_OPS["split_uniform"])
+        print(f"14a: threefry split_uniform at {label} ({b} keys x {n} "
+              f"values): successors and values bit for bit against the "
+              f"plain twin; {k_ms!r} ms a launch, plain {p_ms!r} ms, bound "
+              f"{b_ms!r} ms (by {by}): {100 * b_ms / k_ms!r} % of the "
+              f"bound's rate; no PyTorch call computes threefry2x32 "
+              f"[{card}]")
+        if out is None:
+            out = (err, k_ms, p_ms, (b_ms, by))
+    return out
+
+
+def _twin_builders():
+    """14b's runs: name -> (build(tmc, device) -> (system, chains,
+    algorithms), the state's periodic fields)."""
+    from montecarlo_tpu_torch.models import hard_disks as hd
+    from montecarlo_tpu_torch.models import heisenberg as hb
+    from montecarlo_tpu_torch.models import ising2d
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.models import particle1d as p1d
+    from montecarlo_tpu_torch.models import polydisperse as poly
+    from montecarlo_tpu_torch.models import potts, tfim, xy
+
+    def i2(cls, size, **kw):
+        return lambda tmc, dev: (
+            ising2d.make_system(),
+            ising2d.init_chains(8, size, 0.44, seed=3, device=dev),
+            [dict(algorithm=getattr(ising2d, cls), seed=5, **kw)])
+
+    def pt(factory, q, size, **kw):
+        return lambda tmc, dev: (
+            potts.make_system(q),
+            potts.init_chains(8, size, q, 0.9, seed=3, device=dev),
+            [dict(algorithm=getattr(potts, factory)(q), seed=5, **kw)])
+
+    def ecmc(mod, init, model):
+        return lambda tmc, dev: (
+            mod.make_system(mod.harmonic) if mod is p1d else
+            mod.make_system(), init(dev),
+            [dict(algorithm=tmc.EventChain, model=model(),
+                  events_per_step=2, seed=11)])
+
+    def wang_landau(tmc, dev):
+        return (ising2d.make_system(),
+                ising2d.init_chains(8, 4, 1.0, seed=3, device=dev),
+                [dict(algorithm=tmc.WangLandau, model=ising2d.wl_model(4),
+                      moves_per_step=16, seed=9),
+                 dict(algorithm=tmc.WangLandauRefine, flatness=0.5,
+                      log_f_min=1e-4, dependencies=(tmc.WangLandau,),
+                      scheduler=np.arange(2, TWIN_STEPS + 1, 2))])
+
+    def tempering(tmc, dev):
+        return (p1d.make_system(p1d.harmonic),
+                p1d.init_chains(16, beta=tmc.tile_ladder(
+                    [0.5, 1.0, 2.0, 4.0], 4, device=dev), seed=3,
+                    device=dev),
+                [dict(algorithm=tmc.Metropolis,
+                      pool=(p1d.displacement_move(0.8),), seed=2,
+                      fused="off"),
+                 dict(algorithm=tmc.ReplicaExchange, n_temps=4, seed=5)])
+
+    def cell_lj(tmc, dev):
+        return (lj.make_system(),
+                lj.init_chains(4, 256, rho=1.0, beta=1.0, frac_b=0.2,
+                               seed=6, device=dev),
+                [dict(algorithm=tmc.Metropolis,
+                      pool=(lj.lj_displacement_move(0.1, weight=0.8),
+                            lj.lj_swap_move(weight=0.2)),
+                      seed=3, sweepstep=64, fused="cell")])
+
+    def cell_npt(tmc, dev):
+        return (poly.make_system(),
+                poly.init_chains(2, 512, rho=0.6, beta=1.0 / 0.4, seed=21,
+                                 device=dev),
+                [dict(algorithm=tmc.Metropolis,
+                      pool=(poly.displacement_move(0.08, weight=0.75),
+                            poly.swap_move(weight=0.2),
+                            poly.volume_move(0.002, 4.0, weight=0.05)),
+                      seed=4, sweepstep=64, fused="cell")])
+
+    return {
+        "ising2d checkerboard": (i2("CheckerboardMetropolis", 6, sweeps=2),
+                                 ()),
+        "ising2d wolff": (i2("WolffCluster", 5, clusters=2), ()),
+        "ising2d swendsen-wang": (i2("SwendsenWang", 5, sweeps=2), ()),
+        "potts checkerboard": (pt("CheckerboardPotts", 3, 6), ()),
+        "potts wolff": (pt("WolffPotts", 3, 5, clusters=2), ()),
+        "potts swendsen-wang": (pt("SwendsenWangPotts", 4, 5, sweeps=2),
+                                ()),
+        "xy checkerboard": (lambda tmc, dev: (
+            xy.make_system(), xy.init_chains(8, 6, 1.0, seed=3, device=dev),
+            [dict(algorithm=xy.CheckerboardXY, sweeps=2, delta=1.2,
+                  seed=5)]), ("theta",)),
+        "heisenberg checkerboard": (lambda tmc, dev: (
+            hb.make_system(), hb.init_chains(8, 6, 1.0, seed=3, device=dev),
+            [dict(algorithm=hb.CheckerboardHeisenberg, sweeps=2, delta=0.8,
+                  seed=5)]), ()),
+        "tfim checkerboard": (lambda tmc, dev: (
+            tfim.make_system(),
+            tfim.init_chains(8, 4, 8, 2.0, seed=3, device=dev),
+            [dict(algorithm=tfim.TFIMCheckerboard, sweeps=2, seed=5)]), ()),
+        "wang-landau": (wang_landau, ()),
+        "ecmc zig-zag": (ecmc(p1d, lambda dev: p1d.init_chains(
+            16, beta=2.0, seed=3, device=dev), p1d.zigzag_model), ()),
+        "ecmc hard disks": (ecmc(hd, lambda dev: hd.init_chains(
+            3, 30, 0.5, seed=42, device=dev), lambda: hd.ecmc_model(
+                1.0, max_events_per_chain=512)), ("pos",)),
+        "ecmc lj": (ecmc(lj, lambda dev: lj.init_chains(
+            3, 20, 0.7, 1.0, frac_b=0.2, seed=5, device=dev),
+            lambda: lj.ecmc_model(1.5)), ("pos",)),
+        "ecmc poly": (ecmc(poly, lambda dev: poly.init_chains(
+            3, 25, 0.9, 2.0, seed=2, device=dev),
+            lambda: poly.ecmc_model(1.0)), ("pos",)),
+        "replica exchange": (tempering, ()),
+        "cell path lj": (cell_lj, ("pos",)),
+        "cell path poly npt": (cell_npt, ("pos",)),
+    }
+
+
+def _twin_run(tmc, build, dev, steps, root):
+    import torch
+    system, chains, algos = build(tmc, dev)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=root) as tmp:
+        sim = tmc.Simulation(system, chains, algos, steps, path=tmp)
+        sim.run()
+    torch.cuda.synchronize()
+    return state_arrays(sim.device_state)
+
+
+def _twin_compare(a, b, periodic):
+    """(the rows of the chain-major leaves that differ, the largest float
+    difference on the other rows, the leaves' names that differ) between
+    the card's arrays ``a`` and the CPU's ``b``; floats within 1e-5 plus
+    rtol 1e-5, integers equal, periodic fields (angles, positions) up to a
+    period (2 pi; a box)."""
+    bad_rows, bad_leaves, worst = set(), [], 0.0
+    box = max((float(np.max(v)) for k, v in b.items()
+               if k.endswith("/box")), default=None)
+    for k, w in b.items():
+        g = a[k]
+        if g.shape != w.shape:
+            bad_leaves.append(k)
+            continue
+        if np.issubdtype(w.dtype, np.floating):
+            d = np.abs(g.astype(np.float64) - w.astype(np.float64))
+            field = k.rsplit("/", 1)[-1]
+            if field in periodic:
+                period = 2 * np.pi if field == "theta" else box
+                d = np.minimum(d, np.abs(period - d))
+            off = d > 1e-5 + 1e-5 * np.abs(w.astype(np.float64))
+        else:
+            d = None
+            off = g != w
+        if off.any():
+            if off.ndim and w.shape[0] > 1:
+                rows = np.nonzero(off.reshape(w.shape[0], -1).any(1))[0]
+                bad_rows.update(int(r) for r in rows)
+            else:
+                bad_leaves.append(k)
+        if d is not None and d.size:
+            keep = ~off.reshape(w.shape[0], -1).any(1) if off.ndim else None
+            dd = d.reshape(w.shape[0], -1)[keep] if keep is not None else d
+            if dd.size:
+                worst = max(worst, float(dd.max()))
+    return sorted(bad_rows), worst, bad_leaves
+
+
+def samplers_card_vs_cpu(tmc, device, root, card):
+    """14b: each sampler from one seed on the card and on the CPU: counters
+    and discrete states equal, continuous ones within 1e-5 (energies rtol
+    1e-5).  Where a chain went its own way, the first step at which it did
+    is found (runs of 1, 2, ... steps) and printed with how far the two
+    devices' states were apart before it, the accept test's margin there;
+    at most TWIN_MAX_FLIPPED chains a sampler, and none once more than one
+    sampler flipped."""
+    import torch
+    cpu = torch.device("cpu")
+    flipped = 0
+    worst_all = 0.0
+    for name, (build, periodic) in _twin_builders().items():
+        a = _twin_run(tmc, build, device, TWIN_STEPS, root)
+        b = _twin_run(tmc, build, cpu, TWIN_STEPS, root)
+        rows, worst, leaves = _twin_compare(a, b, periodic)
+        check(not leaves, f"14b: {name}: {leaves} differ on the card and "
+              f"on the CPU")
+        if rows:
+            flipped += 1
+            first, before = None, 0.0
+            for j in range(1, TWIN_STEPS + 1):
+                aj = _twin_run(tmc, build, device, j, root)
+                bj = _twin_run(tmc, build, cpu, j, root)
+                rj, wj, _ = _twin_compare(aj, bj, periodic)
+                if rj:
+                    first = j
+                    break
+                before = wj
+            print(f"14b: {name}: chains {rows} went their own way at step "
+                  f"{first} of {TWIN_STEPS}, the two devices' states "
+                  f"{before!r} apart before it (an accept test tied at that "
+                  f"margin); the other chains within {worst!r} [{card}]")
+            check(len(rows) <= TWIN_MAX_FLIPPED and flipped <= 1
+                  and before <= 1e-5,
+                  f"14b: {name}: {len(rows)} chains differ on the card "
+                  f"and on the CPU (samplers with a flip: {flipped})")
+        worst_all = max(worst_all, worst)
+        print(f"14b: {name}, {TWIN_STEPS} steps from one seed: card and CPU "
+              f"{'equal but for the flip above' if rows else 'equal'} "
+              f"(counters and discrete states exactly, the rest within "
+              f"{worst!r}) [{card}]")
+    return worst_all
+
+
+class _IterationCounter:
+    """Counts the event loops' iterations (``core.ecmc.event_loop``'s
+    ``body`` calls) while installed."""
+
+    def __init__(self, ecmc):
+        self.ecmc, self.n = ecmc, 0
+        self.orig = ecmc.event_loop
+
+    def __enter__(self):
+        orig = self.orig
+
+        def counted(body, carry, active, *args, **kw):
+            def wrapped(c, i):
+                self.n += 1
+                return body(c, i)
+            return orig(wrapped, carry, active, *args, **kw)
+
+        self.ecmc.event_loop = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.ecmc.event_loop = self.orig
+
+
+def samplers_bench(tmc, device, root, card):
+    """14c on the package ``tmc`` (this tree's, or another's in a child
+    process): each keyed path at its phase's width, cut in depth; {path:
+    {wall, units, rate, unit, launches_unit, busy}}.  A warm-up run, the
+    timed run from an idle card to an idle card, then one more step under
+    ``torch.profiler`` for the launches a unit and the busy share."""
+    import torch
+    from montecarlo_tpu_torch.core import ecmc as ecmc_mod
+    from montecarlo_tpu_torch.models import hard_disks as hd
+    from montecarlo_tpu_torch.models import heisenberg as hb
+    from montecarlo_tpu_torch.models import ising2d
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.models import particle1d as p1d
+    from montecarlo_tpu_torch.models import xy
+    c = SAMPLER_BENCH
+    out = {}
+
+    def record(name, wall, units, unit, launches, per, busy):
+        out[name] = dict(wall=wall, units=units, rate=units / wall,
+                         unit=unit, launches=launches, per=per, busy=busy)
+
+    def sim_of(system, chains, algos, steps, name):
+        return tmc.Simulation(system, chains, algos, steps,
+                              path=os.path.join(root, name))
+
+    # the cell path: segments of the cell route at phase 7's width, timed
+    # through the algorithm's own advance (no recorder, so no O(N^2)
+    # refresh); a unit is a substep
+    cm = CELL_MAIN
+    chains = lj.init_chains(cm["chains"], cm["n"], rho=cm["rho"],
+                            beta=cm["beta"], frac_b=cm["frac_b"], seed=42,
+                            device=device)
+    sim = sim_of(lj.make_system(), chains, [
+        dict(algorithm=tmc.Metropolis,
+             pool=(lj.lj_displacement_move(cm["sigma"]),), seed=42,
+             sweepstep=cm["n"] // 4, fused="cell")], c["cell_steps"], "cell")
+    met = sim.device_algos[0]
+    check(met._use_cell, "14c: the cell path not taken")
+    per = met._cell_plan.nc ** 2 // 4
+    ds = met.fused_advance(sim.init_device_state(), 1)
+    torch.cuda.synchronize()
+
+    def substeps(d):
+        return float(d["metropolis"]["counters"][:, 0, 1].double().mean()
+                     ) / per
+
+    s0 = substeps(ds)
+    t0 = time.perf_counter()
+    for _ in range(c["cell_calls"]):
+        ds = met.fused_advance(ds, c["cell_steps"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_sub = substeps(ds) - s0
+    box = {}
+    busy, launches = _busy_share(
+        lambda: box.update(ds=met.fused_advance(ds, 1)), card,
+        "14c cell path, one step")
+    record("cell", wall, n_sub, "substep",
+           launches / (substeps(box["ds"]) - substeps(ds)), "a substep",
+           busy)
+
+    # event-chain MC: hard disks (10a) and LJ (10d); a unit is an event (a
+    # collision, as 10a counts them); launches an iteration of the loops
+    for name, mod, chains, model, events in (
+            ("ecmc_hard_disks", hd,
+             hd.init_chains(ECMC_HD["chains"], ECMC_HD["n"],
+                            eta=ECMC_HD["eta"], seed=42, device=device),
+             None, ECMC_HD["events"]),
+            ("ecmc_lj", lj,
+             lj.init_chains(64, ECMC_LJ["n"], rho=ECMC_LJ["rho"], beta=1.0,
+                            frac_b=0.0, seed=42, device=device),
+             lj.ecmc_model(ECMC_LJ["ell"], max_events_per_chain=512),
+             ECMC_LJ["events"])):
+        if model is None:
+            model = hd.ecmc_model(float(chains.box[0]) / 2.0,
+                                  max_events_per_chain=ECMC_HD["cap"])
+        algos = [dict(algorithm=tmc.EventChain, model=model,
+                      events_per_step=events, seed=7)]
+        warm = sim_of(mod.make_system(), chains, algos, 1, name + "_warm")
+        warm.run()
+        sim = sim_of(mod.make_system(), warm.device_state["sys"], algos,
+                     c["ecmc_steps"], name)
+        wall = timed_run(sim)
+        stats = sim.device_state["ecmc"]["stats"]
+        n_events = int(stats["collisions"].sum())
+        check(int(stats["cap_hits"].sum()) == 0, f"14c: {name} cap hits")
+        alg, ds = sim.device_algos[0], sim.device_state
+        with _IterationCounter(ecmc_mod) as it:
+            busy, launches = _busy_share(
+                lambda: alg.step(ds, c["ecmc_steps"] + 1), card,
+                f"14c {name}, one step")
+        record(name, wall, n_events, "event", launches / max(it.n, 1),
+               f"a loop iteration ({it.n} iterations a step)", busy)
+
+    # the lattices: the checkerboard (11a), XY and Heisenberg (12a, 12b);
+    # a unit is a spin-update attempt, launches counted a sweep
+    for name, mod, algo, kw, steps in (
+            ("checkerboard", ising2d, ising2d.CheckerboardMetropolis,
+             dict(sweeps=CHECKERBOARD["sweeps"]), c["checkerboard_steps"]),
+            ("xy", xy, xy.CheckerboardXY,
+             dict(sweeps=SPIN_CB["sweeps"], overrelax=SPIN_CB["overrelax"],
+                  delta=SPIN_CB["delta"]), c["spin_steps"]),
+            ("heisenberg", hb, hb.CheckerboardHeisenberg,
+             dict(sweeps=SPIN_CB["sweeps"], overrelax=SPIN_CB["overrelax"],
+                  delta=SPIN_CB["delta"]), c["spin_steps"])):
+        width = CHECKERBOARD if name == "checkerboard" else SPIN_CB
+        chains = mod.init_chains(width["chains"], width["size"],
+                                 beta=width["beta"], seed=42, device=device)
+        algos = [dict(algorithm=algo, seed=42, **kw)]
+        sim_of(mod.make_system(), chains, algos, 1, name + "_warm").run()
+        sim = sim_of(mod.make_system(), chains, algos, steps, name)
+        wall = timed_run(sim)
+        alg, ds = sim.device_algos[0], sim.device_state
+        busy, launches = _busy_share(lambda: alg.step(ds, steps + 1), card,
+                                     f"14c {name}, one step")
+        record(name, wall, width["chains"] * width["size"] ** 2
+               * kw["sweeps"] * steps, "attempt", launches / kw["sweeps"],
+               "a sweep", busy)
+
+    # Wang-Landau at the example's widths (12d); a unit is a proposal
+    w = WL
+    steps = c["wl_steps"]
+    wl_algos = [dict(algorithm=tmc.WangLandau,
+                     model=ising2d.wl_model(w["size"]),
+                     moves_per_step=w["size"] ** 2, seed=3)]
+    chains = ising2d.init_chains(w["chains"], w["size"], beta=1.0, seed=3,
+                                 device=device)
+    sim_of(ising2d.make_system(), chains, wl_algos, 2, "wl_warm").run()
+    sim = sim_of(ising2d.make_system(), chains, wl_algos, steps, "wl")
+    wall = timed_run(sim)
+    alg, ds = sim.device_algos[0], sim.device_state
+    busy, launches = _busy_share(lambda: alg.step(ds, steps + 1), card,
+                                 "14c Wang-Landau, one step")
+    record("wang_landau", wall, w["chains"] * w["size"] ** 2 * steps,
+           "proposal", launches / w["size"] ** 2, "a proposal", busy)
+
+    # replica exchange between segments of kernel #1 (10c's width); a unit
+    # is a chain's step, launches counted a swap call (its segment's one
+    # launch of kernel #1 included)
+    t = TEMPERING
+    steps = c["tempering_steps"]
+    t_n = len(t["betas"])
+
+    def tempering_sim(n_steps, name):
+        betas = tmc.tile_ladder(t["betas"], t["ladders"], device=device)
+        return sim_of(p1d.make_system(), p1d.init_chains(
+            t_n * t["ladders"], beta=betas, seed=42, device=device), [
+            dict(algorithm=tmc.Metropolis,
+                 pool=(p1d.displacement_move(sigma=1.0),), seed=42),
+            dict(algorithm=tmc.ReplicaExchange, n_temps=t_n, seed=5,
+                 scheduler=np.arange(t["every"], n_steps + 1,
+                                     t["every"]))], n_steps, name)
+
+    tempering_sim(10 * t["every"], "tempering_warm").run()
+    sim = tempering_sim(steps, "tempering")
+    wall = timed_run(sim)
+    prof = tempering_sim(10 * t["every"], "tempering_prof")
+    busy, launches = _busy_share(prof.run, card, "14c replica exchange, 10 "
+                                 "swap calls and their segments")
+    record("tempering", wall, t_n * t["ladders"] * steps, "chain step",
+           launches / 10, "a swap call and its segment", busy)
+    cnt = sim.device_state["replica_exchange"]["counters"]
+    check(int(cnt[:, 0].sum()) > 0, "14c: no swap accepted")
+    for name, r in out.items():
+        print(f"14c: {name}: {r['units']!r} {r['unit']}s in {r['wall']!r} "
+              f"s, {r['rate']!r} {r['unit']}s/s, {r['launches']!r} launches "
+              f"{r['per']}, the card {100 * r['busy']!r} % busy [{card}]")
+    return out
+
+
+def samplers_bench_tree(tree):
+    """14c run by a child process on the package in ``tree``: its
+    result."""
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--samplers-bench",
+         tree], capture_output=True, text=True, timeout=900)
+    check(out.returncode == 0, f"14c on {tree}: {out.stderr[-3000:]}")
+    line = [ln for ln in out.stdout.splitlines()
+            if ln.startswith("SAMPLERS_BENCH ")][-1]
+    return json.loads(line.split(" ", 1)[1])
+
+
+def sampler_phases(tmc, device, kernels, card, parent_tree=None):
+    """Phase 14 (14a-14c); returns the threefry launches of 14c's runs (all
+    modes, and split_uniform's) and the split_uniform row's numbers."""
+    from montecarlo_tpu_torch.ops.threefry import (LAUNCHES_BY_MODE,
+                                                   THREEFRY_KERNEL)
+    err, k_ms, p_ms, (b_ms, by) = split_uniform_vs_plain(device, card)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as tmp:
+        worst = samplers_card_vs_cpu(tmc, device, tmp, card)
+        for k in kernels:
+            k.launches = 0
+        THREEFRY_KERNEL.launches = 0
+        for mode in LAUNCHES_BY_MODE:
+            LAUNCHES_BY_MODE[mode] = 0
+        bench = samplers_bench(tmc, device, tmp, card)
+        n_main = THREEFRY_KERNEL.launches
+        n_split = LAUNCHES_BY_MODE["split_uniform"]
+        by_mode = {m: n for m, n in LAUNCHES_BY_MODE.items() if n}
+        row_counts = {k.symbol: k.launches for k in kernels}
+        print(f"main path: 14c's keyed samplers launched threefry {n_main} "
+              f"times ({by_mode}), the row kernels {row_counts} (kernel #1 "
+              f"by replica exchange's segments)")
+        check(n_main > 0 and n_split > 0,
+              "14c: the keyed samplers did not launch threefry and its "
+              "split_uniform mode")
+        check(not any(n for k, n in row_counts.items()
+                      if k != kernels[0].symbol),
+              "14c: a sampler launched a particle row kernel")
+        if parent_tree is not None:
+            turns = [("parent", parent_tree), ("change", ROOT),
+                     ("change", ROOT), ("parent", parent_tree)]
+            res = [(who, samplers_bench_tree(tree)) for who, tree in turns]
+            for name in bench:
+                line = {}
+                for who in ("parent", "change"):
+                    rs = [r[name] for w, r in res if w == who]
+                    line[who] = ([r["rate"] for r in rs],
+                                 [r["launches"] for r in rs],
+                                 [r["busy"] for r in rs])
+                ratio = np.mean(line["change"][0]) / np.mean(
+                    line["parent"][0])
+                print(f"14c: {name} (turns parent, change, change, parent; "
+                      f"{bench[name]['unit']}s/s, launches a unit, busy): "
+                      f"parent {line['parent']}, change {line['change']}; "
+                      f"change / parent {ratio!r} [{card}]")
+    print(f"14: every sampler from one seed on the card equals the CPU's "
+          f"(worst continuous difference {worst!r}); split_uniform bit for "
+          f"bit [{card}]")
+    return dict(launches=n_main, split_launches=n_split, err=err, ms=k_ms,
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=by, bench=bench)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", metavar="CSRC_DIR", default=None,
@@ -4523,12 +5068,18 @@ def main():
     parser.add_argument("--streams-only", action="store_true",
                         help="after the build, run only phase 13 (the "
                              "threefry streams)")
+    parser.add_argument("--samplers-only", action="store_true",
+                        help="after the build, run only phase 14 (every "
+                             "sampler on per-chain keys)")
     parser.add_argument("--parent-tree", metavar="TREE", default=None,
                         help="a checkout of an earlier commit whose generic "
-                             "path phase 13b times against this one's, in "
-                             "turns")
+                             "path (phase 13b) and keyed samplers (14c) are "
+                             "timed against this one's, in turns")
     # phase 13b on the package of another tree, in a child process
     parser.add_argument("--streams-bench", metavar="TREE", default=None,
+                        help=argparse.SUPPRESS)
+    # phase 14c on the package of another tree, in a child process
+    parser.add_argument("--samplers-bench", metavar="TREE", default=None,
                         help=argparse.SUPPRESS)
     parser.add_argument("--nccl-pair", action="store_true",
                         help="after the build, only try two nccl ranks on "
@@ -4560,6 +5111,18 @@ def main():
                                 card_line())
         print("STREAMS_BENCH " + json.dumps(res))
         return 0
+    if opts.samplers_bench is not None:
+        tree = os.path.abspath(opts.samplers_bench)
+        sys.path.insert(0, tree)
+        import montecarlo_tpu_torch as tmc
+        check(os.path.abspath(tmc.__file__).startswith(tree + os.sep),
+              f"14c: imported {tmc.__file__}, not the package in {tree}")
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke-",
+                                         dir=ROOT) as tmp:
+            res = samplers_bench(tmc, torch.device("cuda", 0), tmp,
+                                 card_line())
+        print("SAMPLERS_BENCH " + json.dumps(res))
+        return 0
     sys.path.insert(0, ROOT)
     import montecarlo_tpu_torch as tmc
     from montecarlo_tpu_torch.core.simulation import _select_advance
@@ -4569,6 +5132,12 @@ def main():
     from montecarlo_tpu_torch.ops.poly_sweep import POLY_KERNEL
     from montecarlo_tpu_torch.ops.threefry import THREEFRY_KERNEL
     kernels = (SWEEP_KERNEL, LJ_KERNEL, LJ_MIXED_KERNEL, POLY_KERNEL)
+
+    start = time.perf_counter()
+
+    def elapsed(what):
+        print(f"time: {what} done, {time.perf_counter() - start!r} s into "
+              f"the script's phases")
 
     # 1. device
     device = torch.device("cuda", 0)
@@ -4617,6 +5186,10 @@ def main():
     if opts.streams_only:
         streams_phases(tmc, device, kernels, card, opts.parent_tree)
         print("chip_smoke: --streams-only: stopping after phase 13")
+        return 0
+    if opts.samplers_only:
+        sampler_phases(tmc, device, kernels, card, opts.parent_tree)
+        print("chip_smoke: --samplers-only: stopping after phase 14")
         return 0
     if opts.nccl_pair:
         nccl_pair(card)
@@ -4788,22 +5361,33 @@ def main():
           f"{wall_poly!r} s wall, "
           f"{POLY['chains'] * POLY['n'] * POLY['sweeps'] / wall_poly!r}"
           f" moves/s with recorders [{card}]")
+    elapsed("phases 1-6")
     # 7. the cell path: no kernel of its own, the row kernels not launched
     cell_phases(tmc, device, kernels, card)
+    elapsed("phase 7")
     # 8. NPT and 3-D: the cell and generic paths, no kernel launched
     npt_phases(tmc, device, kernels, card)
+    elapsed("phase 8")
     # 9. the chain mesh: the sharded entry points, ranks on the one card
     mesh_err, mesh_launches = mesh_phases(tmc, device, kernels, card)
+    elapsed("phase 9")
     # 10. event-chain MC and replica exchange, the latter on kernel #1
     n_tempering, n_mh_lj = ecmc_phases(tmc, device, kernels, card)
     launches["fused_gaussian_sweep"] += n_tempering
     launches["fused_lj_sweep"] += n_mh_lj
+    elapsed("phase 10")
     # 11. the lattice models: no kernel launched
     lattice_phases(tmc, device, kernels, card)
+    elapsed("phase 11")
     # 12. XY, Heisenberg, TFIM and Wang-Landau: no kernel launched
     spin_phases(tmc, device, kernels, card)
+    elapsed("phase 12")
     # 13. the reference's per-chain streams: the threefry kernel
     streams = streams_phases(tmc, device, kernels, card, opts.parent_tree)
+    elapsed("phase 13")
+    # 14. every sampler on the reference's per-chain keys
+    samplers = sampler_phases(tmc, device, kernels, card, opts.parent_tree)
+    elapsed("phase 14")
 
     m2 = CONFIG2_CHAINS
     specs = [(
@@ -4857,12 +5441,33 @@ def main():
         "source": "montecarlo_tpu_torch/csrc/threefry.cu",
         "replaces": "jax/_src/prng.py:883 (XLA's threefry2x32 lowering; "
                     "no Pallas kernel)",
-        "launches": streams["launches"], "max_abs_err": streams["err"],
+        "launches": streams["launches"] + samplers["launches"],
+        "max_abs_err": streams["err"],
         "ms": streams["ms"], "plain_ms": streams["plain_ms"],
         "bound_ms": streams["bound_ms"], "bound_by": streams["bound_by"],
         "library_ms": None, "shape": [STREAMS["keys"], 1],
         "entry_points": ["threefry"],
-        "mesh_launches": streams["mesh_launches"]})
+        "mesh_launches": streams["mesh_launches"],
+        "sampler_launches": samplers["launches"]})
+    rows.append({
+        "name": "threefry_split_uniform", "route": "cuda",
+        "source": "montecarlo_tpu_torch/csrc/threefry.cu",
+        "replaces": "montecarlo_tpu/models/lennard_jones.py:605 (split and "
+                    "uniform of the event loop, fused by XLA; no Pallas "
+                    "kernel)",
+        "launches": samplers["split_launches"],
+        "max_abs_err": samplers["err"], "ms": samplers["ms"],
+        "plain_ms": samplers["plain_ms"], "bound_ms": samplers["bound_ms"],
+        "bound_by": samplers["bound_by"], "library_ms": None,
+        "shape": list(SPLIT_UNIFORM["loop"]),
+        "entry_points": ["threefry(mode='split_uniform')",
+                         "prng.split_uniform"]})
+    print(f"bound: threefry split_uniform at the LJ event loop's shape "
+          f"({SPLIT_UNIFORM['loop'][0]} keys x {SPLIT_UNIFORM['loop'][1]}): "
+          f"{samplers['ms']!r} ms a launch against a bound of "
+          f"{samplers['bound_ms']!r} ms (by {samplers['bound_by']}); plain "
+          f"version {samplers['plain_ms']!r} ms; no PyTorch call computes "
+          f"threefry2x32 [{card}]")
     print(f"bound: threefry at the generic path's shape ({STREAMS['keys']} "
           f"keys x 1 uniform): {streams['ms']!r} ms a launch against a bound "
           f"of {streams['bound_ms']!r} ms (by {streams['bound_by']}); plain "

@@ -494,7 +494,7 @@ class StoreBackups(ObservableRecorder):
     Per chain, ``trajectories/<c>/restart_t<t>.dat`` holds the frame in the
     system's ``format_frame`` line format, as the reference's; besides,
     ``checkpoints/ckpt_t<t>.npz`` holds the whole device state (chains,
-    the chains' keys and any generators, counters, move parameters, PGMC
+    the chains' keys, counters, move parameters, PGMC
     accumulators, step), which
     :func:`montecarlo_tpu_torch.checkpoint.resume_state` loads to resume.
     Before the checkpoint is saved, every chain-major trajectory store of

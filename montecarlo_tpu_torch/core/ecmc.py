@@ -14,9 +14,9 @@ chains at once (every state leaf has a leading chain axis):
   every chain by one event and return a dict of *additive* per-chain
   statistics (ECMC expectations are time averages along the trajectory).
 
-A hook takes its random numbers from ``draws`` (:class:`GeneratorEventDraws`
-in a run), never from a global generator, so the tests can feed it the
-reference's own threefry draws and hold it value for value.
+A hook takes its random numbers from ``draws`` (:class:`KeyEventDraws` in
+a run), never from a global generator, so the tests can feed it any draws
+and hold it value for value.
 
 Where the reference runs one chain's event as a vmapped ``lax.while_loop``,
 the port runs a batched loop over all chains (:func:`event_loop`): a chain
@@ -26,13 +26,16 @@ iteration is an exact no-op and the draws of iteration ``i`` do not depend
 on how many iterations ran, so the result does not depend on
 ``check_every``.
 
-Randomness: each :class:`EventChain` owns one ``torch.Generator`` on the
-chains' device, seeded with ``seed`` (the rank folded in on a chain mesh,
-as ``Metropolis.stream_seed`` folds it), which gives each event its start
-(particle, direction) and the zig-zag's hazard draws; the per-iteration
-thresholds of the soft-potential hooks come from a generator of their own
-per event, seeded from (seed, step, event) on the host by a counter-based
-generator, so the count of masked iterations never shifts a later draw.
+Randomness, the reference's threefry keys (``utils/prng.py``): chain c
+owns ``fold_in(fold_in(key(seed), 0x0EC3C), c)`` over the global chain
+ids, its initial lift draws from ``fold_in(·, 0xF117)``, and step t splits
+``fold_in(·, t)`` into one key an event.  A hook splits its event's key
+as the reference's does; the soft-potential hooks' loop key splits anew
+each iteration into the next loop key and the iteration's thresholds (one
+launch on the card: ``utils/prng.py``'s ``split_uniform``).  A chain that
+is done still advances its loop key, which it never reads again, so no
+draw depends on the count of masked iterations, and one seed gives the
+JAX package's events on any device and rank count.
 """
 
 from __future__ import annotations
@@ -43,11 +46,12 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..utils import prng
 from ..utils.tree import tree_map
 from .algorithms import DeviceAlgorithm, SimView, _n_calls
 
 __all__ = ["EventChainModel", "EventChain", "ecmc_callbacks",
-           "GeneratorEventDraws", "event_loop"]
+           "KeyEventDraws", "event_loop"]
 
 #: the smallest uniform a hook takes, the reference's ``minval``
 TINY = float(np.finfo(np.float32).tiny)
@@ -57,7 +61,9 @@ TINY = float(np.finfo(np.float32).tiny)
 #: launches of wasted work
 CHECK_EVERY = 4
 
+#: the reference's tags of the chains' base key and of the initial lift
 _ECMC_TAG = 0x0EC3C
+_LIFT_TAG = 0xF117
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,53 +75,57 @@ class EventChainModel:
     name: str = "EventChainModel"
 
 
-class GeneratorEventDraws:
-    """One event's random numbers for ``m`` chains.
+class KeyEventDraws:
+    """One event's random numbers for every chain, from the chains' event
+    keys ``keys`` (M, 2), as the reference's hooks derive them from their
+    one chain's key:
 
     - ``start(n, dim)``: each chain's active particle in [0, n) and
-      direction in [0, dim), two (M,) int64 tensors;
-    - ``uniform()``: (M,) float32 uniforms in [TINY, 1);
-    - ``bernoulli()``: (M,) bool, each True with probability 1/2;
+      direction in [0, dim), two (M,) int64 tensors, ``randint`` of the
+      first two keys of ``split(key, 3)`` (the hard disks' ``split(key)``
+      gives the same two: a split's keys are the block at counts 0, 1, ..,
+      whatever their number);
+    - ``uniform(dtype)``: (M,) uniforms in [TINY, 1) from the key itself
+      (the zig-zag's hazard draw);
+    - ``bernoulli()``: (M,) bool, each True with probability 1/2, from the
+      key itself (the zig-zag's initial direction);
     - ``thresholds(i, n)``: the (M, n) float32 uniforms in [TINY, 1) of
-      iteration ``i`` of the event's loop, called for i = 0, 1, ... in turn.
+      iteration ``i`` of the event's loop, called for i = 0, 1, ... in
+      turn: the loop key ``ku``, the third key of ``split(key, 3)``, splits
+      each iteration, ``k, kthr = split(k)``, and the thresholds are
+      ``uniform(kthr, (n,), minval=TINY)``."""
 
-    ``start``, ``uniform`` and ``bernoulli`` draw from ``generator``; the
-    thresholds from a generator of their own, seeded with ``sub_seed`` at
-    their first call."""
-
-    def __init__(self, generator, sub_seed: int, m: int, device):
-        self.generator = generator
-        self.sub_seed = int(sub_seed)
-        self.m = int(m)
-        self.device = torch.device(device)
-        self._sub = None
+    def __init__(self, keys):
+        self.keys = keys
+        self._three = None
+        self._loop = None
         self._next = 0
 
-    def start(self, n: int, dim: int):
-        a0 = torch.randint(0, n, (self.m,), generator=self.generator,
-                           device=self.device)
-        d = torch.randint(0, dim, (self.m,), generator=self.generator,
-                          device=self.device)
-        return a0, d
+    def _split(self):
+        if self._three is None:
+            self._three = prng.split(self.keys, 3)
+        return self._three
 
-    def uniform(self):
-        return torch.rand((self.m,), generator=self.generator,
-                          device=self.device).clamp_(min=TINY)
+    def start(self, n: int, dim: int):
+        k = self._split()
+        return (prng.randint(k[:, 0], (), 0, n, dtype=torch.int64),
+                prng.randint(k[:, 1], (), 0, dim, dtype=torch.int64))
+
+    def uniform(self, dtype=torch.float32):
+        return prng.uniform(self.keys, (), dtype, minval=TINY)
 
     def bernoulli(self):
-        return torch.rand((self.m,), generator=self.generator,
-                          device=self.device) < 0.5
+        return prng.bernoulli(self.keys)
 
     def thresholds(self, i: int, n: int):
         if i != self._next:
             raise ValueError(f"thresholds of iteration {i} asked for after "
                              f"{self._next} iterations")
-        if self._sub is None:
-            self._sub = torch.Generator(device=self.device).manual_seed(
-                self.sub_seed)
+        if self._loop is None:
+            self._loop = self._split()[:, 2]
         self._next += 1
-        return torch.rand((self.m, n), generator=self._sub,
-                          device=self.device).clamp_(min=TINY)
+        self._loop, u = prng.split_uniform(self._loop, (n,), minval=TINY)
+        return u
 
 
 def event_loop(body, carry, active, check_every: int = CHECK_EVERY):
@@ -232,15 +242,6 @@ def run_chain(body, pos0, a0, chain_length, max_events, check_every):
                  "excess": excess}
 
 
-def sub_seed(seed: int, t: int, event: int) -> int:
-    """The seed of the thresholds' generator of event ``event`` of step
-    ``t``: counter-based (numpy's Philox keyed by (seed, t)), so a resumed
-    run draws the same."""
-    key = np.array([seed & (2 ** 64 - 1), t], np.uint64)
-    rng = np.random.Generator(np.random.Philox(key=key))
-    return int(rng.integers(0, 2 ** 63 - 1, size=event + 1)[event])
-
-
 def _first_chain(tree):
     return tree_map(lambda x: x[:1] if torch.is_tensor(x) and x.dim() else x,
                     tree)
@@ -251,8 +252,9 @@ class EventChain(DeviceAlgorithm):
 
     Device-state slice (chain-major):
 
-    - ``generator``: the chains' ``torch.Generator`` (one per rank on a
-      chain mesh, the rank folded into its seed);
+    - ``keys``: per-chain threefry keys, ``fold_in(fold_in(key(seed),
+      0x0EC3C), chain)`` over the global chain ids (a mesh slices them
+      with the chains);
     - ``lift``: per-chain lifting variables (model-defined dict);
     - ``stats``: per-chain additive statistics accumulated over every event
       (model-defined dict, zero-initialised with the shapes and dtypes one
@@ -270,46 +272,35 @@ class EventChain(DeviceAlgorithm):
         self.seed = int(seed)
         self.n_chains = sim.n_chains
         self.device = sim.device
-        self.mesh = getattr(sim, "mesh", None)
-        #: the seed of this rank's streams: ``seed`` itself without a mesh,
-        #: else the rank folded in as ``Metropolis.stream_seed`` folds it
-        self.stream_seed = self.seed
-        if self.mesh is not None:
-            from ..ops.fused_sweep import _shard_seed
-            self.stream_seed = _shard_seed(self.mesh.rank, self.seed)
-
-    def draws(self, generator, t: int, event: int, m: int):
-        """The draws of event ``event`` of step ``t`` for ``m`` chains."""
-        return GeneratorEventDraws(
-            generator, sub_seed(self.stream_seed ^ _ECMC_TAG, t, event), m,
-            self.device)
 
     def init_state(self, sim):
-        gen = torch.Generator(device=self.device).manual_seed(
-            self.stream_seed)
+        base = prng.fold_in(prng.key(self.seed, self.device), _ECMC_TAG)
+        keys = prng.fold_in(base[None],
+                            torch.arange(self.n_chains, device=self.device))
         sys0 = sim.chains0
-        lift = self.model.init_lift(sys0, self.draws(gen, 0, 0,
-                                                     self.n_chains))
+        lift = self.model.init_lift(
+            sys0, KeyEventDraws(prng.fold_in(keys, _LIFT_TAG)))
         # zero stats with the model's own shapes: one probe event on one
-        # chain, with draws of its own
-        probe = torch.Generator(device=self.device).manual_seed(0)
+        # chain, with the key of 0 (the reference's shape probe's)
         _, _, inc = self.model.event_step(
             _first_chain(sys0), _first_chain(lift),
-            GeneratorEventDraws(probe, 0, 1, self.device))
+            KeyEventDraws(prng.key(0, self.device)[None]))
         stats = {k: torch.zeros((self.n_chains,) + tuple(v.shape[1:]),
                                 dtype=v.dtype, device=self.device)
                  for k, v in inc.items()}
-        return {"generator": gen, "lift": lift, "stats": stats,
+        return {"keys": keys, "lift": lift, "stats": stats,
                 "n_events": torch.zeros((self.n_chains,), dtype=torch.int32,
                                         device=self.device)}
 
     def step(self, dstate, t):
         slc = dstate[self.state_key]
         sys, lift, stats = dstate["sys"], slc["lift"], slc["stats"]
-        m = slc["n_events"].shape[0]
+        # (M, events, 2): each event's key, split from the step's
+        keys = prng.split(prng.fold_in(slc["keys"], int(t)),
+                          self.events_per_step)
         for e in range(self.events_per_step):
             sys, lift, inc = self.model.event_step(
-                sys, lift, self.draws(slc["generator"], t, e, m))
+                sys, lift, KeyEventDraws(keys[:, e]))
             stats = {k: stats[k] + inc[k] for k in stats}
         return {**dstate, "sys": sys,
                 self.state_key: {**slc, "lift": lift, "stats": stats,

@@ -18,11 +18,11 @@ how the chains are split over ranks.  The fused path draws from the
 reference's counter-hash stream and reproduces its interpret-mode results
 (``ops/fused_sweep.py``); on a chain mesh its ``sharded_*`` entry points
 fold the rank into the sweep seed, as the reference's do.  The
-checkerboard cell-MC path (``ops/cell_mc.py``) draws its per-cell numbers
-from a ``torch.Generator`` that exists only where a cell plan does, seeded
-with :attr:`Metropolis.stream_seed` (on a mesh the rank folded in), and its
-per-substep variants from a counter-based host generator keyed by (seed,
-micro-step).
+checkerboard cell-MC path (``ops/cell_mc.py``) derives a segment's numbers
+from the base key ``fold_in(key(seed), micro_t0)`` of its first
+micro-step, chain c's from ``fold_in(base, c)`` over the global chain ids
+(:class:`~montecarlo_tpu_torch.ops.cell_mc.KeyDraws`), as the reference's
+``cell_mc_segment`` does.
 """
 
 from __future__ import annotations
@@ -268,13 +268,6 @@ class Metropolis(DeviceAlgorithm):
         self.sweepstep = int(sweepstep)
         self.seed = int(seed)
         self.mesh = getattr(sim, "mesh", None)
-        #: the seed of this rank's cell-path generator: ``seed`` itself
-        #: without a mesh, else the rank folded in as the fused path folds
-        #: it
-        self.stream_seed = self.seed
-        if self.mesh is not None:
-            from ..ops.fused_sweep import _shard_seed
-            self.stream_seed = _shard_seed(self.mesh.rank, self.seed)
         self.n_chains = sim.n_chains
         self.n_moves = len(self.pool)
         self.device = sim.device
@@ -465,8 +458,6 @@ class Metropolis(DeviceAlgorithm):
                                dtype=torch.int32, device=self.device)
         slc = {"keys": keys, "counters": counters}
         if self._cell_plan is not None:
-            slc["generator"] = torch.Generator(
-                device=self.device).manual_seed(self.stream_seed)
             # a latched flag, read on the host at every sync point: a cell
             # bind became invalid.  cell_debt carries the fractional-substep
             # credit between segments, in the reference's float32
@@ -630,7 +621,7 @@ class Metropolis(DeviceAlgorithm):
     def _cell_advance(self, dstate, n_steps: int):
         """The checkerboard cell-MC segment for ``n_steps * sweepstep``
         requested moves per chain (``ops/cell_mc.py``)."""
-        from ..ops.cell_mc import GeneratorDraws, cell_mc_segment
+        from ..ops.cell_mc import KeyDraws, cell_mc_segment
         slc = dstate[self.state_key]
         sys = dstate["sys"]
         params = dstate[self.params_key]
@@ -670,8 +661,10 @@ class Metropolis(DeviceAlgorithm):
         if beta is None:
             beta = torch.ones(m, dtype=torch.float32, device=sys.pos.device)
             energy = torch.zeros_like(beta)
-        draws = GeneratorDraws(slc["generator"], self.seed,
-                               t0 * self.sweepstep)
+        # the global ids of this rank's chains (the mesh's contiguous slice)
+        lo = 0 if self.mesh is None else self.mesh.rank * m
+        draws = KeyDraws(self.seed, t0 * self.sweepstep,
+                         torch.arange(lo, lo + m, device=sys.pos.device))
         pos, attr_out, energy, box, att, acc, ovf = cell_mc_segment(
             plan, pe, rc2, sys.pos, attr, beta, energy, sigma, draws,
             substeps, w_disp=(w[0] / a_att) / z, w_swap=(w[1] / a_att) / z,

@@ -387,8 +387,8 @@ def _execute(sim: Simulation):
     auto-selected cell-MC bind overflows.  Nothing is rewound: the generic
     path draws each step's numbers from the chains' keys and t, and the
     row kernels from the seed and the micro-step, so the steps after the
-    fallback draw what they would have drawn without the dropped segments;
-    the cell path's generator is not drawn from again."""
+    fallback draw what they would have drawn without the dropped
+    segments."""
     from .metropolis import Metropolis
     while True:
         try:

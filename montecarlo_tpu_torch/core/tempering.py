@@ -17,13 +17,14 @@ partner configuration); with cached energies in the state this is O(1) a
 chain.  Even and odd neighbour pairings alternate with the algorithm's own
 call count.
 
-Randomness: one ``torch.Generator`` on the chains' device, seeded with
-``seed`` and never with the rank folded in: each call draws M uniforms for
-the whole ensemble, and both members of a pair read the one drawn at the
-pair's low index, so the two members of a pair that straddles a rank
-boundary decide alike on both ranks.  On a chain mesh each rank gathers the
-ensemble's configurations (one all-gather per leaf), swaps the whole
-ensemble and keeps its slice.
+Randomness, the reference's: the slice holds the threefry key
+``key(seed)`` (``utils/prng.py``), and the call at step t draws the whole
+ensemble's M uniforms from ``fold_in(key, t)``, alike on every rank; both
+members of a pair read the one drawn at the pair's low index, so the two
+members of a pair that straddles a rank boundary decide alike on both
+ranks, and one seed gives the JAX package's swaps.  On a chain mesh each
+rank gathers the ensemble's configurations (one all-gather per leaf),
+swaps the whole ensemble and keeps its slice.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import fetch
+from ..utils import prng
 from ..utils.device import resolve_device
 from ..utils.tree import tree_map
 from .algorithms import DeviceAlgorithm, SimView, _n_calls
@@ -125,11 +127,12 @@ class ReplicaExchange(DeviceAlgorithm):
         Top-level state fields that define a replica's ensemble and do not
         travel with the configuration (default ``("beta",)``).
     seed:
-        Seed of the swap decisions' generator.
+        Seed of the swap decisions' key.
 
-    Device state: ``generator``, ``calls`` (the pairing parity counts these)
-    and ``counters`` of shape ``(n_temps - 1, 2)``: (accepted, attempted)
-    swaps per neighbouring pair, summed over ladders.
+    Device state: ``key`` (the (1, 2) threefry key of ``seed``),
+    ``calls`` (the pairing parity counts these) and ``counters`` of shape
+    ``(n_temps - 1, 2)``: (accepted, attempted) swaps per neighbouring
+    pair, summed over ladders.
     """
 
     state_key = "replica_exchange"
@@ -158,8 +161,8 @@ class ReplicaExchange(DeviceAlgorithm):
 
     def init_state(self, sim):
         return {
-            "generator": torch.Generator(device=self.device).manual_seed(
-                self.seed),
+            # (1, 2): a key with no chain axis, which a mesh keeps whole
+            "key": prng.key(self.seed, self.device)[None],
             "calls": torch.zeros((), dtype=torch.int32),
             "counters": torch.zeros((self.n_temps - 1, 2), dtype=torch.int32,
                                     device=self.device),
@@ -175,8 +178,8 @@ class ReplicaExchange(DeviceAlgorithm):
         if self.mesh is not None:
             state = fetch({"sys": state}, self.mesh)["sys"]
         # the whole ensemble's M uniforms, drawn alike on every rank
-        u = torch.rand((self.n_chains,), generator=slc["generator"],
-                       device=self.device)
+        u = prng.uniform(prng.fold_in(slc["key"], int(t)),
+                         (self.n_chains,))[0]
         new_state, inc = swap(state, partner, u, self.log_target,
                               self.ensemble_fields, self.n_temps)
         if self.mesh is not None:

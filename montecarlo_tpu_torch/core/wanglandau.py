@@ -10,10 +10,13 @@ every temperature then follows by one reweighting sum (:func:`reweight`).
 
 - :class:`WangLandau` runs ``moves_per_step`` proposals a step on all
   walkers at once (:func:`wl_step`).  A model names the draws its proposal
-  consumes (:attr:`WangLandauModel.draw`); a step draws them, with the
-  acceptance uniforms, for all its proposals in one call each, from one
-  ``torch.Generator`` on the chains' device (the rank folded in on a chain
-  mesh), so the step function takes them as tensors.
+  consumes (:attr:`WangLandauModel.draw`, from each proposal's key); a
+  step derives the keys of all its proposals from the walkers' threefry
+  keys as the reference does (``split(fold_in(key, t), K)``, each split
+  into ``k_prop, k_acc``), in a few batched calls, and draws the model's
+  draws and the acceptance uniforms from them in one call each, so the
+  step function takes them as tensors and one seed gives the JAX
+  package's walkers.
 - :class:`WangLandauRefine` is the host-side refinement between steps:
   walkers whose histogram is flat (over the bins they have visited, and
   covering every bin they ever visited) halve ``log f`` (floored at
@@ -30,6 +33,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..utils import prng
 from ..utils.tree import tree_map
 from .algorithms import DeviceAlgorithm, HostAlgorithm, SimView, _n_calls
 
@@ -64,15 +68,16 @@ class WangLandauModel:
         chain from one proposal's draws ``draw`` (leading axis the chains);
         the candidate carries its own cached energy.
     draw:
-        ``(generator, (M, K), device) -> draws``, the draws of K proposals
-        of every chain from ``generator``, a tensor whose first two axes
-        are (M, K): proposal ``k`` reads ``draws[:, k]``.
+        ``keys -> draws``, the draws of K proposals of every chain from
+        their (M, K, 2) threefry keys ``k_prop`` (the reference's
+        ``propose(state, k_prop)``), a tensor whose first two axes are
+        (M, K): proposal ``k`` reads ``draws[:, k]``.
     """
 
     n_bins: int
     bin_index: Callable[[Any], Any]
     propose: Callable[[Any, Any], Any]
-    draw: Callable[[Any, tuple, Any], Any]
+    draw: Callable[[Any], Any]
 
 
 def _select(accept, cand, state):
@@ -92,7 +97,7 @@ def wl_step(model: WangLandauModel, state, log_g, hist, visited, log_f,
     """K sequential Wang-Landau proposals on every walker.
 
     ``draws`` holds the proposals' draws (``model.draw``'s layout) and ``u``
-    the (M, K) acceptance uniforms in (0, 1).  Proposal ``k`` moves to the
+    the (M, K) acceptance uniforms in [TINY, 1).  Proposal ``k`` moves to the
     candidate where ``log u[:, k] < log_g[b0] - log_g[b1]`` (b0 the
     current bin, b1 the candidate's), then adds ``log_f`` to ``log_g`` and
     one visit to ``hist`` and ``visited`` at the bin it ends in.  Returns
@@ -127,8 +132,8 @@ class WangLandau(DeviceAlgorithm):
 
     Device-state slice (chain-major):
 
-    - ``generator``: the draws' ``torch.Generator``, seeded with ``seed``
-      (the rank folded in on a chain mesh);
+    - ``keys``: per-chain threefry keys ``fold_in(key(seed), chain)`` over
+      the global chain ids (a mesh slices them with the chains);
     - ``log_g (chains, n_bins) float32``: the running log density of
       states;
     - ``hist (chains, n_bins) int32``: visits since the last refinement;
@@ -148,19 +153,15 @@ class WangLandau(DeviceAlgorithm):
         self.seed = int(seed)
         self.n_chains = sim.n_chains
         self.device = sim.device
-        mesh = getattr(sim, "mesh", None)
-        self.stream_seed = self.seed
-        if mesh is not None:
-            from ..ops.fused_sweep import _shard_seed
-            self.stream_seed = _shard_seed(mesh.rank, self.seed)
 
     def init_state(self, sim):
         nb = self.model.n_bins
         zeros = lambda dtype: torch.zeros((self.n_chains, nb), dtype=dtype,
                                           device=self.device)
+        chain_ids = torch.arange(self.n_chains, device=self.device)
         return {
-            "generator": torch.Generator(device=self.device).manual_seed(
-                self.stream_seed),
+            "keys": prng.fold_in(prng.key(self.seed, self.device)[None],
+                                 chain_ids),
             "log_g": zeros(torch.float32),
             "hist": zeros(torch.int32),
             "visited": zeros(torch.int32),
@@ -168,21 +169,20 @@ class WangLandau(DeviceAlgorithm):
                                 dtype=torch.float32, device=self.device),
         }
 
-    def draws(self, slc):
-        """One step's (draws, u): the model's draws of every proposal, then
-        the (M, K) acceptance uniforms in (0, 1) (the smallest normal
-        float32 for a 0)."""
-        gen = slc["generator"]
-        shape = (slc["log_f"].shape[0], self.moves_per_step)
-        draws = self.model.draw(gen, shape, self.device)
-        u = torch.rand(shape, generator=gen, device=self.device)
-        return draws, torch.clamp(u, min=TINY)
+    def draws(self, slc, t):
+        """Step ``t``'s (draws, u): the model's draws of every proposal,
+        then the (M, K) acceptance uniforms in [TINY, 1), from the keys
+        ``k_prop, k_acc = split(split(fold_in(key, t), K)[k])``."""
+        k = prng.split(prng.split(prng.fold_in(slc["keys"], int(t)),
+                                  self.moves_per_step), 2)   # (M, K, 2, 2)
+        return (self.model.draw(k[:, :, 0]),
+                prng.uniform(k[:, :, 1], (), minval=TINY))
 
     def step(self, dstate, t):
         slc = dstate[self.state_key]
         sys, log_g, hist, visited = wl_step(
             self.model, dstate["sys"], slc["log_g"], slc["hist"],
-            slc["visited"], slc["log_f"], *self.draws(slc))
+            slc["visited"], slc["log_f"], *self.draws(slc, t))
         return {**dstate, "sys": sys,
                 self.state_key: {**slc, "log_g": log_g, "hist": hist,
                                  "visited": visited}}

@@ -6,7 +6,10 @@
 // and the models' initial chains (montecarlo_tpu_torch/utils/prng.py), and
 // one launch makes one draw: the block function and the draw's finish
 // (bits, uniform, normal, randint, or the two words of a split or fold_in)
-// for B keys at n counts each.  Its plain twin is
+// for B keys at n counts each.  One more mode, split_uniform, is a step of
+// the soft-potential event chains' loop (montecarlo_tpu/models/
+// lennard_jones.py:605, :626-627): k, kthr = split(k) and n uniforms from
+// kthr, the successor key and the values from one launch.  Its plain twin is
 // montecarlo_tpu_torch/ops/threefry.py: _plain.
 //
 // What bounds it on Hopper: 32-bit integer operations.  A block is 20
@@ -43,7 +46,14 @@
 
 namespace {
 
-enum Mode { kWords = 0, kBits = 1, kUniform = 2, kNormal = 3, kRandint = 4 };
+enum Mode {
+  kWords = 0,
+  kBits = 1,
+  kUniform = 2,
+  kNormal = 3,
+  kRandint = 4,
+  kSplitUniform = 5
+};
 
 constexpr int kThreads = 256;
 
@@ -122,6 +132,7 @@ struct Args {
   const int32_t* ihi;
   int32_t ilo_v, ihi_v;
   void* out;
+  uint2* next;  // kSplitUniform: each key's successor, (n_keys) uint2
 };
 
 template <int M>
@@ -140,6 +151,19 @@ __global__ void __launch_bounds__(kThreads) threefry_kernel(const Args a) {
     const uint32_t x1 = a.data   ? uint32_t(a.data[b])
                         : folded ? uint32_t(a.fold)
                                  : uint32_t(j);
+    if (M == kSplitUniform) {
+      // k, kthr = split(key): the successor at count 0, the draw's key at
+      // count 1; the value at count j of kthr (each thread recomputes kthr,
+      // one block, rather than share it through memory)
+      const Words kthr = block(k0, k1, 0u, 1u);
+      const Words w = block(kthr.a, kthr.b, x0, x1);
+      static_cast<float*>(a.out)[i] = uniform_from(w.a ^ w.b, a.lo, a.hi);
+      if (j == 0) {
+        const Words nk = block(k0, k1, 0u, 0u);
+        a.next[b] = make_uint2(nk.a, nk.b);
+      }
+      continue;
+    }
     if (M == kRandint) {
       const Words ka = block(k0, k1, 0u, 0u), kb = block(k0, k1, 0u, 1u);
       const Words h = block(ka.a, ka.b, x0, x1), l = block(kb.a, kb.b, x0, x1);
@@ -199,19 +223,23 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // keys: (n_keys, 2) uint32, key b's words at keys[b * key_stride + 0/1];
 // per_key >= 1 counts each (iota), or, with data
 // (n_keys int64, taken mod 2^32) or fold >= 0 (and per_key 1), the count
-// (0, data[b]) or (0, fold); mode as Mode above; lo/hi the float bounds of kUniform;
-// ilo/ihi (n_keys int32, or null for ilo_v/ihi_v) those of kRandint.
-// out: (n_keys, per_key[, 2]) of the mode's type.  Returns the launch's
-// cudaError_t.
+// (0, data[b]) or (0, fold); mode as Mode above; lo/hi the float bounds of
+// kUniform and kSplitUniform; ilo/ihi (n_keys int32, or null for
+// ilo_v/ihi_v) those of kRandint.  out: (n_keys, per_key[, 2]) of the
+// mode's type; next: kSplitUniform's (n_keys, 2) uint32 successor keys
+// (null otherwise).  Returns the launch's cudaError_t.
 extern "C" int mc_threefry(const uint32_t* keys, int64_t key_stride,
                            int64_t n_keys, int64_t per_key,
-                           const int64_t* data, int64_t fold, int mode, float lo, float hi,
-                           const int32_t* ilo, const int32_t* ihi,
-                           int32_t ilo_v, int32_t ihi_v, void* out,
-                           void* stream) {
+                           const int64_t* data, int64_t fold, int mode,
+                           float lo, float hi, const int32_t* ilo,
+                           const int32_t* ihi, int32_t ilo_v, int32_t ihi_v,
+                           void* out, void* next, void* stream) {
   if (n_keys <= 0 || per_key <= 0) return 0;
+  if (mode == kSplitUniform && next == nullptr)
+    return int(cudaErrorInvalidValue);
   const Args a{keys, key_stride, per_key, n_keys * per_key, data, fold,
-               lo, hi, ilo, ihi, ilo_v, ihi_v, out};
+               lo, hi, ilo, ihi, ilo_v, ihi_v, out,
+               static_cast<uint2*>(next)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kWords:
@@ -224,6 +252,8 @@ extern "C" int mc_threefry(const uint32_t* keys, int64_t key_stride,
       return launch<kNormal>(a, s);
     case kRandint:
       return launch<kRandint>(a, s);
+    case kSplitUniform:
+      return launch<kSplitUniform>(a, s);
     default:
       return int(cudaErrorInvalidValue);
   }

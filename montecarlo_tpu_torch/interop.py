@@ -25,7 +25,8 @@ Device-state slices are carried too (:func:`slice_from_reference`,
 :func:`slice_to_reference`): the ``ecmc`` slice of ``EventChain`` (``lift``,
 ``stats``, ``n_events``), the ``replica_exchange`` slice (``calls``,
 ``counters``) and the ``wang_landau`` slice (``log_g``, ``hist``,
-``visited``, ``log_f``).  A slice's generator stays the port's own.
+``visited``, ``log_f``).  A slice's threefry keys stay the port's own
+(from the same seed they are the reference's).
 """
 
 from __future__ import annotations
@@ -140,7 +141,7 @@ def slice_from_reference(key: str, np_slice, like):
     ``"replica_exchange"`` or ``"wang_landau"``, a mapping of arrays and
     dicts of arrays) as this package's, on the devices and with the dtypes
     of ``like`` (the port's own slice, e.g.
-    ``sim.init_device_state()[key]``), whose generator it keeps."""
+    ``sim.init_device_state()[key]``), whose keys it keeps."""
     if key not in _SLICES:
         raise ValueError(f"no carried slice {key!r}; carried: "
                          f"{sorted(_SLICES)}")
@@ -155,7 +156,7 @@ def slice_from_reference(key: str, np_slice, like):
 
 def slice_to_reference(key: str, slc) -> dict:
     """The inverse: the carried tensors of the port's slice ``key`` as numpy
-    arrays, the generator left out (the reference's keys are its own)."""
+    arrays, the keys left out (the reference's are its own)."""
     if key not in _SLICES:
         raise ValueError(f"no carried slice {key!r}; carried: "
                          f"{sorted(_SLICES)}")

@@ -17,8 +17,9 @@ Sampling paths:
   ``|h|^2 <= 1e-12``.
 
 The step functions take their random numbers as tensors (the Gaussian
-normals of the random axes and the uniforms), drawn by the sampler from one
-``torch.Generator`` on the chains' device.
+normals of the random axes and the uniforms), which the sampler derives
+from per-chain threefry keys as the reference's does (``ising2d``'s
+:class:`~montecarlo_tpu_torch.models.ising2d.LatticeSampler`).
 
 Ground truth: the 2x2 periodic lattice is a 4-ring with coupling 2J, solved
 by the transfer-operator expansion in Legendre polynomials
@@ -103,14 +104,13 @@ def make_system() -> SystemDef:
 
 def init_chains(n_chains: int, size: int, beta: float, j: float = 1.0,
                 seed: int = 42, device=None) -> HeisenbergState:
-    """Uniform random unit spins from a ``torch.Generator`` seeded with
-    ``seed`` (not the JAX package's stream: ``interop.chains_from_reference``
-    carries its chains over), made on ``device``, the card (``cuda``) when
-    it is None."""
+    """Uniform random unit spins from ``key(seed)`` as the reference draws
+    them (normalised standard normals; its chains within a few float32
+    ulps, as ``utils/prng.py``'s normals are), made on ``device``, the
+    card (``cuda``) when it is None."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    spins = _unit(torch.randn((n_chains, size, size, 3), generator=gen,
-                              device=device))
+    spins = _unit(prng.normal(prng.key(seed, device),
+                              (n_chains, size, size, 3)))
     full = lambda v: torch.full((n_chains,), v, dtype=torch.float32,
                                 device=device)
     jj = full(j)
@@ -243,7 +243,7 @@ class CheckerboardHeisenberg(LatticeSampler):
     """Checkerboard Metropolis + over-relaxation sampler.
 
     Per simulation step: ``sweeps`` x (one Metropolis checkerboard sweep +
-    ``overrelax`` over-relaxation sweeps).  Device state: ``generator`` and
+    ``overrelax`` over-relaxation sweeps).  Device state: ``keys`` and
     ``counters[chain, 0] = (accepted, attempted)`` over the Metropolis
     attempts only."""
 
@@ -257,16 +257,16 @@ class CheckerboardHeisenberg(LatticeSampler):
         self.delta = float(delta)
         _require_even(self.lattice_shape, type(self).__name__)
 
-    def half_draws(self, slc, shape):
-        """(normals, u_angle, u_accept) of one half-sweep."""
-        return (self.normal(slc, shape + (3,)), self.uniform(slc, shape),
-                self.uniform(slc, shape))
-
-    def sweep(self, sys, slc):
-        shape = tuple(sys.spins.shape[:3])
-        sys, acc = checkerboard_sweep(sys, self.delta,
-                                      *self.half_draws(slc, shape),
-                                      *self.half_draws(slc, shape))
+    def sweep(self, sys, key):
+        # the half-sweeps' keys k0, k1, each split into (k_axis, k_ang,
+        # k_acc): the axes' normals in one draw, the uniforms in another
+        k = prng.split(prng.split(key), 3)               # (M, 2, 3, 2)
+        shape = tuple(sys.spins.shape[1:3])
+        normals = prng.normal(k[:, :, 0], shape + (3,))
+        u = prng.uniform(k[:, :, 1:], shape)
+        sys, acc = checkerboard_sweep(
+            sys, self.delta, normals[:, 0], u[:, 0, 0], u[:, 0, 1],
+            normals[:, 1], u[:, 1, 0], u[:, 1, 1])
         for _ in range(self.overrelax):
             sys = overrelax_sweep(sys)
         return sys, acc
@@ -274,8 +274,9 @@ class CheckerboardHeisenberg(LatticeSampler):
     def step(self, dstate, t):
         slc = dstate[self.state_key]
         sys, acc = dstate["sys"], None
-        for _ in range(self.sweeps):
-            sys, a = self.sweep(sys, slc)
+        keys = self.unit_keys(slc, t, self.sweeps)
+        for s in range(self.sweeps):
+            sys, a = self.sweep(sys, keys[:, s])
             acc = a if acc is None else acc + a
         attempts = self.sweeps * int(np.prod(self.lattice_shape))
         return self.count(dstate, sys, acc, attempts)

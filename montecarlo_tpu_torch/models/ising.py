@@ -57,19 +57,18 @@ def make_system() -> SystemDef:
 
 
 def random_spins(shape, seed: int, device) -> torch.Tensor:
-    """int8 spins in {-1, +1}, each +1 with probability 1/2, from a
-    ``torch.Generator`` seeded with ``seed``."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    up = torch.rand(shape, generator=gen, device=device) < 0.5
+    """int8 spins in {-1, +1}, +1 where ``bernoulli(key(seed), 0.5,
+    shape)`` holds: the reference's draw over the whole shape from the one
+    key (not a key a chain)."""
+    up = prng.bernoulli(prng.key(seed, device), 0.5, shape)
     return 2 * up.to(torch.int8) - 1
 
 
 def init_chains(n_chains: int, n_spins: int, beta: float, j: float = 1.0,
                 seed: int = 42, device=None) -> IsingState:
-    """Random spins from a ``torch.Generator`` seeded with ``seed`` (a
-    different stream than the JAX package's: ``interop.chains_from_
-    reference`` carries its chains over), made on ``device``, the card
-    (``cuda``) when it is None."""
+    """Random spins from ``key(seed)`` as the reference draws them (the same
+    seed gives its chains), made on ``device``, the card (``cuda``) when it
+    is None."""
     device = resolve_device(device)
     spins = random_spins((n_chains, n_spins), seed, device)
     full = lambda v: torch.full((n_chains,), v, dtype=torch.float32,

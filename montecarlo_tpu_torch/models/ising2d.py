@@ -22,9 +22,10 @@ the Wang-Landau binding :func:`wl_model`:
 The step functions (:func:`checkerboard_half_sweep`,
 :func:`checkerboard_sweep`, :func:`wolff_step`,
 :func:`swendsen_wang_step`) take their random numbers as tensors, so the
-tests can feed them the reference's own draws; each sampler draws them from
-one ``torch.Generator`` on the chains' device, seeded with ``seed`` (the
-rank folded in on a chain mesh, as ``Metropolis.stream_seed`` folds it).
+tests can feed them any draws; each sampler derives them from per-chain
+threefry keys ``fold_in(key(seed), chain)`` as the reference's does
+(:class:`LatticeSampler`), so one seed gives the JAX package's chains on
+any device and rank count.
 
 Exact check: small lattices are enumerable (:func:`exact_moments`,
 :func:`exact_log_g`).
@@ -92,9 +93,8 @@ def make_system() -> SystemDef:
 
 def init_chains(n_chains: int, size: int, beta: float, j: float = 1.0,
                 seed: int = 42, device=None) -> Ising2DState:
-    """Random L x L spins from a ``torch.Generator`` seeded with ``seed`` (a
-    different stream than the JAX package's: ``interop.chains_from_
-    reference`` carries its chains over), made on ``device``, the card
+    """Random L x L spins from ``key(seed)`` as the reference draws them
+    (the same seed gives its chains), made on ``device``, the card
     (``cuda``) when it is None."""
     device = resolve_device(device)
     spins = random_spins((n_chains, size, size), seed, device)
@@ -207,11 +207,21 @@ def checkerboard_sweep(state: Ising2DState, u0, u1):
 
 class LatticeSampler(DeviceAlgorithm):
     """What the lattice samplers share: the lattice shape (the two axes
-    after the chains' of the state's ``lattice_field``), one generator
-    seeded with ``seed`` (the rank folded in on a chain mesh) and a
-    ``counters`` slice of shape (M, 1, 2)."""
+    after the chains' of the state's ``lattice_field``), the per-chain
+    threefry keys and a ``counters`` slice of shape (M, 1, 2).
+
+    Chain c's key is ``fold_in(base, c)`` over the global chain ids (a
+    mesh slices them with the chains), ``base`` being ``key(seed)`` with
+    :attr:`stream_tag` folded in where a sampler has one, and step t's
+    units (sweeps or cluster flips) take the keys ``split(fold_in(key,
+    t), n)`` (:meth:`unit_keys`), the reference's tree."""
 
     lattice_field = "spins"
+    #: folded into ``key(seed)`` before the chain ids, or None
+    stream_tag = None
+    #: whether a step of one unit splits its key (else the unit takes the
+    #: step's key itself, as the reference's 2-D Ising checkerboard does)
+    split_single = True
 
     def __init__(self, sim, seed: int = 1):
         self.seed = int(seed)
@@ -219,26 +229,23 @@ class LatticeSampler(DeviceAlgorithm):
         self.device = sim.device
         lattice = getattr(sim.chains0, self.lattice_field)
         self.lattice_shape = tuple(int(d) for d in lattice.shape[1:3])
-        mesh = getattr(sim, "mesh", None)
-        self.stream_seed = self.seed
-        if mesh is not None:
-            from ..ops.fused_sweep import _shard_seed
-            self.stream_seed = _shard_seed(mesh.rank, self.seed)
 
     def init_state(self, sim):
-        return {"generator": torch.Generator(device=self.device).manual_seed(
-                    self.stream_seed),
+        base = prng.key(self.seed, self.device)
+        if self.stream_tag is not None:
+            base = prng.fold_in(base, self.stream_tag)
+        chain_ids = torch.arange(self.n_chains, device=self.device)
+        return {"keys": prng.fold_in(base[None], chain_ids),
                 "counters": torch.zeros((self.n_chains, 1, 2),
                                         dtype=torch.int32,
                                         device=self.device)}
 
-    def uniform(self, slc, shape):
-        return torch.rand(shape, generator=slc["generator"],
-                          device=self.device)
-
-    def normal(self, slc, shape):
-        return torch.randn(shape, generator=slc["generator"],
-                           device=self.device)
+    def unit_keys(self, slc, t, n: int):
+        """(M, n, 2): the keys of step ``t``'s ``n`` units."""
+        step = prng.fold_in(slc["keys"], int(t))
+        if n == 1 and not self.split_single:
+            return step[:, None]
+        return prng.split(step, n)
 
     def count(self, dstate, sys, total, per_step):
         """The device state with ``sys`` and (total, per_step) added to each
@@ -262,10 +269,12 @@ class CheckerboardMetropolis(LatticeSampler):
     """Whole-lattice checkerboard Metropolis sampler for 2-D lattices.
 
     Each sublattice is one (chains, L, L) tensor update; ``sweeps`` full
-    sweeps a step.  Device state: ``generator`` and ``counters[chain, 0] =
-    (accepted, attempted)``."""
+    sweeps a step, a sweep's key split into the two half-sweeps' (one
+    sweep a step takes the step's key).  Device state: ``keys`` and
+    ``counters[chain, 0] = (accepted, attempted)``."""
 
     state_key = "checkerboard"
+    split_single = False
 
     def __init__(self, sim, sweeps: int = 1, seed: int = 1, dependencies=(),
                  **_):
@@ -273,16 +282,17 @@ class CheckerboardMetropolis(LatticeSampler):
         self.sweeps = int(sweeps)
         _require_even(self.lattice_shape, type(self).__name__)
 
-    def sweep(self, sys, slc):
-        shape = sys.spins.shape
-        return checkerboard_sweep(sys, self.uniform(slc, shape),
-                                  self.uniform(slc, shape))
+    def sweep(self, sys, key):
+        # k0, k1 = split(key): both half-sweeps' uniforms in one draw
+        u = prng.uniform(prng.split(key), tuple(sys.spins.shape[1:]))
+        return checkerboard_sweep(sys, u[:, 0], u[:, 1])
 
     def step(self, dstate, t):
         slc = dstate[self.state_key]
         sys, acc = dstate["sys"], None
-        for _ in range(self.sweeps):
-            sys, a = self.sweep(sys, slc)
+        keys = self.unit_keys(slc, t, self.sweeps)
+        for s in range(self.sweeps):
+            sys, a = self.sweep(sys, keys[:, s])
             acc = a if acc is None else acc + a
         attempts = self.sweeps * int(np.prod(self.lattice_shape))
         return self.count(dstate, sys, acc, attempts)
@@ -338,10 +348,13 @@ def wolff_step(state: Ising2DState, u_right, u_down, site):
 
 class WolffCluster(LatticeSampler):
     """Wolff cluster sampler for the 2-D Ising family: ``clusters`` flips a
-    step.  Device state: ``generator`` and ``counters[chain, 0] = (total
+    step, a flip's key split into ``k_seed, k_right, k_down`` (Potts adds
+    ``k_col``).  Device state: ``keys`` and ``counters[chain, 0] = (total
     cluster size, clusters flipped)``.  Needs J > 0."""
 
     state_key = "wolff"
+    #: the keys a flip splits its key into
+    flip_keys = 3
 
     def __init__(self, sim, clusters: int = 1, seed: int = 1,
                  dependencies=(), **_):
@@ -353,22 +366,24 @@ class WolffCluster(LatticeSampler):
         self._check_ferromagnetic(sim, "the bond probability "
                                        "1 - exp(-2 beta J) as a cluster rule")
 
-    def draws(self, slc, shape):
-        """(u_right, u_down, site) of one cluster flip."""
-        u_right = self.uniform(slc, shape)
-        u_down = self.uniform(slc, shape)
-        site = torch.randint(0, shape[1] * shape[2], (shape[0],),
-                             generator=slc["generator"], device=self.device)
-        return u_right, u_down, site
+    def draws(self, key, shape):
+        """(the flip's split keys, u_right, u_down, site) of one cluster
+        flip."""
+        k = prng.split(key, self.flip_keys)
+        u = prng.uniform(k[:, 1:3], tuple(shape[1:]))
+        site = prng.randint(k[:, 0], (), 0, shape[1] * shape[2],
+                            dtype=torch.int64)
+        return k, u[:, 0], u[:, 1], site
 
-    def flip(self, sys, slc):
-        return wolff_step(sys, *self.draws(slc, sys.spins.shape))
+    def flip(self, sys, key):
+        return wolff_step(sys, *self.draws(key, sys.spins.shape)[1:])
 
     def step(self, dstate, t):
         slc = dstate[self.state_key]
         sys, size = dstate["sys"], None
-        for _ in range(self.clusters):
-            sys, n = self.flip(sys, slc)
+        keys = self.unit_keys(slc, t, self.clusters)
+        for c in range(self.clusters):
+            sys, n = self.flip(sys, keys[:, c])
             size = n if size is None else size + n
         return self.count(dstate, sys, size, self.clusters)
 
@@ -427,9 +442,10 @@ def swendsen_wang_step(state: Ising2DState, u_right, u_down, fresh):
 
 
 class SwendsenWang(LatticeSampler):
-    """Swendsen-Wang sampler for the 2-D Ising family: ``sweeps`` a step.
-    Device state: ``generator`` and ``counters[chain, 0] = (total clusters
-    resampled, sweeps)``.  Needs J > 0."""
+    """Swendsen-Wang sampler for the 2-D Ising family: ``sweeps`` a step, a
+    sweep's key split into ``k_right, k_down, k_spin``.  Device state:
+    ``keys`` and ``counters[chain, 0] = (total clusters resampled,
+    sweeps)``.  Needs J > 0."""
 
     state_key = "swendsen_wang"
 
@@ -440,22 +456,25 @@ class SwendsenWang(LatticeSampler):
         self._check_ferromagnetic(sim, "the FK bond probability "
                                        "1 - exp(-2 beta J)")
 
-    def draws(self, slc, shape):
-        """(u_right, u_down, fresh) of one sweep."""
-        m, lx, ly = shape
-        u_right = self.uniform(slc, shape)
-        u_down = self.uniform(slc, shape)
-        up = self.uniform(slc, (m, lx * ly)) < 0.5
-        return u_right, u_down, 2 * up.to(torch.int8) - 1
+    def draws(self, key, shape):
+        """(the sweep's split keys, u_right, u_down) of one sweep."""
+        k = prng.split(key, 3)
+        u = prng.uniform(k[:, :2], tuple(shape[1:]))
+        return k, u[:, 0], u[:, 1]
 
-    def sweep(self, sys, slc):
-        return swendsen_wang_step(sys, *self.draws(slc, sys.spins.shape))
+    def sweep(self, sys, key):
+        k, u_right, u_down = self.draws(key, sys.spins.shape)
+        up = prng.bernoulli(k[:, 2], 0.5, (self.lattice_shape[0]
+                                           * self.lattice_shape[1],))
+        return swendsen_wang_step(sys, u_right, u_down,
+                                  2 * up.to(torch.int8) - 1)
 
     def step(self, dstate, t):
         slc = dstate[self.state_key]
         sys, nc = dstate["sys"], None
-        for _ in range(self.sweeps):
-            sys, n = self.sweep(sys, slc)
+        keys = self.unit_keys(slc, t, self.sweeps)
+        for s in range(self.sweeps):
+            sys, n = self.sweep(sys, keys[:, s])
             nc = n if nc is None else nc + n
         return self.count(dstate, sys, nc, self.sweeps)
 
@@ -478,10 +497,11 @@ def wl_model(size: int, j: float = 1.0):
     L²; k = 1 and k = N-1 are unreachable on the periodic lattice, and
     flatness is measured over visited bins only).  The proposal is a
     uniform single-site flip (symmetric, as Wang-Landau needs); its draw is
-    the site, an int64 index in [0, N) per chain and proposal.  A proposal
-    gathers the site and its four neighbours through a neighbour table made
-    once, and updates the cached energy from their local field as
-    :func:`spin_flip_move` does.  ``j`` is the coupling the bins are laid
+    the site, an int64 index in [0, N) per chain and proposal,
+    ``randint(k_prop, (), 0, N)`` as the reference's proposal draws it.  A
+    proposal gathers the site and its four neighbours through a neighbour
+    table made once, and updates the cached energy from their local field
+    as :func:`spin_flip_move` does.  ``j`` is the coupling the bins are laid
     out for; the chains' own ``j`` enters the energies and the bins.
     """
     from ..core.wanglandau import WangLandauModel
@@ -515,9 +535,9 @@ def wl_model(size: int, j: float = 1.0):
         return dataclasses.replace(state, spins=spins,
                                    energy=state.energy + d_e)
 
-    def draw(generator, shape, device):
-        return torch.randint(0, n, shape, generator=generator,
-                             device=device)
+    def draw(keys):
+        # the reference's propose: randint(k_prop, (), 0, N) a proposal
+        return prng.randint(keys, (), 0, n, dtype=torch.int64)
 
     return WangLandauModel(n_bins=n + 1, bin_index=bin_index,
                            propose=propose, draw=draw)

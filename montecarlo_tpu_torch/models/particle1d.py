@@ -245,7 +245,7 @@ def zigzag_model():
 
     def event_step(state, lift, draws):
         x, beta, v = state.x, state.beta, lift["v"]
-        exp_draw = -torch.log(draws.uniform())         # E ~ Exp(1)
+        exp_draw = -torch.log(draws.uniform(x.dtype))  # E ~ Exp(1)
         xv = x * v
         w = torch.clamp(xv, min=0.0)
         t = (-torch.clamp(xv, max=0.0) + torch.sqrt(w * w + exp_draw / beta)

@@ -16,8 +16,9 @@ once (the colours are one (M, L1, L2) tensor):
   cluster moves with bonds active at ``p = 1 - exp(-beta J)``.
 
 The step functions take their random numbers as tensors (the tests feed
-them the reference's draws); the samplers draw them from one
-``torch.Generator`` each, as ``ising2d``'s do.
+them the reference's draws); the samplers derive them from per-chain
+threefry keys as the reference's do, on ``ising2d``'s
+:class:`~montecarlo_tpu_torch.models.ising2d.LatticeSampler`.
 
 Exact check: :func:`exact_moments` enumerates all ``q^(L^2)`` states of
 tiny lattices.
@@ -92,14 +93,12 @@ def make_system(q: int) -> SystemDef:
 
 def init_chains(n_chains: int, size: int, q: int, beta: float,
                 j: float = 1.0, seed: int = 42, device=None) -> PottsState:
-    """Uniform random colours from a ``torch.Generator`` seeded with
-    ``seed`` (a different stream than the JAX package's:
-    ``interop.chains_from_reference`` carries its chains over), made on
-    ``device``, the card (``cuda``) when it is None."""
+    """Uniform random colours from ``key(seed)`` as the reference draws
+    them (the same seed gives its chains), made on ``device``, the card
+    (``cuda``) when it is None."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    spins = torch.randint(0, q, (n_chains, size, size), generator=gen,
-                          device=device).to(torch.int8)
+    spins = prng.randint(prng.key(seed, device), (n_chains, size, size), 0,
+                         q, dtype=torch.int8)
     full = lambda v: torch.full((n_chains,), v, dtype=torch.float32,
                                 device=device)
     jj = full(j)
@@ -210,14 +209,17 @@ def CheckerboardPotts(q: int):
     class _CheckerboardPotts(CheckerboardMetropolis):
         state_key = "checkerboard_potts"
 
-        def sweep(self, sys, slc):
-            shape = sys.spins.shape
-            draws = []
-            for _ in range(2):
-                r = torch.randint(0, q - 1, shape, generator=slc["generator"],
-                                  device=self.device)
-                draws += [r, self.uniform(slc, shape)]
-            return checkerboard_sweep(sys, q, *draws)
+        # a single sweep splits the step's key too, as the reference's does
+        split_single = True
+
+        def sweep(self, sys, key):
+            # the half-sweeps' keys k0, k1, each split into (k_col, k_acc)
+            k = prng.split(prng.split(key), 2)             # (M, 2, 2, 2)
+            shape = tuple(sys.spins.shape[1:])
+            r = prng.randint(k[:, :, 0], shape, 0, q - 1)
+            u = prng.uniform(k[:, :, 1], shape)
+            return checkerboard_sweep(sys, q, r[:, 0], u[:, 0], r[:, 1],
+                                      u[:, 1])
 
         def write_summary(self, io, scheduler):
             io.write(f"\tCheckerboardPotts(q={q})\n")
@@ -289,10 +291,11 @@ def WolffPotts(q: int):
             super()._check_ferromagnetic(
                 sim, "the FK bond probability 1 - exp(-beta J)")
 
-        def flip(self, sys, slc):
-            u_right, u_down, site = self.draws(slc, sys.spins.shape)
-            r = torch.randint(0, q - 1, (sys.spins.shape[0],),
-                              generator=slc["generator"], device=self.device)
+        flip_keys = 4     # k_seed, k_right, k_down, k_col
+
+        def flip(self, sys, key):
+            k, u_right, u_down, site = self.draws(key, sys.spins.shape)
+            r = prng.randint(k[:, 3], (), 0, q - 1)
             return wolff_step(sys, q, u_right, u_down, site, r)
 
         def write_summary(self, io, scheduler):
@@ -319,18 +322,13 @@ def SwendsenWangPotts(q: int):
             super()._check_ferromagnetic(
                 sim, "the FK bond probability 1 - exp(-beta J)")
 
-        def draws(self, slc, shape):
-            m, lx, ly = shape
-            u_right = self.uniform(slc, shape)
-            u_down = self.uniform(slc, shape)
-            fresh = torch.randint(0, q, (m, lx * ly),
-                                  generator=slc["generator"],
-                                  device=self.device)
-            return u_right, u_down, fresh
-
-        def sweep(self, sys, slc):
-            return swendsen_wang_step(sys, q,
-                                      *self.draws(slc, sys.spins.shape))
+        def sweep(self, sys, key):
+            # k_right, k_down, k_col
+            k, u_right, u_down = self.draws(key, sys.spins.shape)
+            lx, ly = sys.spins.shape[1:]
+            fresh = prng.randint(k[:, 2], (lx * ly,), 0, q,
+                                 dtype=torch.int8)
+            return swendsen_wang_step(sys, q, u_right, u_down, fresh)
 
         def write_summary(self, io, scheduler):
             io.write(f"\tSwendsenWangPotts(q={q})\n")

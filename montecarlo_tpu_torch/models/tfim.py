@@ -33,6 +33,7 @@ import torch
 
 from ..core.algorithms import SimView, _n_calls
 from ..core.system import SystemDef
+from ..utils import prng
 from ..utils.device import resolve_device
 from .ising import random_spins
 from .ising2d import LatticeSampler, parity_mask
@@ -50,10 +51,6 @@ __all__ = [
 ]
 
 TINY = float(np.finfo(np.float32).tiny)
-# folded into the sampler's seed, so that its stream is not the one
-# init_chains drew the spins from when both are given the same seed; within
-# the 32 bits a CPU generator keeps of its seed
-_STREAM_TAG = 0x7F1 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,9 +98,10 @@ def make_system() -> SystemDef:
 def init_chains(n_chains: int, n_sites: int, m_slices: int, beta: float,
                 j: float = 1.0, h: float = 1.0, seed: int = 42,
                 device=None) -> TFIMState:
-    """Random space-time spins from a ``torch.Generator`` seeded with
-    ``seed`` (not the JAX package's stream), made on ``device``, the card
-    (``cuda``) when it is None.  Needs even ``n_sites`` and ``m_slices``."""
+    """Random space-time spins from ``key(seed)`` as the reference draws
+    them (the same seed gives its chains), made on ``device``, the card
+    (``cuda``) when it is None.  Needs even ``n_sites`` and
+    ``m_slices``."""
     if m_slices % 2 or n_sites % 2:
         raise ValueError("need even n_sites and m_slices (periodic "
                          "checkerboard 2-colouring)")
@@ -148,28 +146,28 @@ def checkerboard_sweep(state: TFIMState, u0, u1):
 
 class TFIMCheckerboard(LatticeSampler):
     """Whole-space-time-lattice checkerboard sweeps, ``sweeps`` a step.
-    Device state: ``generator`` (seeded with ``seed``, a tag folded in) and
-    ``counters[chain, 0] = (accepted, attempted)``."""
+    Device state: ``keys`` (from ``fold_in(key(seed), 0x7F1)``, the
+    reference's tag, so the stream is not the one ``init_chains`` drew the
+    spins from with the same seed) and ``counters[chain, 0] = (accepted,
+    attempted)``."""
 
     state_key = "tfim_cb"
+    stream_tag = 0x7F1
 
     def __init__(self, sim, sweeps: int = 1, seed: int = 1, dependencies=(),
                  **_):
         super().__init__(sim, seed)
-        self.stream_seed ^= _STREAM_TAG
         self.sweeps = int(sweeps)
-
-    def open_uniform(self, slc, shape):
-        """Uniforms in (0, 1): the smallest normal float32 for a 0."""
-        return torch.clamp(self.uniform(slc, shape), min=TINY)
 
     def step(self, dstate, t):
         slc = dstate[self.state_key]
         sys, acc = dstate["sys"], None
-        shape = sys.spins.shape
-        for _ in range(self.sweeps):
-            sys, a = checkerboard_sweep(sys, self.open_uniform(slc, shape),
-                                        self.open_uniform(slc, shape))
+        keys = self.unit_keys(slc, t, self.sweeps)
+        shape = tuple(sys.spins.shape[1:])
+        for s in range(self.sweeps):
+            # k0, k1 = split(key): uniforms in [tiny, 1), so log u is finite
+            u = prng.uniform(prng.split(keys[:, s]), shape, minval=TINY)
+            sys, a = checkerboard_sweep(sys, u[:, 0], u[:, 1])
             acc = a if acc is None else acc + a
         attempts = self.sweeps * int(np.prod(self.lattice_shape))
         return self.count(dstate, sys, acc, attempts)

@@ -19,7 +19,7 @@ Sampling paths:
 
 The step functions (:func:`checkerboard_half_sweep`,
 :func:`checkerboard_sweep`) take their uniforms as tensors; the sampler
-draws them from one ``torch.Generator`` on the chains' device
+derives them from per-chain threefry keys as the reference's does
 (:class:`~montecarlo_tpu_torch.models.ising2d.LatticeSampler`).
 
 Ground truth: :func:`exact_moments` integrates the 2x2 periodic lattice by
@@ -93,14 +93,12 @@ def make_system() -> SystemDef:
 
 def init_chains(n_chains: int, size: int, beta: float, j: float = 1.0,
                 seed: int = 42, device=None) -> XYState:
-    """Uniform angles from a ``torch.Generator`` seeded with ``seed`` (not
-    the JAX package's stream: ``interop.chains_from_reference`` carries its
-    chains over), made on ``device``, the card (``cuda``) when it is
-    None."""
+    """Uniform angles from ``key(seed)`` as the reference draws them (the
+    same seed gives its chains), made on ``device``, the card (``cuda``)
+    when it is None."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    theta = TWO_PI * torch.rand((n_chains, size, size), generator=gen,
-                                device=device)
+    theta = TWO_PI * prng.uniform(prng.key(seed, device),
+                                  (n_chains, size, size))
     full = lambda v: torch.full((n_chains,), v, dtype=torch.float32,
                                 device=device)
     jj = full(j)
@@ -267,7 +265,7 @@ class CheckerboardXY(LatticeSampler):
     """Checkerboard Metropolis + over-relaxation sampler.
 
     Per simulation step: ``sweeps`` x (one Metropolis checkerboard sweep +
-    ``overrelax`` over-relaxation sweeps).  Device state: ``generator`` and
+    ``overrelax`` over-relaxation sweeps).  Device state: ``keys`` and
     ``counters[chain, 0] = (accepted, attempted)`` over the Metropolis
     attempts only (over-relaxation is rejection-free)."""
 
@@ -282,10 +280,13 @@ class CheckerboardXY(LatticeSampler):
         self.delta = float(delta)
         _require_even(self.lattice_shape, type(self).__name__)
 
-    def sweep(self, sys, slc):
-        shape = sys.theta.shape
-        sys, acc = checkerboard_sweep(
-            sys, self.delta, *(self.uniform(slc, shape) for _ in range(4)))
+    def sweep(self, sys, key):
+        # the half-sweeps' keys k0, k1, each split into (k_ang, k_acc): all
+        # four uniforms in one draw, (M, half, [angle, accept], L1, L2)
+        u = prng.uniform(prng.split(prng.split(key), 2),
+                         tuple(sys.theta.shape[1:]))
+        sys, acc = checkerboard_sweep(sys, self.delta, u[:, 0, 0],
+                                      u[:, 0, 1], u[:, 1, 0], u[:, 1, 1])
         for _ in range(self.overrelax):
             sys = overrelax_sweep(sys)
         return sys, acc
@@ -293,8 +294,9 @@ class CheckerboardXY(LatticeSampler):
     def step(self, dstate, t):
         slc = dstate[self.state_key]
         sys, acc = dstate["sys"], None
-        for _ in range(self.sweeps):
-            sys, a = self.sweep(sys, slc)
+        keys = self.unit_keys(slc, t, self.sweeps)
+        for s in range(self.sweeps):
+            sys, a = self.sweep(sys, keys[:, s])
             acc = a if acc is None else acc + a
         attempts = self.sweeps * int(np.prod(self.lattice_shape))
         return self.count(dstate, sys, acc, attempts)

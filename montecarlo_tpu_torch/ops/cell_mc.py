@@ -31,11 +31,13 @@ width ``w = box / nc >= rcut + 2 d_cap``, colored in a 2^dim checkerboard:
   Without volume substeps the halo is ``d_cap / box``, the reference's.
 
 Substeps draw their random numbers from a *draws* object
-(:class:`GeneratorDraws` by default): the substep-shared variant (kind,
-color) sequence on the host, so each substep runs one branch and the host
-never waits for the card inside a segment, and the per-cell and per-chain
-uniforms and proposals as tensors.  A test can feed the JAX package's own
-draws instead.
+(:class:`KeyDraws` in a run): the substep-shared variant (kind, color)
+sequence on the host, so each substep runs one branch and the host never
+waits for the card inside a segment, and the per-cell and per-chain
+uniforms and proposals as tensors.  :class:`KeyDraws` derives them from
+the segment's threefry key as the reference does (``utils/prng.py``), so a
+segment gives the JAX package's numbers from the same key; a test can
+feed any other draws.
 
 This is plain PyTorch on the chains' device; there is no hand-written kernel
 here, as the reference has no Pallas kernel here.
@@ -50,8 +52,10 @@ import math
 import numpy as np
 import torch
 
+from ..utils import prng
+
 __all__ = ["CellGrid", "plan_grid", "bind_cells", "unbind_cells",
-           "cell_total_energy", "cell_mc_segment", "GeneratorDraws"]
+           "cell_total_energy", "cell_mc_segment", "KeyDraws"]
 
 
 class CellGrid:
@@ -476,63 +480,111 @@ def cell_total_energy(grid: CellGrid, pair_energy, rcut2_of, pos, attr,
 # Draws
 # ---------------------------------------------------------------------------
 
-class GeneratorDraws:
-    """A segment's draws (the protocol :func:`cell_mc_segment` takes).
+class KeyDraws:
+    """A segment's draws (the protocol :func:`cell_mc_segment` takes), from
+    the segment's base key ``fold_in(key(seed), micro_t0)`` (``micro_t0``
+    the segment's absolute first micro-step), as the reference's
+    ``cell_mc_segment`` derives them (``montecarlo_tpu/ops/cell_mc.py:605-
+    659``):
 
     - ``variants(n_substeps, n_colors, w_disp, w_swap, swap, vol)``: a host
       (n, 2) int array of each substep's (kind, color), shared by all
-      chains, from a counter-based generator keyed by (``seed``,
-      ``micro_t0``), the segment's absolute first micro-step: it holds no
-      state, so a resumed run draws the same sequence.  A substep is a
-      displacement (kind 0) where its uniform u < ``w_disp``, else a swap
-      (1) where the pool has one and, with a volume move too,
-      u < ``w_disp + w_swap`` (float32), else a volume substep (2);
-    - ``shift(m, dim, device)``: the (M, dim) uniform grid origins;
+      chains, from the variant stream ``kv_i = fold_in(fold_in(fold_in(
+      base, 0x7C01), 0xC0110), i)``: the color ``randint(kv_i, 0,
+      n_colors)``, the kind from ``u = uniform(fold_in(kv_i, 1))``, a
+      displacement (0) where u < ``w_disp``, else a swap (1) where the pool
+      has one and, with a volume move too, u < ``w_disp + w_swap``
+      (float32), else a volume substep (2).  All substeps in one plain
+      call a draw, on the host;
+    - ``shift(m, dim, device)``: the (M, dim) uniform grid origins,
+      ``uniform(fold_in(kshift, c), (dim,))`` with ``kshift = fold_in(
+      fold_in(base, 0x5A1F7), 0x0F5E7)``;
     - ``substep(i, kind, m, h, cap, dim, proposal, device)``: substep
-      ``i``'s tensors, ``(u_pick, draw, u_acc)`` for a displacement (the
-      draw (M, h.., dim): standard normal for the ``"gaussian"`` proposal,
-      uniform in [-1, 1) for the ``"square"`` one) and ``(u_i, u_j,
-      u_acc)`` for a swap; the uniforms are in [0, 1);
+      ``i``'s tensors from ``split(fold_in(fold_in(base, c), i), 3)``
+      (every substep's keys of the segment made at its first substep, in
+      two batched calls):
+      ``(u_pick, draw, u_acc)`` for a displacement (the draw (M, h.., dim):
+      standard normal for the ``"gaussian"`` proposal, uniform in [-1, 1)
+      for the ``"square"`` one) and ``(u_i, u_j, u_acc)`` for a swap; the
+      uniforms are in [0, 1);
     - ``volume(i, m, device)``: a volume substep's (M,) ``(u_delta,
-      u_acc)``, uniform in [-1, 1) and [0, 1).
+      u_acc)``, uniform in [-1, 1) and [0, 1), from ``split(fold_in(
+      fold_in(base, c), i))``: the first two of those three keys (a
+      split's keys are the block at counts 0, 1, ..., whatever their
+      number).
 
-    Here the tensors come from ``generator`` on the chains' device.
-    """
+    ``chain_ids`` are the chains' global ids (a rank of a chain mesh holds
+    a slice of them), so a rank draws what one process draws for its
+    chains."""
 
-    def __init__(self, generator, seed: int, micro_t0: int):
-        self.generator = generator
+    def __init__(self, seed: int, micro_t0: int, chain_ids):
         self.seed = int(seed)
         self.micro_t0 = int(micro_t0)
+        self.chain_ids = chain_ids
+        self._base = {}
+        self._chains = None
+        self._substeps = None
+        self._n = 0
+
+    def base(self, device):
+        """The segment's base key on ``device``."""
+        device = torch.device(device)
+        if device not in self._base:
+            self._base[device] = prng.fold_in(
+                prng.key(self.seed, device), self.micro_t0)
+        return self._base[device]
 
     def variants(self, n_substeps, n_colors, w_disp, w_swap, swap, vol):
-        key = np.array([self.seed & (2 ** 64 - 1), self.micro_t0], np.uint64)
-        rng = np.random.Generator(np.random.Philox(key=key))
-        color = rng.integers(0, n_colors, size=n_substeps)
-        u = rng.random(n_substeps, dtype=np.float32)
-        return np.stack([_kinds(u, w_disp, w_swap, swap, vol), color],
-                        axis=1)
+        n = int(n_substeps)
+        self._n = n
+        if n == 0:
+            return np.zeros((0, 2), np.int64)
+        kc = prng.fold_in(prng.fold_in(self.base("cpu"), 0x7C01), 0xC0110)
+        kv = prng.fold_in(kc, torch.arange(n))                  # (n, 2)
+        color = prng.randint(kv, (), 0, n_colors).numpy().astype(np.int64)
+        kind = np.zeros(n, np.int64)
+        if swap or vol:
+            u = prng.uniform(prng.fold_in(kv, 1)).numpy()
+            kind = _kinds(u, w_disp, w_swap, swap, vol)
+        return np.stack([kind, color], axis=1)
 
-    def _rand(self, shape, device):
-        return torch.rand(shape, generator=self.generator, device=device)
+    def _chain_keys(self, device):
+        if self._chains is None:
+            ids = self.chain_ids.to(device)
+            self._chains = prng.fold_in(self.base(device)[None], ids)
+        return self._chains
 
     def shift(self, m, dim, device):
-        return self._rand((m, dim), device)
+        ks = prng.fold_in(prng.fold_in(self.base(device), 0x5A1F7), 0x0F5E7)
+        ids = self.chain_ids.to(device)
+        return prng.uniform(prng.fold_in(ks[None], ids), (dim,))
+
+    def _substep_keys(self, i, n, device):
+        """(M, n, 2): the first ``n`` keys of ``split(fold_in(chain key,
+        i), 3)``, from the segment's (M, substeps, 3, 2) keys."""
+        if self._substeps is None or i >= self._substeps.shape[1]:
+            steps = torch.arange(max(self._n, i + 1), device=device)
+            self._substeps = prng.split(
+                prng.fold_in(self._chain_keys(device)[:, None], steps), 3)
+        return self._substeps[:, i, :n]
 
     def substep(self, i, kind, m, h, cap, dim, proposal, device):
-        cells = (m,) + (h,) * dim
-        first = self._rand(cells + (cap,), device)
-        if kind == 0:
-            shape = cells + (dim,)
-            prop = (torch.randn(shape, generator=self.generator,
-                                device=device)
-                    if proposal == "gaussian"
-                    else 2.0 * self._rand(shape, device) - 1.0)
-            return first, prop, self._rand(cells, device)
-        return first, self._rand(cells + (cap,), device), \
-            self._rand(cells, device)
+        cells = (h,) * dim
+        k = self._substep_keys(i, 3, device)                 # (M, 3, 2)
+        first = prng.uniform(k[:, 0], cells + (cap,))
+        if kind == 1:
+            second = prng.uniform(k[:, 1], cells + (cap,))
+        elif proposal == "square":
+            second = prng.uniform(k[:, 1], cells + (dim,), minval=-1.0,
+                                  maxval=1.0)
+        else:
+            second = prng.normal(k[:, 1], cells + (dim,))
+        return first, second, prng.uniform(k[:, 2], cells)
 
     def volume(self, i, m, device):
-        return 2.0 * self._rand((m,), device) - 1.0, self._rand((m,), device)
+        k = self._substep_keys(i, 2, device)
+        return (prng.uniform(k[:, 0], (), minval=-1.0, maxval=1.0),
+                prng.uniform(k[:, 1], ()))
 
 
 def _kinds(u, w_disp, w_swap, swap, vol):
@@ -564,7 +616,7 @@ def cell_mc_segment(grid: CellGrid, pair_energy, rcut2_of, pos, attr, beta,
       beta, energy: (M,); box: (M,) per-chain box edges, or a scalar.
       sigma: proposal width (real units): a Gaussian's standard deviation,
         or the square proposal's half-width.
-      draws: the segment's draws (:class:`GeneratorDraws`'s protocol).
+      draws: the segment's draws (:class:`KeyDraws`'s protocol).
       n_substeps: host int; a displacement or swap substep attempts
         ~nc^dim / 2^dim moves per chain, a volume substep one.
       w_disp / w_swap: the probabilities that a substep is a displacement

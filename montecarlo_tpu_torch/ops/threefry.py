@@ -11,11 +11,11 @@ a draw is one call.  It has two bodies:
 
 - the hand-written CUDA kernel ``csrc/threefry.cu`` (:data:`THREEFRY_KERNEL`),
   launched for CUDA tensors;
-- a plain PyTorch version, taken for CPU tensors: the two 32-bit words
-  carried in int64 tensors and masked to 32 bits after each addition,
-  since torch has no unsigned 32-bit arithmetic to speak of.  The tests
-  hold it against ``jax.random``, and ``chip_smoke.py`` holds the kernel
-  against it.
+- a plain version, taken for CPU tensors: the rounds on the host in numpy
+  uint32 arrays, which wrap as the block function does (torch has no
+  unsigned 32-bit arithmetic to speak of), and each draw's float finish in
+  torch on the keys' device.  The tests hold it against ``jax.random``,
+  and ``chip_smoke.py`` holds the kernel against it.
 
 A call evaluates ``B * n`` blocks: key ``b`` (a row of ``keys``) at the
 counts ``0 .. n-1``, each count split into its high and low words as
@@ -34,7 +34,12 @@ made of the block's two output words:
   ``jax.random._normal_real``);
 - ``"randint"``: int32 in ``[ilo, ihi)`` (numbers, or one a key),
   ``jax.random._randint``'s two-key multiply-and-modulo (the key split in
-  two, one word of bits from each half).
+  two, one word of bits from each half);
+- ``"split_uniform"``: ``k, kthr = split(key)`` and float32 uniforms in
+  ``[lo, hi)`` from ``kthr``, returned as the pair ``(k (B, 2) uint32,
+  values (B, n))``: one step of a loop that draws from a key it splits
+  anew each iteration (the soft-potential event chains' thresholds), one
+  launch.
 
 Numbers (a fold_in's data, randint's bounds) reach the kernel as its
 arguments, so a draw on the card is one launch and no copy.
@@ -45,20 +50,25 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from ._cuda import CudaKernel
 
-__all__ = ["threefry", "MODES", "THREEFRY_KERNEL"]
+__all__ = ["threefry", "draw", "MODES", "THREEFRY_KERNEL",
+           "LAUNCHES_BY_MODE"]
 
-MODES = ("words", "bits", "uniform", "normal", "randint")
+MODES = ("words", "bits", "uniform", "normal", "randint", "split_uniform")
 
 THREEFRY_KERNEL = CudaKernel(
     "threefry.cu", "mc_threefry",
     [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
      ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
      ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
-     ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p])
+     ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+
+#: the kernel's launches by mode (their sum is ``THREEFRY_KERNEL.launches``)
+LAUNCHES_BY_MODE = dict.fromkeys(MODES, 0)
 
 _MASK = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
@@ -77,33 +87,31 @@ _NORMAL_LO = -0.99999994039535522    # float32 nextafter(-1, 0)
 
 
 def block(k0, k1, x0, x1):
-    """Threefry2x32 of keys ``(k0, k1)`` at counts ``(x0, x1)``: uint32
-    values in int64 tensors, broadcast together; returns the two output
-    words, as ``_threefry2x32_lowering`` computes them (20 rounds of add,
-    rotate and xor, five key injections).
+    """Threefry2x32 of keys ``(k0, k1)`` at counts ``(x0, x1)``: numpy
+    uint32 arrays, broadcast together; returns the two output words, as
+    ``_threefry2x32_lowering`` computes them (20 rounds of add, rotate and
+    xor, five key injections).
 
-    ``x1`` is masked to 32 bits after each step, since it is rotated;
-    ``x0`` only at the end: it only ever enters an addition, whose low 32
-    bits do not depend on the high ones, or an xor whose result is masked,
-    and 26 additions of words keep it below 2**37.  The words are updated
-    in place after the first step, which makes them new tensors: a small
-    call's time is the ops' dispatch, and this saves a fifth of it."""
-    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    uint32 arithmetic wraps as the block function's does, so no step needs
+    a mask, and each round updates the words in place: on the host a small
+    draw's time is the ops' count, which this keeps near the block's own
+    ~115."""
+    k0, k1, x0, x1 = np.broadcast_arrays(k0, k1, x0, x1)
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(_PARITY))
     x0 = x0 + k0
     x1 = x1 + k1
-    x1 &= _MASK
+    high = np.empty_like(x1)
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
             x0 += x1
-            high = x1 >> (32 - r)
+            np.right_shift(x1, 32 - r, out=high)
             x1 <<= r
             x1 |= high
             x1 ^= x0
-            x1 &= _MASK
         x0 += ks[(i + 1) % 3]
-        x1 += ks[(i + 2) % 3] + (i + 1)
-        x1 &= _MASK
-    return x0 & _MASK, x1
+        x1 += ks[(i + 2) % 3]
+        x1 += np.uint32(i + 1)
+    return x0, x1
 
 
 def _f32(v: float, device):
@@ -135,13 +143,14 @@ def _power_of_two(v: float) -> bool:
     return m == 0.5
 
 
-def _uniform_bits(bits, lo: float, hi: float):
-    """float32 in [lo, hi) from uint32 bits held in int64, as
+def _uniform_bits(bits, lo: float, hi: float, device):
+    """float32 in [lo, hi) on ``device`` from numpy uint32 ``bits``, as
     ``jax.random._uniform`` compiles on XLA: 23 random mantissa bits under
     the exponent of 1, minus 1, scaled and shifted in one fused
     multiply-add, and clamped below at ``lo``."""
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo_t, hi_t = _f32(lo, bits.device), _f32(hi, bits.device)
+    one = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32)
+    f = torch.from_numpy(one).to(device) - 1.0
+    lo_t, hi_t = _f32(lo, device), _f32(hi, device)
     span = hi_t - lo_t
     if _power_of_two(float(span)):
         # f * span is exact: the add is the fused multiply-add's one rounding
@@ -162,49 +171,72 @@ def erf_inv(x):
     return p * x
 
 
+def _column(v, b: int, dtype):
+    """A number or a per-key tensor as a (B, 1) numpy array of ``dtype``
+    (int64 values taken mod 2**32 for uint32)."""
+    v = v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+    v = np.broadcast_to(v.astype(np.int64).reshape(-1, 1), (b, 1))
+    return (v & _MASK).astype(dtype) if dtype == np.uint32 else v
+
+
+def _counts(n: int):
+    """The iota counts ``0 .. n-1`` as their (high, low) uint32 words."""
+    j = np.arange(n, dtype=np.uint64)[None]
+    return ((j >> np.uint64(32)).astype(np.uint32),
+            (j & np.uint64(_MASK)).astype(np.uint32))
+
+
 def _plain(keys, n, mode, data, lo, hi, ilo, ihi):
-    k = keys.to(torch.int64)
+    """The plain twin: the block function's rounds on the host in numpy
+    uint32, each draw's float finish in torch on the keys' device."""
+    dev = keys.device
+    k = keys.cpu().numpy()
+    b = k.shape[0]
     k0, k1 = k[:, 0:1], k[:, 1:2]
     if data is not None:
-        x1 = torch.as_tensor(data, device=keys.device) & _MASK
-        x1 = x1.expand(keys.shape[0])[:, None]
-        x0 = torch.zeros_like(x1)
+        x0, x1 = np.zeros((1, 1), np.uint32), _column(data, b, np.uint32)
     else:
-        j = torch.arange(n, dtype=torch.int64, device=keys.device)[None]
-        x0, x1 = j >> 32, j & _MASK
+        x0, x1 = _counts(n)
+    out = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     if mode == "randint":
         # split(key) into two keys (counts 0 and 1), then a word of bits
         # from each at every count: two evaluations over both halves
-        half = torch.arange(2, dtype=torch.int64, device=keys.device)
-        s0, s1 = block(k0, k1, torch.zeros_like(half), half)   # (B, 2)
+        s0, s1 = block(k0, k1, np.zeros((1, 2), np.uint32),
+                       np.arange(2, dtype=np.uint32)[None])     # (B, 2)
         h0, h1 = block(s0[..., None], s1[..., None], x0[:, None],
-                       x1[:, None])                           # (B, 2, n)
+                       x1[:, None])                             # (B, 2, n)
         bits = h0 ^ h1
         higher, lower = bits[:, 0], bits[:, 1]
-        lo_i = torch.as_tensor(ilo, device=keys.device).to(torch.int64)
-        hi_i = torch.as_tensor(ihi, device=keys.device).to(torch.int64)
-        lo_i = lo_i.expand(keys.shape[0])[:, None]
-        hi_i = hi_i.expand(keys.shape[0])[:, None]
-        span = torch.where(hi_i <= lo_i, 1, (hi_i - lo_i) & _MASK)
-        # 2**16 % span squared in uint32 (it wraps to 0 above 2**16)
-        mult = ((65536 % span) ** 2 & _MASK) % span
-        off = (((higher % span) * mult + lower % span) & _MASK) % span
-        return (lo_i + off).to(torch.int32)
+        lo_i, hi_i = _column(ilo, b, np.int64), _column(ihi, b, np.int64)
+        span = np.where(hi_i <= lo_i, 1, (hi_i - lo_i) & _MASK).astype(
+            np.uint32)
+        # 2**16 % span squared, in uint32 (it wraps to 0 above 2**16)
+        mult = np.uint32(65536) % span
+        mult = (mult * mult) % span
+        off = ((higher % span) * mult + lower % span) % span
+        return out((lo_i.astype(np.uint32) + off).view(np.int32))
+    if mode == "split_uniform":
+        # split(key): the next key at count 0, the draw's key at count 1
+        w0, w1 = block(k0, k1, np.zeros((1, 2), np.uint32),
+                       np.arange(2, dtype=np.uint32)[None])     # (B, 2)
+        nxt = out(np.stack([w0[:, 0], w1[:, 0]], axis=-1))
+        v0, v1 = block(w0[:, 1:2], w1[:, 1:2], x0, x1)
+        return nxt, _uniform_bits(v0 ^ v1, lo, hi, dev)
     w0, w1 = block(k0, k1, x0, x1)
     if mode == "words":
-        return torch.stack([w0, w1], dim=-1).to(torch.uint32)
+        return out(np.stack([w0, w1], axis=-1))
     bits = w0 ^ w1
     if mode == "bits":
-        return bits.to(torch.uint32)
+        return out(bits)
     if mode == "uniform":
-        return _uniform_bits(bits, lo, hi)
-    return _SQRT2 * erf_inv(_uniform_bits(bits, _NORMAL_LO, 1.0))
+        return _uniform_bits(bits, lo, hi, dev)
+    return _SQRT2 * erf_inv(_uniform_bits(bits, _NORMAL_LO, 1.0, dev))
 
 
 _MODE_ID = {m: i for i, m in enumerate(MODES)}
 _OUT_DTYPE = {"words": torch.uint32, "bits": torch.uint32,
               "uniform": torch.float32, "normal": torch.float32,
-              "randint": torch.int32}
+              "randint": torch.int32, "split_uniform": torch.float32}
 
 
 def _on(t, keys):
@@ -215,15 +247,23 @@ def _on(t, keys):
     if t.device != keys.device:
         raise ValueError(f"a tensor on {t.device} with keys on "
                          f"{keys.device}")
-    return t.contiguous()
+    return t if t.is_contiguous() else t.contiguous()
+
+
+#: the kernel's C entry point, resolved at the first launch
+_FN = None
 
 
 def _cuda(keys, n, mode, data, lo, hi, ilo, ihi):
+    global _FN
     b = keys.shape[0]
+    dev = keys.device
     shape = (b, n, 2) if mode == "words" else (b, n)
-    out = torch.empty(shape, dtype=_OUT_DTYPE[mode], device=keys.device)
+    out = torch.empty(shape, dtype=_OUT_DTYPE[mode], device=dev)
+    nxt = (torch.empty((b, 2), dtype=torch.uint32, device=dev)
+           if mode == "split_uniform" else None)
     if out.numel() == 0:
-        return out
+        return out if nxt is None else (nxt, out)
     if keys.stride(1) != 1:
         keys = keys.contiguous()
     data_t, ilo_t, ihi_t = (_on(t, keys) for t in (data, ilo, ihi))
@@ -231,20 +271,25 @@ def _cuda(keys, n, mode, data, lo, hi, ilo, ihi):
     fold = -1 if data is None or data_t is not None else int(data) & _MASK
     ptr = lambda t: None if t is None else t.data_ptr()
     scalar = lambda v, t: 0 if t is not None else int(v)
+    if _FN is None:
+        _FN = THREEFRY_KERNEL.build()
+    index = dev.index
     args = (keys.data_ptr(), keys.stride(0), b, n, ptr(data_t), fold,
             _MODE_ID[mode], lo, hi, ptr(ilo_t), ptr(ihi_t),
-            scalar(ilo, ilo_t), scalar(ihi, ihi_t), out.data_ptr())
-    index = keys.device.index
+            scalar(ilo, ilo_t), scalar(ihi, ihi_t), out.data_ptr(),
+            ptr(nxt))
     if index == torch.cuda.current_device():
         # the launch is a few microseconds: no device guard where the keys
         # are on the current device, and the raw stream handle
-        THREEFRY_KERNEL.launch(
-            *args, torch._C._cuda_getCurrentRawStream(index))
+        err = _FN(*args, torch._C._cuda_getCurrentRawStream(index))
     else:
-        with torch.cuda.device(keys.device):
-            THREEFRY_KERNEL.launch(
-                *args, torch._C._cuda_getCurrentRawStream(index))
-    return out
+        with torch.cuda.device(dev):
+            err = _FN(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"mc_threefry launch failed: cudaError {err}")
+    THREEFRY_KERNEL.launches += 1
+    LAUNCHES_BY_MODE[mode] += 1
+    return out if nxt is None else (nxt, out)
 
 
 def _per_key(t, b: int, dtype, what: str):
@@ -265,9 +310,10 @@ def threefry(keys, n: int = 1, mode: str = "words", *, data=None,
     ``data`` (an int, or an integer tensor of one value a key; then ``n``
     is 1) at the counts ``(0, data mod 2**32)``, and finish the draw by
     ``mode`` (see the module's docstring): ``lo``/``hi`` are the float32
-    bounds of ``"uniform"``, ``ilo``/``ihi`` the int32 bounds of
-    ``"randint"`` (ints, or integer tensors of one value a key).  Returns ``(B, n)`` values,
-    ``(B, n, 2)`` for ``"words"``.
+    bounds of ``"uniform"`` and ``"split_uniform"``, ``ilo``/``ihi`` the
+    int32 bounds of ``"randint"`` (ints, or integer tensors of one value a
+    key).  Returns ``(B, n)`` values, ``(B, n, 2)`` for ``"words"``, and
+    for ``"split_uniform"`` the pair ``(next keys (B, 2), values (B, n))``.
 
     CPU tensors and ``interpret=True`` take the plain version; CUDA
     tensors launch the kernel."""
@@ -281,9 +327,24 @@ def threefry(keys, n: int = 1, mode: str = "words", *, data=None,
     if data is not None:
         if n != 1:
             raise ValueError("a fold_in (data given) makes one block a key")
+        if mode == "split_uniform":
+            raise ValueError("split_uniform takes no fold_in data")
         data = _per_key(data, b, torch.int64, "data")
-    ilo = _per_key(ilo, b, torch.int32, "ilo")
-    ihi = _per_key(ihi, b, torch.int32, "ihi")
+    if mode == "randint":
+        ilo = _per_key(ilo, b, torch.int32, "ilo")
+        ihi = _per_key(ihi, b, torch.int32, "ihi")
+    else:
+        ilo = ihi = 0
+    return draw(keys, n, mode, data, lo, hi, ilo, ihi, interpret)
+
+
+def draw(keys, n, mode, data=None, lo=0.0, hi=1.0, ilo=0, ihi=1,
+         interpret=False):
+    """:func:`threefry` without its checks, for callers that made them
+    (``utils/prng.py``, a few microseconds of host time a draw): ``keys``
+    a (B, 2) uint32 tensor, ``mode`` one of :data:`MODES`, ``data`` None,
+    an int or an int64 tensor of B values, ``ilo``/``ihi`` ints or int32
+    tensors of B values."""
     if interpret or keys.device.type == "cpu":
         return _plain(keys, n, mode, data, lo, hi, ilo, ihi)
     if keys.device.type != "cuda":

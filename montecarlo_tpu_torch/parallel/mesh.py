@@ -8,11 +8,12 @@ process group, this process's rank in it and the device its chains live on.
 Every rank builds the same whole ensemble; :func:`shard_device_state` keeps
 rank r's contiguous slice ``[r M/S, (r+1) M/S)`` of each leaf whose leading
 dimension is the chain count M, the reference's rule, and leaves the rest
-whole (move parameters, the step counter, the estimator's sums, the cell
-path's generator).  The per-chain threefry keys of the generic path and
-the estimator are such leaves: a rank holds the keys of its global chains,
-so those paths give every chain the numbers of a one-process run, on any
-rank count.  Each chain reduction is one explicit collective, at the place
+whole (move parameters, the step counter, the estimator's sums, replica
+exchange's one key).  The per-chain threefry keys of every sampler are
+such leaves: a rank holds the keys of its global chains (the cell path
+folds its chains' global ids into a segment's key), so every path but
+the fused row kernels' gives each chain the numbers of a one-process run,
+on any rank count.  Each chain reduction is one explicit collective, at the place
 of the reference's ``psum``: the estimator's sums (:meth:`Mesh.all_reduce`),
 the observables, computed on the gathered view (:func:`fetch`), and the
 checkpoint.

@@ -37,11 +37,12 @@ import math
 import numpy as np
 import torch
 
-from ..ops.threefry import threefry
+from ..ops.threefry import draw
 from .device import resolve_device
 
 __all__ = ["key", "key_data", "fold_in", "split", "random_bits", "uniform",
-           "normal", "randint", "bernoulli", "gumbel", "categorical"]
+           "split_uniform", "normal", "randint", "bernoulli", "gumbel",
+           "categorical"]
 
 _MASK = 0xFFFFFFFF
 _TINY32 = 1.1754943508222875e-38     # float32 tiny, gumbel's minval
@@ -101,7 +102,7 @@ def fold_in(keys, data) -> torch.Tensor:
         if not isinstance(data, (int, np.integer)):
             raise TypeError(f"fold_in takes integer data, got {data!r}")
         kf, batch = _flat(keys)
-        return threefry(kf, 1, "words", data=int(data)).reshape(batch + (2,))
+        return draw(kf, 1, "words", data=int(data)).reshape(batch + (2,))
     if data.is_floating_point() or data.is_complex():
         raise TypeError(f"fold_in takes integer data, got {data.dtype}")
     # numpy's broadcast: torch.broadcast_shapes imports sympy on first use,
@@ -112,7 +113,7 @@ def fold_in(keys, data) -> torch.Tensor:
     # with any stride, and no uint32 tensor is copied on the card
     kf = keys.expand(batch + (2,)).reshape(-1, 2)
     d = data.to(device=keys.device, dtype=torch.int64).expand(batch)
-    return threefry(kf, 1, "words", data=d.reshape(-1)).reshape(batch + (2,))
+    return draw(kf, 1, "words", data=d.reshape(-1)).reshape(batch + (2,))
 
 
 def split(keys, num=2) -> torch.Tensor:
@@ -121,7 +122,7 @@ def split(keys, num=2) -> torch.Tensor:
     two words at the row-major counts of ``shape``."""
     shape = _shape(num)
     kf, batch = _flat(keys)
-    out = threefry(kf, math.prod(shape), "words")
+    out = draw(kf, math.prod(shape), "words")
     return out.reshape(batch + shape + (2,))
 
 
@@ -130,7 +131,7 @@ def random_bits(keys, shape=()) -> torch.Tensor:
     of the block's two words at the row-major counts of ``shape``."""
     shape = _shape(shape)
     kf, batch = _flat(keys)
-    return threefry(kf, math.prod(shape), "bits").reshape(batch + shape)
+    return draw(kf, math.prod(shape), "bits").reshape(batch + shape)
 
 
 def uniform(keys, shape=(), dtype=torch.float32, minval: float = 0.0,
@@ -142,16 +143,29 @@ def uniform(keys, shape=(), dtype=torch.float32, minval: float = 0.0,
     kf, batch = _flat(keys)
     n = math.prod(shape)
     if dtype == torch.float32:
-        out = threefry(kf, n, "uniform", lo=float(minval), hi=float(maxval))
+        out = draw(kf, n, "uniform", lo=float(minval), hi=float(maxval))
         return out.reshape(batch + shape)
     if dtype != torch.float64:
         raise TypeError(f"uniform takes float32 or float64, not {dtype}")
-    w = threefry(kf, n, "words").to(torch.int64)
+    w = draw(kf, n, "words").to(torch.int64)
     bits = ((w[..., 0] << 20) | (w[..., 1] >> 12)) | 0x3FF0000000000000
     f = bits.view(torch.float64) - 1.0
     lo = torch.tensor(float(minval), dtype=torch.float64, device=f.device)
     hi = torch.tensor(float(maxval), dtype=torch.float64, device=f.device)
     return torch.maximum(lo, f * (hi - lo) + lo).reshape(batch + shape)
+
+
+def split_uniform(keys, shape=(), minval: float = 0.0,
+                  maxval: float = 1.0):
+    """``k, kthr = split(keys)`` and ``uniform(kthr, shape, float32,
+    minval, maxval)``, as the pair ``(k, values)``: one step of a loop
+    that splits its key anew each iteration, one call (one launch on the
+    card)."""
+    shape = _shape(shape)
+    kf, batch = _flat(keys)
+    nxt, out = draw(kf, math.prod(shape), "split_uniform",
+                    lo=float(minval), hi=float(maxval))
+    return nxt.reshape(batch + (2,)), out.reshape(batch + shape)
 
 
 def normal(keys, shape=(), dtype=torch.float32) -> torch.Tensor:
@@ -162,7 +176,7 @@ def normal(keys, shape=(), dtype=torch.float32) -> torch.Tensor:
         raise TypeError(f"normal draws float32, not {dtype}")
     shape = _shape(shape)
     kf, batch = _flat(keys)
-    return threefry(kf, math.prod(shape), "normal").reshape(batch + shape)
+    return draw(kf, math.prod(shape), "normal").reshape(batch + shape)
 
 
 def randint(keys, shape, minval, maxval,
@@ -171,17 +185,19 @@ def randint(keys, shape, minval, maxval,
     ``minval``): each key split in two, one word of bits from each, and
     JAX's multiply-and-modulo.  ``minval`` and ``maxval`` are ints or
     integer tensors of shape ``keys.shape[:-1]`` (one range per key), in
-    int32 range."""
+    int32 range.  Every dtype is drawn at 32 bits and converted, as JAX
+    draws an int8 or int16 (bounds within the dtype's range)."""
     shape = _shape(shape)
     kf, batch = _flat(keys)
 
     def bound(v):
         if not torch.is_tensor(v):
             return int(v)
-        return v.to(keys.device).expand(batch).reshape(-1)
+        return v.to(device=keys.device, dtype=torch.int32).expand(
+            batch).reshape(-1)
 
-    out = threefry(kf, math.prod(shape), "randint", ilo=bound(minval),
-                   ihi=bound(maxval))
+    out = draw(kf, math.prod(shape), "randint", ilo=bound(minval),
+               ihi=bound(maxval))
     return out.reshape(batch + shape).to(dtype)
 
 

@@ -7,8 +7,9 @@ mesh with its chains on the CPU, and runs each scenario of the tests in
 turn: the reference's multihost configuration (harmonic chains on the
 fused path's plain version), the generic path with PGMC, an LJ and a poly
 pool on the fused path, a cell-path pool with and without a forced
-overflow on rank 1, a run resumed from its checkpoint, and replica
-exchange across the ranks' boundary.  Simulations
+overflow on rank 1, a run resumed from its checkpoint, replica
+exchange across the ranks' boundary, and a lattice driver, event-chain MC
+and the cell path, each cut by a backup.  Simulations
 write under ``<outdir>/runs``; each rank leaves what the tests compare
 under ``<outdir>/results/rank<r>``.  Off rank 0, every attempt to create or
 write a file under ``<outdir>/runs`` is recorded, and the list saved.
@@ -36,9 +37,9 @@ from montecarlo_tpu_torch.models import particle1d as p1d  # noqa: E402
 from montecarlo_tpu_torch.models import polydisperse as poly  # noqa: E402
 from montecarlo_tpu_torch.ops import cell_mc  # noqa: E402
 from montecarlo_tpu_torch.parallel import fetch, initialize, make_mesh  # noqa: E402
-from torch_mesh_helpers import (REF_STEPS, pgmc_sim,  # noqa: E402
-                                 reference_algorithms, state_arrays,
-                                 tempering_sim)
+from torch_mesh_helpers import (REF_STEPS, SAMPLER_BACKUP,  # noqa: E402
+                                 pgmc_sim, reference_algorithms,
+                                 sampler_sim, state_arrays, tempering_sim)
 
 RUNS = os.path.join(outdir, "runs")
 RESULTS = os.path.join(outdir, "results", f"rank{rank}")
@@ -197,6 +198,19 @@ def tempering(mesh):
             save(name + "_whole", **state_arrays(whole))
 
 
+def samplers(mesh):
+    """The lattice driver, event-chain MC and the cell path on two ranks,
+    each with a backup: rank 0 keeps each gathered final state; the
+    checkpoints stay under ``runs/sampler_<name>``."""
+    for name in ("lattice", "ecmc", "cell"):
+        sim = sampler_sim(name, os.path.join(RUNS, f"sampler_{name}"), mesh,
+                          backups=[SAMPLER_BACKUP])
+        sim.run()
+        whole = fetch(sim.device_state, mesh)
+        if rank == 0:
+            save(f"sampler_{name}", **state_arrays(whole))
+
+
 def main():
     initialize(f"localhost:{port}", world, rank, backend="gloo")
     try:
@@ -204,7 +218,7 @@ def main():
         assert (mesh.rank, mesh.size, mesh.backend) == (rank, world, "gloo")
         os.makedirs(RESULTS, exist_ok=True)
         for scenario in (reference_config, pgmc, particles, cell, resume,
-                         tempering):
+                         tempering, samplers):
             scenario(mesh)
             print(f"rank {rank}: {scenario.__name__} done", flush=True)
         save("violations", paths=np.asarray(violations, dtype=str))

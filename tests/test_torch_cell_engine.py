@@ -354,7 +354,7 @@ def test_auto_leaves_row_kernel_pools_to_the_kernel(tmp_path):
 
 def test_cell_run_resumed_equals_uncut(tmp_path):
     """A cell-path run (the species pool, so the variant stream, the
-    generator, the debt and the flag all matter) cut by a backup and
+    chains' keys, the debt and the flag all matter) cut by a backup and
     resumed in a fresh Simulation ends bit-equal to the uncut run."""
     steps, backup = 12, 5
     chains = lj.init_chains(2, 512, rho=1.2, beta=1.0 / 0.45, frac_b=0.2,

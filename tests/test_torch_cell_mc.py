@@ -9,7 +9,8 @@ the reference's ``cell_mc_segment`` derives them).  Positions agree within
 energies within rtol 1e-5 (the neighbourhood sums run in torch's order, not
 XLA's); the keys are ones where no accept decision sits within an ulp of
 its threshold.  Then the reference's own gates (``tests/test_cell_mc.py``) by
-statistics and invariants on the port's generator stream.
+statistics and invariants on the port's own stream, and the port's
+:class:`KeyDraws` against :class:`ReferenceDraws`.
 """
 
 import dataclasses
@@ -257,10 +258,6 @@ def test_segment_matches_reference(swap_mode, w_disp):
 
 # -- the reference's gates, on the port's stream ------------------------------
 
-def _gen(seed):
-    return torch.Generator().manual_seed(seed)
-
-
 def _segment(grid, closures, st, attr, sigma, n_sub, seed, **kw):
     """An NVT segment on the port's stream: ``cell_mc_segment``'s outputs
     without the (unchanged) box."""
@@ -269,7 +266,8 @@ def _segment(grid, closures, st, attr, sigma, n_sub, seed, **kw):
     energy = getattr(st, "energy", torch.zeros(st.pos.shape[0]))
     pos, attr, e, _, att, acc, inv = cell_mc.cell_mc_segment(
         grid, pe, rc2, st.pos, attr, beta, energy, sigma,
-        cell_mc.GeneratorDraws(_gen(seed), seed, 0), n_sub, box=st.box,
+        cell_mc.KeyDraws(seed, 0, torch.arange(st.pos.shape[0])), n_sub,
+        box=st.box,
         **kw)
     return pos, attr, e, att, acc, inv
 
@@ -419,15 +417,50 @@ def test_variants_are_a_function_of_seed_and_microstep():
     """The host's variant sequence needs no state: the same (seed, micro-step)
     gives the same sequence, a different micro-step another, and the kind
     frequencies follow w_disp."""
-    a = cell_mc.GeneratorDraws(None, 5, 1000).variants(4000, 4, 0.7, 0.3,
-                                                       True, False)
-    b = cell_mc.GeneratorDraws(None, 5, 1000).variants(4000, 4, 0.7, 0.3,
-                                                       True, False)
-    c = cell_mc.GeneratorDraws(None, 5, 1001).variants(4000, 4, 0.7, 0.3,
-                                                       True, False)
+    ids = torch.arange(2)
+    a = cell_mc.KeyDraws(5, 1000, ids).variants(4000, 4, 0.7, 0.3, True,
+                                                False)
+    b = cell_mc.KeyDraws(5, 1000, ids).variants(4000, 4, 0.7, 0.3, True,
+                                                False)
+    c = cell_mc.KeyDraws(5, 1001, ids).variants(4000, 4, 0.7, 0.3, True,
+                                                False)
     np.testing.assert_array_equal(a, b)
     assert not np.array_equal(a, c)
     assert abs((a[:, 0] == 0).mean() - 0.7) < 0.03
     assert np.bincount(a[:, 1], minlength=4).min() > 900
-    assert not cell_mc.GeneratorDraws(None, 5, 0).variants(
+    assert not cell_mc.KeyDraws(5, 0, ids).variants(
         100, 4, 0.7, 0.0, False, False)[:, 0].any()
+
+
+@pytest.mark.parametrize("kind", ["displacement", "swap", "volume"])
+def test_key_draws_equal_the_reference_draws(kind):
+    """:class:`KeyDraws` of a segment derive the reference's numbers from
+    its base key ``fold_in(key(seed), micro_t0)``: the variants of 300
+    substeps (three kinds), the grid shifts and a substep's tensors, for
+    chains 4..7 of a mesh rank (their global ids folded in) as for one
+    process."""
+    seed, micro_t0, m, h, cap, dim = 7, 1234, 4, 3, 5, 2
+    ids = torch.arange(4, 4 + m)
+    mine = cell_mc.KeyDraws(seed, micro_t0, ids)
+    ref = ReferenceDraws(jax.random.fold_in(jax.random.key(seed),
+                                            micro_t0))
+    np.testing.assert_array_equal(
+        mine.variants(300, 4, 0.6, 0.3, True, True),
+        ref.variants(300, 4, 0.6, 0.3, True, True))
+    full = lambda x: x[4:]      # the reference's draws of chains 0..7
+    np.testing.assert_array_equal(mine.shift(m, dim, "cpu").numpy(),
+                                  full(ref.shift(8, dim, "cpu")).numpy())
+    if kind == "volume":
+        got, want = mine.volume(11, m, "cpu"), ref.volume(11, 8, "cpu")
+    else:
+        k = int(kind == "swap")
+        for proposal in ("gaussian", "square"):
+            got = mine.substep(11, k, m, h, cap, dim, proposal, "cpu")
+            want = ref.substep(11, k, 8, h, cap, dim, proposal, "cpu")
+            # normals within a few float32 ulps, the rest bit for bit
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g.numpy(), full(w).numpy(),
+                                           rtol=1e-6, atol=1e-6)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), full(w).numpy(), rtol=1e-6,
+                                   atol=1e-6)

@@ -246,7 +246,7 @@ def test_fractional_halo_is_box_invariant():
     cells = cell_mc.bind_cells(
         grid, torch.remainder(st.pos / st.box[:, None, None], 1.0),
         st.species)
-    gen = cell_mc.GeneratorDraws(torch.Generator().manual_seed(5), 5, 0)
+    gen = cell_mc.KeyDraws(5, 0, torch.arange(2))
     halos = {"npt": cell_mc._make_substep(grid, pe, rc2, None, (512, 1.0)),
              "nvt": cell_mc._make_substep(grid, pe, rc2)}
     acc = {(k, b): 0 for k in halos for b in ("min", "1.0", "1.1")}

@@ -5,14 +5,18 @@ a backup and resumed from its checkpoint in a fresh ``Simulation`` ends in
 the same state, bit for bit, as the run that was not interrupted.  Here
 that holds on the generic path (the chains' threefry keys are saved, as
 uint32 data), on the fused path's CPU stand-in (the stream is keyed by the
-step), and with PGMC (the estimator's keys and accumulators are saved).  A
-state without generators resumes on any rank count: a checkpoint written
-by two ranks resumes in one process and one written by one process on two
-ranks, each equal to the uncut run.  A chain-major BIN store resumed in its
-own directory appends, where the JAX package's truncates.
+step), and with PGMC (the estimator's keys and accumulators are saved).  No
+state holds a generator, so a checkpoint resumes on any rank count: one
+written by two ranks resumes in one process and one written by one
+process on two ranks, each equal to the uncut run (the other samplers'
+two-rank checkpoints: ``tests/test_torch_mesh.py``), and a file that
+holds a generator's state, as earlier versions wrote, is refused.  A
+chain-major BIN store resumed in its own directory appends, where the JAX
+package's truncates.
 """
 
 import glob
+import json
 import os
 import subprocess
 import sys
@@ -46,15 +50,12 @@ def _one_torch_thread():
 
 
 def _same(a, b):
-    """Two device states are equal leaf by leaf: tensors bitwise,
-    generators by their state, the step as an int."""
+    """Two device states are equal leaf by leaf: tensors bitwise, the step
+    as an int."""
     la, lb = tree_leaves_with_path(a), tree_leaves_with_path(b)
     assert [p for p, _ in la] == [p for p, _ in lb]
     for (path, x), (_, y) in zip(la, lb):
-        if isinstance(x, torch.Generator):
-            assert isinstance(y, torch.Generator) and x.device == y.device
-            assert torch.equal(x.get_state(), y.get_state()), path
-        elif torch.is_tensor(x):
+        if torch.is_tensor(x):
             assert x.dtype == y.dtype and x.device == y.device, path
             assert torch.equal(x, y), path
         else:
@@ -113,19 +114,14 @@ def _simulation(case, path, **kw):
 
 
 def test_roundtrip_save_restore(tmp_path):
-    """Tensors (the chains' keys as uint32 data), generators (also
-    mid-stream: the cell path's) and the step come back equal, and a
-    restored generator continues the saved one's stream."""
+    """Tensors (the chains' keys as uint32 data) and the step come back
+    equal."""
     sim = _simulation("pgmc", tmp_path / "rt")
     sim.run()
-    gen = torch.Generator().manual_seed(9)
-    torch.rand(3, generator=gen)
-    ds = {**sim.device_state, "cell": {"generator": gen}}
+    ds = sim.device_state
     path = str(tmp_path / "state.npz")
     checkpoint.save(path, ds)
-    like = {**sim.init_device_state(),
-            "cell": {"generator": torch.Generator()}}
-    restored = checkpoint.restore(path, like)
+    restored = checkpoint.restore(path, sim.init_device_state())
     _same(ds, restored)
     assert restored["t"] == STEPS and isinstance(restored["t"], int)
     keys = restored["metropolis"]["keys"]
@@ -133,11 +129,27 @@ def test_roundtrip_save_restore(tmp_path):
     with np.load(path) as data:
         stored = [data[k] for k in data.files if data[k].shape == (16, 2)]
     assert len(stored) == 2 and all(a.dtype == np.uint32 for a in stored)
-    gen2 = restored["cell"]["generator"]
-    assert torch.equal(torch.rand(5, generator=gen),
-                       torch.rand(5, generator=gen2))
     assert len(restored["pge"]["gd"]) == 1
     assert restored["pge"]["gd"][0].g.shape == (1, 1)
+
+
+def test_restore_refuses_a_file_holding_a_generator(tmp_path):
+    """A checkpoint with a generator's entry (how earlier versions stored
+    the cell path's, ECMC's, the lattice samplers', Wang-Landau's and
+    replica exchange's streams) raises, naming the entry, rather than
+    resuming a stream the keys cannot continue."""
+    sim = _simulation("generic", tmp_path / "g")
+    path = str(tmp_path / "state.npz")
+    checkpoint.save(path, sim.init_device_state())
+    with np.load(path) as data:
+        arrays = dict(data)
+    meta = json.loads(bytes(arrays["__meta__"]).decode())
+    meta["leaf_0"]["__generator__"] = "cpu"
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    np.savez(path, **arrays)
+    with pytest.raises(ValueError, match="generator states .*" +
+                       meta["leaf_0"]["path"]):
+        checkpoint.restore(path, sim.init_device_state())
 
 
 def test_restore_refuses_another_structure(tmp_path):

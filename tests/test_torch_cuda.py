@@ -6,9 +6,10 @@ the machine has no JAX, without the repository's conftest):
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
 Tolerance: the Gaussian sweep atol 1e-5 on x and e and equal accept counts;
-the LJ and polydisperse sweeps bit for bit.  Each kernel and its plain
-version use the same CUDA math functions and, for the particle rows, the
-same summation order.
+the LJ and polydisperse sweeps and every threefry mode bit for bit; the
+keyed samplers' card runs against the CPU's within 1e-5, counters equal.
+Each kernel and its plain version use the same CUDA math functions and,
+for the particle rows, the same summation order.
 """
 
 import dataclasses
@@ -465,9 +466,7 @@ def test_resume_on_cuda_is_bitwise_exact(cuda, tmp_path):
     b.run()
     for x, y in zip(tree_leaves(ref.device_state),
                     tree_leaves(b.device_state)):
-        if isinstance(x, torch.Generator):
-            assert torch.equal(x.get_state(), y.get_state())
-        elif torch.is_tensor(x):
+        if torch.is_tensor(x):
             assert x.is_cuda and torch.equal(x, y)
         else:
             assert x == y
@@ -582,6 +581,79 @@ def test_threefry_kernel_matches_plain(cuda, mode, kw, b, n):
         want = threefry(k, n, mode, interpret=True, **kw)
         torch.cuda.synchronize()
         assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b, n", [(1, 1), (64, 64), (512, 64), (37, 1001)])
+def test_threefry_split_uniform_matches_plain(cuda, b, n):
+    """The split_uniform mode (the soft-potential event loop's step):
+    successor keys and values bit for bit against the plain twin, one
+    launch counted under its mode."""
+    from montecarlo_tpu_torch.ops.threefry import (LAUNCHES_BY_MODE,
+                                                   THREEFRY_KERNEL, threefry)
+    from montecarlo_tpu_torch.utils import prng
+    keys = prng.split(prng.key(11, cuda), (b, 3))[:, 2]
+    before = (THREEFRY_KERNEL.launches, LAUNCHES_BY_MODE["split_uniform"])
+    nk, u = threefry(keys, n, "split_uniform", lo=1.1754943508222875e-38)
+    assert (THREEFRY_KERNEL.launches, LAUNCHES_BY_MODE["split_uniform"]) \
+        == (before[0] + 1, before[1] + 1)
+    pk, pu = threefry(keys, n, "split_uniform", lo=1.1754943508222875e-38,
+                      interpret=True)
+    torch.cuda.synchronize()
+    assert torch.equal(nk, pk) and torch.equal(u, pu)
+
+
+@pytest.mark.parametrize("name", ["checkerboard", "wolff", "wang_landau",
+                                  "ecmc_lj", "tempering", "cell"])
+def test_keyed_samplers_on_the_card_equal_the_cpu(cuda, tmp_path, name):
+    """One seed's run of a keyed sampler on the card and on the CPU:
+    counters and discrete states equal, the rest within 1e-5."""
+    from montecarlo_tpu_torch.models import ising2d
+    from montecarlo_tpu_torch.utils.tree import tree_leaves_with_path
+
+    def build(dev):
+        if name in ("checkerboard", "wolff", "wang_landau"):
+            chains = ising2d.init_chains(8, 6, 0.44, seed=3, device=dev)
+            algo = {"checkerboard": dict(
+                        algorithm=ising2d.CheckerboardMetropolis, sweeps=2),
+                    "wolff": dict(algorithm=ising2d.WolffCluster,
+                                  clusters=2),
+                    "wang_landau": dict(algorithm=tmc.WangLandau,
+                                        model=ising2d.wl_model(6),
+                                        moves_per_step=36)}[name]
+            return ising2d.make_system(), chains, [dict(algo, seed=5)]
+        if name == "ecmc_lj":
+            return lj.make_system(), lj.init_chains(
+                3, 20, 0.7, 1.0, frac_b=0.2, seed=5, device=dev), [
+                dict(algorithm=tmc.EventChain, model=lj.ecmc_model(1.5),
+                     events_per_step=2, seed=11)]
+        if name == "tempering":
+            return p1d.make_system(), p1d.init_chains(
+                16, beta=tmc.tile_ladder([0.5, 1.0, 2.0, 4.0], 4,
+                                         device=dev), seed=3, device=dev), [
+                dict(algorithm=tmc.Metropolis,
+                     pool=(p1d.displacement_move(0.8),), seed=2,
+                     fused="off"),
+                dict(algorithm=tmc.ReplicaExchange, n_temps=4, seed=5)]
+        return lj.make_system(), lj.init_chains(
+            4, 256, rho=1.0, beta=1.0, frac_b=0.2, seed=6, device=dev), [
+            dict(algorithm=tmc.Metropolis,
+                 pool=(lj.lj_displacement_move(0.1, weight=0.8),
+                       lj.lj_swap_move(weight=0.2)),
+                 seed=3, sweepstep=64, fused="cell")]
+
+    states = []
+    for dev in (cuda, torch.device("cpu")):
+        sim = tmc.Simulation(*build(dev), 4, path=str(tmp_path / dev.type))
+        sim.run()
+        states.append([(p, x.cpu()) for p, x in
+                       tree_leaves_with_path(sim.device_state)
+                       if torch.is_tensor(x)])
+    for (path, a), (_, b) in zip(*states):
+        if a.is_floating_point():
+            assert float((a.double() - b.double()).abs().max()) <= \
+                1e-5 + 1e-5 * float(b.double().abs().max()), path
+        else:
+            assert torch.equal(a, b), path
 
 
 def test_threefry_folds_and_per_key_bounds_match_plain(cuda):

@@ -30,11 +30,12 @@ from montecarlo_tpu.models import lennard_jones as ref_lj
 from montecarlo_tpu.models import particle1d as ref_p1d
 from montecarlo_tpu.models import polydisperse as ref_poly
 from montecarlo_tpu_torch import checkpoint, interop
-from montecarlo_tpu_torch.core.ecmc import GeneratorEventDraws
+from montecarlo_tpu_torch.core.ecmc import KeyEventDraws
 from montecarlo_tpu_torch.models import hard_disks as hd
 from montecarlo_tpu_torch.models import lennard_jones as lj
 from montecarlo_tpu_torch.models import particle1d as p1d
 from montecarlo_tpu_torch.models import polydisperse as poly
+from montecarlo_tpu_torch.utils import prng
 from torch_cell_helpers import assert_same_state
 from torch_ecmc_helpers import ReferenceEventDraws, chain_keys
 
@@ -131,8 +132,8 @@ def test_loop_result_does_not_depend_on_the_check_interval(name):
               "poly": lambda k: poly.ecmc_model(1.0, check_every=k)}[name]
     outs = []
     for k in (1, 5, 32):
-        draws = GeneratorEventDraws(torch.Generator().manual_seed(2), 77,
-                                    st.pos.shape[0], "cpu")
+        draws = KeyEventDraws(prng.split(prng.key(77, "cpu"),
+                                         st.pos.shape[0]))
         outs.append(models(k).event_step(st, {}, draws))
     for other in outs[1:]:
         assert_same_state(outs[0][0], other[0])
@@ -140,8 +141,8 @@ def test_loop_result_does_not_depend_on_the_check_interval(name):
     # a chain capped early stays where the cap left it at every interval
     capped = []
     for k in (1, 3):
-        draws = GeneratorEventDraws(torch.Generator().manual_seed(2), 77,
-                                    st.pos.shape[0], "cpu")
+        draws = KeyEventDraws(prng.split(prng.key(77, "cpu"),
+                                         st.pos.shape[0]))
         model = hd.ecmc_model(float(st.box[0]) / 2, max_events_per_chain=2,
                               check_every=k)
         capped.append(model.event_step(
@@ -317,7 +318,7 @@ def test_cut_and_resumed_run_equals_the_uncut_run(tmp_path):
 
 def test_ecmc_slice_carried_both_ways():
     """The reference's ``ecmc`` slice (zig-zag: lift ``v``, four float
-    statistics) into the port's and back; the port keeps its generator."""
+    statistics) into the port's and back; the port keeps its keys."""
     ref_chains = ref_p1d.init_chains(6, beta=BETA, seed=1)
 
     class _Sim:
@@ -338,7 +339,7 @@ def test_ecmc_slice_carried_both_ways():
     ref_np = jax.tree_util.tree_map(
         np.asarray, {k: v for k, v in ref_slc.items() if k != "keys"})
     slc = interop.slice_from_reference("ecmc", ref_np, like)
-    assert slc["generator"] is like["generator"]
+    assert slc["keys"] is like["keys"]
     assert slc["n_events"].dtype == torch.int32
     np.testing.assert_array_equal(slc["lift"]["v"].numpy(),
                                   np.asarray(ref_slc["lift"]["v"]))

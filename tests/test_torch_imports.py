@@ -78,7 +78,7 @@ def test_cell_mc_and_hard_disk_exports_follow_reference():
     from montecarlo_tpu_torch import models
     from montecarlo_tpu_torch.models import hard_disks
     from montecarlo_tpu_torch.ops import cell_mc
-    assert set(cell_mc.__all__) - {"GeneratorDraws"} == set(ref_cell.__all__)
+    assert set(cell_mc.__all__) - {"KeyDraws"} == set(ref_cell.__all__)
     assert set(hard_disks.__all__) <= set(ref_hd.__all__)
     assert {"hard_disks", "lennard_jones", "particle1d",
             "polydisperse"} <= set(models.__all__)
@@ -101,7 +101,7 @@ def test_slice_exports_follow_reference():
     from montecarlo_tpu_torch.core import ecmc, tempering
     from montecarlo_tpu_torch.models import ising, ising2d, potts
     from montecarlo_tpu_torch.ops import cluster
-    assert set(ecmc.__all__) - {"GeneratorEventDraws", "event_loop"} \
+    assert set(ecmc.__all__) - {"KeyEventDraws", "event_loop"} \
         == set(ref_ecmc.__all__)
     assert set(ising2d.__all__) == set(ref_ising2d.__all__)
     for mine, ref in ((tempering, ref_tempering), (cluster, ref_cluster),

@@ -22,7 +22,17 @@ spawn; each test reads what its scenario left:
    two-rank checkpoint resumes on one rank too and equals the uncut run;
 6. replica exchange with a ladder straddling the ranks' boundary: with
    the generic path's moves each rank equals the emulation's rank, and
-   alone (its swaps the only randomness) equals one process.
+   alone (its swaps the only randomness) equals one process;
+7. a lattice driver (2-D Ising Wolff), event-chain MC (the LJ hook) and
+   the cell path, each with a backup at step 4 (the cell path keys a
+   segment on its first micro-step, so every run here is cut into the same
+   segments): every chain draws from its global chain's keys, so the two
+   ranks' gathered state equals one process's, and the checkpoint the two
+   ranks wrote resumes in one process equal to the uncut run.  Bit for
+   bit, but for ECMC's floats, held within 1e-5 (its counts exactly): the
+   LJ hook's float ops over a rank's (2, N) tensors do not round all alike
+   with one process's (4, N) ones on the CPU (a threads-emulated mesh
+   shows the same), which moves a position by an ulp.
 
 Each worker has its own timeout, so a rank left waiting in a collective
 fails the tests instead of hanging them.
@@ -46,8 +56,10 @@ from montecarlo_tpu_torch import checkpoint
 from montecarlo_tpu_torch.models import lennard_jones as lj
 from montecarlo_tpu_torch.models import polydisperse as poly
 from montecarlo_tpu_torch.parallel import make_mesh, run_emulated
-from torch_mesh_helpers import (PGMC_STEPS, REF_STEPS, TEMPERING_STEPS,
-                                pgmc_sim, reference_algorithms, state_arrays,
+from torch_mesh_helpers import (PGMC_STEPS, REF_STEPS, SAMPLER_BACKUP,
+                                SAMPLER_STEPS, TEMPERING_STEPS, pgmc_sim,
+                                reference_algorithms, sampler_sim,
+                                state_arrays,
                                 tempering_sim)
 
 WORKER = os.path.join(os.path.dirname(__file__), "_torch_mesh_worker.py")
@@ -254,3 +266,51 @@ def test_replica_exchange_across_the_ranks(runs, tmp_path):
             np.testing.assert_array_equal(f[k], want[k], err_msg=k)
     rate = np.loadtxt(root / "runs" / "tempering" / "swap_rate.dat")
     assert rate.shape == (TEMPERING_STEPS // 3 + 1, 2)
+
+
+@pytest.fixture(scope="module")
+def one_process_samplers(tmp_path_factory):
+    """Each sampler's uncut one-process final state, by name."""
+    root = tmp_path_factory.mktemp("samplers")
+    out = {}
+    for name in ("lattice", "ecmc", "cell"):
+        sim = sampler_sim(name, str(root / name), None,
+                          backups=[SAMPLER_BACKUP])
+        sim.run()
+        out[name] = state_arrays(sim.device_state)
+    return out
+
+
+def _same_arrays(got, want, name):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        if name == "ecmc" and np.issubdtype(want[k].dtype, np.floating):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
+                                       atol=1e-5, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["lattice", "ecmc", "cell"])
+def test_two_ranks_equal_one_process(runs, one_process_samplers, name):
+    root, _ = runs
+    with np.load(_result(root, 0, f"sampler_{name}.npz")) as f:
+        got = dict(f)
+    want = one_process_samplers[name]
+    _same_arrays(got, want, name)
+    assert got["sys/pos" if name != "lattice" else "sys/spins"].shape[0] == 4
+
+
+@pytest.mark.parametrize("name", ["lattice", "ecmc", "cell"])
+def test_two_rank_checkpoint_resumes_in_one_process(runs,
+                                                    one_process_samplers,
+                                                    name, tmp_path):
+    root, _ = runs
+    ckpt = str(root / "runs" / f"sampler_{name}" / "checkpoints"
+               / f"ckpt_t{SAMPLER_BACKUP}.npz")
+    sim = sampler_sim(name, str(tmp_path / name), None)
+    checkpoint.resume_state(sim, ckpt)
+    assert sim.t == SAMPLER_BACKUP < SAMPLER_STEPS
+    sim.run()
+    _same_arrays(state_arrays(sim.device_state), one_process_samplers[name],
+                 name)

@@ -41,6 +41,7 @@ from montecarlo_tpu_torch.ops import fused_sweep, lj_sweep, poly_sweep
 from montecarlo_tpu_torch.parallel import (CHAIN_AXIS, Mesh, fetch,
                                            make_mesh, replicate, run_emulated,
                                            shard_device_state)
+from montecarlo_tpu_torch.utils.tree import tree_leaves
 from torch_mesh_helpers import pgmc_sim, state_arrays
 
 S = 8
@@ -82,8 +83,9 @@ def _blocks_differ(a):
 def _state(m=8):
     sys = p1d.init_chains(m, beta=2.0, seed=3, device="cpu")
     return {"sys": sys, "t": 5, "params": ({"sigma": torch.tensor(0.5)},),
-            "metropolis": {"counters": torch.arange(m * 2).reshape(m, 1, 2),
-                           "generator": torch.Generator().manual_seed(1)},
+            "metropolis": {"counters": torch.arange(m * 2).reshape(m, 1, 2)},
+            "replica_exchange": {"key": torch.tensor([[0, 5]],
+                                                     dtype=torch.uint32)},
             "pge": {"obj": torch.zeros(3)}}
 
 
@@ -98,7 +100,7 @@ def test_shard_device_state_slices_chain_leaves():
                                   ds["metropolis"]["counters"][4:6])
     assert out["t"] == 5 and out["pge"]["obj"] is ds["pge"]["obj"]
     assert out["params"][0]["sigma"] is ds["params"][0]["sigma"]
-    assert out["metropolis"]["generator"] is ds["metropolis"]["generator"]
+    assert out["replica_exchange"]["key"] is ds["replica_exchange"]["key"]
     with pytest.raises(ValueError, match="not divisible"):
         shard_device_state(_state(10), _rank(0, size=4), 10)
 
@@ -284,15 +286,15 @@ def test_pgmc_parameters_stay_replicated(tmp_path):
 
 
 def test_generators_are_seeded_with_the_rank_folded_in(tmp_path):
-    """Only the cell path keeps a generator, seeded as the fused path folds
-    the rank into its seed, on a one-rank mesh too; the generic path's and
-    the estimator's keys are those of the rank's global chains, the same
-    on every rank count, and the state of a pool without a cell plan holds
-    no generator."""
+    """No state holds a generator, on a mesh or without one: the generic
+    path's and the estimator's keys are those of the rank's global chains,
+    the same on every rank count, and the cell path, which keys each
+    segment on its micro-step and folds in its chains' global ids, gives
+    each rank its slice of the one-process run bit for bit."""
     def keys(mesh):
         ds = pgmc_sim(str(tmp_path), mesh).init_device_state()
-        assert "generator" not in ds["metropolis"]
-        assert "generator" not in ds["pge"]
+        assert not any(isinstance(leaf, torch.Generator)
+                       for leaf in tree_leaves(ds))
         return ds["metropolis"]["keys"], ds["pge"]["keys"]
 
     whole = keys(None)
@@ -304,21 +306,28 @@ def test_generators_are_seeded_with_the_rank_folded_in(tmp_path):
             for g, w in zip(got, whole):
                 assert torch.equal(g, w[r * m:(r + 1) * m])
 
-    chains = lj.init_chains(2, 512, rho=1.2, beta=1.0, seed=21, device="cpu")
+    chains = lj.init_chains(4, 512, rho=1.2, beta=1.0, seed=21, device="cpu")
 
-    def seeds(mesh):
+    def cell_run(mesh):
         sim = tmc.Simulation(lj.make_system(), chains, [
             dict(algorithm=tmc.Metropolis,
                  pool=(lj.lj_displacement_move(0.08),), seed=42,
-                 fused="cell")], 4, path=str(tmp_path), mesh=mesh)
-        met = sim.device_algos[0]
-        gen = sim.init_device_state()["metropolis"]["generator"]
-        return met.stream_seed, gen.initial_seed()
+                 sweepstep=64, fused="cell")], 3, path=str(tmp_path),
+            mesh=mesh)
+        assert sim.device_algos[0]._use_cell
+        sim.run()
+        ds = sim.device_state
+        assert not any(isinstance(leaf, torch.Generator)
+                       for leaf in tree_leaves(ds))
+        return ds["sys"].pos, ds["metropolis"]["counters"]
 
+    one = cell_run(None)
+    assert int(one[1][:, 0, 0].min()) > 0
     for size in (1, 2):
-        for r, (stream, gen) in enumerate(run_emulated(seeds, size, "cpu")):
-            assert stream == fused_sweep._shard_seed(r, 42) == gen
-    assert seeds(None) == (42, 42)
+        for r, got in enumerate(run_emulated(cell_run, size, "cpu")):
+            m = 4 // size
+            for g, w in zip(got, one):
+                assert torch.equal(g, w[r * m:(r + 1) * m])
 
 
 @pytest.mark.parametrize("size", [1, 2, 4])

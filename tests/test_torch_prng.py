@@ -3,11 +3,14 @@
 Every function takes a batch of keys and must equal ``jax.vmap`` of the
 per-key ``jax.random`` call on the same key words: bit for bit for
 ``key``, ``fold_in``, ``split``, ``random_bits``, ``uniform``, ``randint``
-and ``bernoulli``; ``normal`` within 4 float32 ulps (its ``log1p`` is
+(int8 and int16 too), ``bernoulli`` and ``split_uniform`` (the event
+loops' ``k, kthr = split(k)`` and uniforms); ``normal`` within 4 float32
+ulps (its ``log1p`` is
 torch's, not XLA's, which differ at the last bit); ``gumbel`` within 2e-6
 absolute (two logs); ``categorical`` the same picks on the tested keys.
 The keys are made from the seeds 0, 42 and 2**31 - 1.  On the CPU the
-functions take the threefry block function's plain version.
+functions take the threefry block function's plain version, whose numpy
+uint32 rounds are held against Python integers at words that wrap.
 """
 
 import jax
@@ -216,3 +219,69 @@ def test_misuse_raises():
         threefry(keys, 2, "nonsense")
     with pytest.raises(TypeError):
         prng.normal(keys, (), torch.float64)
+
+
+@pytest.mark.parametrize("shape", [(), (5,), (3, 4), (64,)])
+@pytest.mark.parametrize("minval", [0.0, 1.1754943508222875e-38])
+def test_split_uniform_equals_reference(shape, minval):
+    """``split_uniform``, one step of the soft-potential event loops: the
+    successor ``k`` and the values ``uniform(kthr, shape, minval=minval)``
+    of ``k, kthr = split(key)`` bit for bit, and the same as the separate
+    ``split`` and ``uniform``."""
+    ref, keys = _keys()
+
+    def one(k):
+        k, kthr = jax.random.split(k)
+        return (jax.random.key_data(k),
+                jax.random.uniform(kthr, shape, minval=minval))
+
+    want_k, want_u = jax.vmap(one)(ref)
+    got_k, got_u = prng.split_uniform(keys, shape, minval=minval)
+    np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_k))
+    np.testing.assert_array_equal(got_u.numpy(), np.asarray(want_u))
+    k = prng.split(keys)
+    assert torch.equal(got_k, k[:, 0])
+    assert torch.equal(got_u, prng.uniform(k[:, 1], shape, minval=minval))
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int16"])
+@pytest.mark.parametrize("span", [2, 3, 4, 7, 100])
+def test_randint_narrow_dtypes_equal_reference(dtype, span):
+    """An int8 or int16 ``randint`` (the Potts colours) is drawn at 32
+    bits and converted, as JAX draws it."""
+    ref, keys = _keys()
+    want = jax.vmap(lambda k: jax.random.randint(
+        k, (3, 4), 0, span, dtype=getattr(jnp, dtype)))(ref)
+    got = prng.randint(keys, (3, 4), 0, span, dtype=getattr(torch, dtype))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_plain_block_wraps_as_uint32():
+    """The plain twin's rounds in numpy uint32 against the block computed
+    with Python integers masked to 32 bits, at keys and counts near 2**32
+    (every addition wraps)."""
+    from montecarlo_tpu_torch.ops.threefry import block
+
+    def slow(k0, k1, x0, x1):
+        m = 0xFFFFFFFF
+        rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+        ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+        x0, x1 = (x0 + k0) & m, (x1 + k1) & m
+        for i in range(5):
+            for r in rot[i % 2]:
+                x0 = (x0 + x1) & m
+                x1 = ((x1 << r) | (x1 >> (32 - r))) & m
+                x1 ^= x0
+            x0 = (x0 + ks[(i + 1) % 3]) & m
+            x1 = (x1 + ks[(i + 2) % 3] + i + 1) & m
+        return x0, x1
+
+    vals = [0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF,
+            0x1BD11BDA, 12345]
+    for k0 in vals:
+        for k1 in vals[::-1]:
+            got = block(*(np.array([v], np.uint32)
+                          for v in (k0, k1, 0xFFFFFFFF, k0 ^ 5)))
+            want = slow(k0, k1, 0xFFFFFFFF, k0 ^ 5)
+            assert (int(got[0][0]), int(got[1][0])) == want

@@ -262,7 +262,7 @@ def test_replica_exchange_slice_carried_both_ways(tmp_path):
         path=str(tmp_path / "port"))
     like = sim.init_device_state()["replica_exchange"]
     slc = interop.slice_from_reference("replica_exchange", ref_np, like)
-    assert slc["generator"] is like["generator"]
+    assert slc["key"] is like["key"]
     assert int(slc["calls"]) == 3 and slc["counters"].dtype == torch.int32
     back = interop.slice_to_reference("replica_exchange", slc)
     assert set(back) == {"calls", "counters"}

@@ -22,6 +22,7 @@ import montecarlo_tpu_torch as tmc
 from montecarlo_tpu.models import tfim as ref_tfim
 from montecarlo_tpu_torch import interop
 from montecarlo_tpu_torch.models import tfim
+from montecarlo_tpu_torch.utils import prng
 from torch_lattice_helpers import (TINY, _one_torch_thread,  # noqa: F401
                                    carry, ref_keys, vsplit, vuniform,
                                    warm_up_transcendentals)
@@ -76,15 +77,21 @@ def test_checkerboard_sweep_value_for_value(h):
 
 def test_sampler_stream_differs_from_the_initial_spins(tmp_path):
     """init_chains and TFIMCheckerboard given one seed draw apart: the
-    sampler's stream has a tag folded into its seed."""
+    sampler's keys have the reference's tag 0x7F1 folded into ``key(seed)``
+    before the chain ids, so its first sweep's uniforms are not the ones
+    ``init_chains`` drew the spins from."""
     chains = tfim.init_chains(2, N, M_SLICES, BETA, seed=4, device="cpu")
     sim = tmc.Simulation(tfim.make_system(), chains,
                          [dict(algorithm=tfim.TFIMCheckerboard, seed=4)], 1,
                          path=str(tmp_path))
     alg = sim.device_algos[0]
-    u = alg.uniform(alg.init_state(sim), chains.spins.shape)
-    first = torch.rand(chains.spins.shape,
-                       generator=torch.Generator().manual_seed(4))
+    slc = alg.init_state(sim)
+    base = prng.fold_in(prng.key(4, "cpu"), 0x7F1)
+    assert torch.equal(slc["keys"],
+                       prng.fold_in(base[None], torch.arange(2)))
+    u = prng.uniform(prng.split(alg.unit_keys(slc, 0, 1)[:, 0]),
+                     chains.spins.shape[1:])[:, 0]
+    first = prng.uniform(prng.key(4, "cpu"), chains.spins.shape)
     assert not torch.equal(u, first)
     assert torch.equal(chains.spins, 2 * (first < 0.5).to(torch.int8) - 1)
 

@@ -3,7 +3,7 @@ the port's ``ops/cell_mc.py``, a fine-stride schedule, and a bit-for-bit
 comparison of device states.
 
 :class:`ReferenceDraws` follows the draws protocol of
-``montecarlo_tpu_torch.ops.cell_mc.GeneratorDraws`` with the numbers the
+``montecarlo_tpu_torch.ops.cell_mc.KeyDraws`` with the numbers the
 reference's ``cell_mc_segment`` derives from its base key, so the port's
 substeps and segments can be held to the reference's value for value.
 """

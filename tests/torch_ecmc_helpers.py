@@ -2,7 +2,7 @@
 fed to the port's hooks.
 
 :class:`ReferenceEventDraws` follows the draws protocol of
-``montecarlo_tpu_torch.core.ecmc.GeneratorEventDraws`` with the numbers the
+``montecarlo_tpu_torch.core.ecmc.KeyEventDraws`` with the numbers the
 reference's hooks derive from each chain's event key: ``split(key, 2)``
 (hard disks) or ``split(key, 3)`` (LJ, polydisperse) for the active
 particle, the direction and the loop's key, one ``split`` of that key per
@@ -52,9 +52,10 @@ class ReferenceEventDraws:
         return T(jax.vmap(lambda k: jax.random.uniform(
             k, (n,), minval=TINY, maxval=1.0))(ks[:, 1]))
 
-    def uniform(self):
+    def uniform(self, dtype=torch.float32):
+        jdtype = {torch.float32: jnp.float32, torch.float64: jnp.float64}
         return T(jax.vmap(lambda k: jax.random.uniform(
-            k, (), jnp.float32, minval=TINY))(self.keys))
+            k, (), jdtype[dtype], minval=TINY))(self.keys))
 
     def bernoulli(self):
         return T(jax.vmap(jax.random.bernoulli)(self.keys))

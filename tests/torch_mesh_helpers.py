@@ -91,3 +91,40 @@ def tempering_sim(path, mesh, metropolis=True):
                              seed=8, fused="off"))
     return tmc.Simulation(p1d.make_system(p1d.harmonic), chains, algos,
                           TEMPERING_STEPS, path=path, mesh=mesh)
+
+
+SAMPLER_STEPS, SAMPLER_BACKUP = 8, 4
+
+
+def sampler_sim(name, path, mesh, backups=()):
+    """One of the samplers whose streams are per-chain keys, on 4 chains:
+    ``"lattice"`` the 2-D Ising Wolff sampler (two flips a step),
+    ``"ecmc"`` event-chain MC on LJ (the soft hook: its loop splits a key
+    each iteration), ``"cell"`` the 2-D LJ cell path (``fused='cell'``);
+    a backup at each step of ``backups``."""
+    from montecarlo_tpu_torch.models import ising2d
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+
+    if name == "lattice":
+        system = ising2d.make_system()
+        chains = ising2d.init_chains(4, 6, 0.44, seed=3, device="cpu")
+        algos = [dict(algorithm=ising2d.WolffCluster, clusters=2, seed=5)]
+    elif name == "ecmc":
+        system = lj.make_system()
+        chains = lj.init_chains(4, 20, 0.7, 1.0, frac_b=0.2, seed=5,
+                                device="cpu")
+        algos = [dict(algorithm=tmc.EventChain, model=lj.ecmc_model(1.5),
+                      events_per_step=2, seed=11)]
+    else:
+        system = lj.make_system()
+        chains = lj.init_chains(4, 512, rho=1.0, beta=1.0, frac_b=0.2,
+                                seed=6, device="cpu")
+        algos = [dict(algorithm=tmc.Metropolis,
+                      pool=(lj.lj_displacement_move(0.1, weight=0.8),
+                            lj.lj_swap_move(weight=0.2)),
+                      seed=3, sweepstep=64, fused="cell")]
+    if len(backups):
+        algos.append(dict(algorithm=tmc.StoreBackups,
+                          scheduler=np.asarray(backups)))
+    return tmc.Simulation(system, chains, algos, SAMPLER_STEPS, path=path,
+                          mesh=mesh)

@@ -9,7 +9,8 @@ displacement move, ``fused='off'``):
 - ``Metropolis.step`` alone, ms a step over 200 steps;
 - the host time of one call of each random draw a step makes (``prng``'s
   ``fold_in``, ``split``, ``normal`` and ``uniform`` where the tree has
-  ``utils/prng.py``, else ``torch.randn`` and ``torch.rand`` from a
+  ``utils/prng.py``, and ``split_uniform`` at the LJ event loop's 64 x
+  64 where it has that; else ``torch.randn`` and ``torch.rand`` from a
   generator), over 500 calls with no sync inside.
 
 Prints the card's name and power limit, then one JSON line.  Build the
@@ -96,6 +97,11 @@ def main():
                  "split3": lambda: prng.split(keys, 3),
                  "normal": lambda: prng.normal(keys),
                  "uniform": lambda: prng.uniform(keys)}
+        if hasattr(prng, "split_uniform"):
+            # the soft-potential event loop's draw: 64 chains x N 64
+            loop = keys[:64]
+            draws["split_uniform_64x64"] = lambda: prng.split_uniform(
+                loop, (64,))
     else:
         gen = torch.Generator(device=device).manual_seed(1)
         draws = {"randn": lambda: torch.randn(10 ** 4, generator=gen,
