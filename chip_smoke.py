@@ -1483,7 +1483,10 @@ def pgmc5_profile(tmc, device, path, card):
         wall = timed_run(sim)
     rows = []
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # a span's shadow on the card's rows (the program's mc. spans) is
+        # no kernel
+        if evt.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(evt, "is_user_annotation", False):
             continue
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0))
@@ -1957,10 +1960,13 @@ def _occupancy(st, nc):
 
 def _launches_and_busy(prof):
     """Kernel launches counted on a ``torch.profiler`` run's host rows, and
-    the kernels' device time (microseconds) on its card rows."""
+    the kernels' device time (microseconds) on its card rows (spans left
+    out)."""
     import torch
     launches = busy = 0
     for evt in prof.key_averages():
+        if getattr(evt, "is_user_annotation", False):
+            continue        # a span's shadow on the card's rows: no kernel
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             busy += getattr(evt, "self_device_time_total",
                             getattr(evt, "self_cuda_time_total", 0))

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..utils import prng
+from ..utils.observability import count, span
 from ..utils.tree import tree_map
 from .algorithms import DeviceAlgorithm, SimView, _n_calls
 
@@ -142,13 +143,15 @@ def event_loop(body, carry, active, check_every: int = CHECK_EVERY):
     i = 0
     while True:
         for _ in range(check_every):
-            act = active(carry)
-            new = body(carry, i)
-            carry = tuple(
-                torch.where(act.reshape(act.shape + (1,) * (c.dim() - 1)),
-                            n, c)
-                for n, c in zip(new, carry))
+            with span("mc.ecmc.iteration"):
+                act = active(carry)
+                new = body(carry, i)
+                carry = tuple(
+                    torch.where(
+                        act.reshape(act.shape + (1,) * (c.dim() - 1)), n, c)
+                    for n, c in zip(new, carry))
             i += 1
+        count("host_syncs")
         if not bool(torch.any(active(carry))):
             return carry
 

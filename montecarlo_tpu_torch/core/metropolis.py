@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..utils import prng
+from ..utils.observability import count
 from ..utils.tree import tree_leaves, tree_map
 from .algorithms import DeviceAlgorithm, ObservableRecorder, SimView
 from .moves import Move, MoveDef, tree_select
@@ -479,9 +480,12 @@ class Metropolis(DeviceAlgorithm):
         if self._cell_disabled:
             return
         flag = dstate.get(self.state_key, {}).get("cell_overflow")
-        if flag is not None and self.mesh is not None:
+        if flag is None:
+            return
+        if self.mesh is not None:
             flag = self.mesh.all_reduce(flag.to(torch.int32), "max")
-        if flag is not None and bool(flag):
+        count("host_syncs")
+        if bool(flag):
             if self.fused != "cell":
                 raise Metropolis.CellBindInvalid(self)
             raise RuntimeError(

@@ -21,6 +21,11 @@ work and syncs only where the host needs values:
 - Every sync point checks the device state (``validate_state``) before its
   records are written; an auto-selected cell-MC path whose bind overflowed
   falls back and resumes from the last committed state (:func:`_execute`).
+- Each layer of the loop is a span (``mc.initialise``, ``mc.schedule``,
+  ``mc.advance``, ``mc.refresh``, ``mc.observe``, ``mc.flush``,
+  ``mc.record``, ``mc.host_algorithm``, ``mc.finalise``:
+  :func:`~montecarlo_tpu_torch.utils.observability.span`), and the run's
+  work is counted in ``Simulation.counters``.
 
 On a chain mesh (``mesh=``, :mod:`~montecarlo_tpu_torch.parallel`) every
 rank runs this loop on its slice of the chains.  Each observe point first
@@ -33,6 +38,7 @@ reduced over the ranks first, so all ranks issue the same collectives.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import time
@@ -43,7 +49,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import fetch, shard_device_state
-from ..utils.observability import device_sync
+from ..utils.observability import Counters, count, counting, device_sync, span
 from ..utils.tree import tree_leaves, tree_leaves_with_path, tree_map
 from .algorithms import (Algorithm, DeviceAlgorithm, HostAlgorithm,
                          ObservableRecorder, SimView, _io_host, is_resuming,
@@ -104,6 +110,7 @@ class Simulation:
         self.verbose = verbose
         self.t = 0
         self.device_state: Dict[str, Any] = {}
+        self.counters = Counters()     # the last run's (observability)
 
         self.algorithms: List[Algorithm] = []
         self.schedulers: List[np.ndarray] = []
@@ -210,39 +217,52 @@ class Simulation:
 def run(simulation: Simulation):
     """Run the simulation (ref ``run!``, ``src/simulation.jl:175-204``)."""
     sim = simulation
+    sim.counters = Counters()
     try:
-        if sim.verbose:
-            print("\n" + "-" * 50)
-            print("\033[1;32mINITIALISATION\033[0m")
-        # decided before initialise, which may not touch the device state:
-        # a store kept across a resume (the BIN trajectories) asks the same
-        resuming = is_resuming(sim)
-        for alg in sim.algorithms:
-            alg.initialise(sim)
-        if not resuming:
-            sim.device_state = sim.init_device_state()
-        _write_summary(sim)
-        if not resuming:
-            _store_first(sim)
-        if sim.verbose:
-            print("\033[1;32m\nRUNNING SIMULATION...\033[0m")
+        with counting(sim.counters):
+            _run(sim)
+    finally:
+        _write_counters(sim)
+
+
+def _run(sim: Simulation):
+    try:
+        with span("mc.initialise"):
+            if sim.verbose:
+                print("\n" + "-" * 50)
+                print("\033[1;32mINITIALISATION\033[0m")
+            # decided before initialise, which may not touch the device
+            # state: a store kept across a resume (the BIN trajectories)
+            # asks the same
+            resuming = is_resuming(sim)
+            for alg in sim.algorithms:
+                alg.initialise(sim)
+            if not resuming:
+                sim.device_state = sim.init_device_state()
+            _write_summary(sim)
+            if not resuming:
+                _store_first(sim)
+            if sim.verbose:
+                print("\033[1;32m\nRUNNING SIMULATION...\033[0m")
         t_start = time.perf_counter()
         _execute(sim)
-        device_sync(sim.device_state)
-        sim_time = time.perf_counter() - t_start
-        if sim.verbose:
-            print(f"\nSimulation completed in {sim_time} s")
-        _update_summary(sim, sim_time)
+        with span("mc.finalise"):
+            device_sync(sim.device_state)
+            sim_time = time.perf_counter() - t_start
+            if sim.verbose:
+                print(f"\nSimulation completed in {sim_time} s")
+            _update_summary(sim, sim_time)
     finally:
-        if sim.verbose:
-            print("\033[1;32m\nFINALISATION\033[0m")
-        _store_last(sim)
-        for alg in sim.algorithms:
-            alg.finalise(sim)
-        _finalise_summary(sim)
-        if sim.verbose:
-            print("\033[1;32m\nDONE\033[0m")
-            print("-" * 50 + "\n")
+        with span("mc.finalise"):
+            if sim.verbose:
+                print("\033[1;32m\nFINALISATION\033[0m")
+            _store_last(sim)
+            for alg in sim.algorithms:
+                alg.finalise(sim)
+            _finalise_summary(sim)
+            if sim.verbose:
+                print("\033[1;32m\nDONE\033[0m")
+                print("-" * 50 + "\n")
 
 
 def _store_first(sim: Simulation):
@@ -269,9 +289,18 @@ def _pull_and_write(sim, recorders, t):
     if not recorders:
         return
     view = sim.gathered_view(sim.device_state)
-    values = to_numpy(tuple(r.observable(view) for r in recorders))
+    values = _to_host(tuple(r.observable(view) for r in recorders))
     for r, v in zip(recorders, values):
         r.write(sim, t, v)
+    count("records", len(recorders))
+
+
+def _to_host(tree):
+    """:func:`to_numpy`, counted as a host sync of its bytes."""
+    out = to_numpy(tree)
+    count("host_syncs")
+    count("bytes_to_host", sum(x.nbytes for x in tree_leaves(out)))
+    return out
 
 
 # -- advance ------------------------------------------------------------------
@@ -284,14 +313,19 @@ def build_chunk_runner(advance, refresh, observe):
     def run_chunk(ds, masks, first_dt, stride, n_periods):
         bufs = None
         for i in range(n_periods):
-            ds = refresh(advance(ds, masks, first_dt if i == 0 else stride))
-            obs = observe(ds)
-            if bufs is None:
-                bufs = tree_map(
-                    lambda o: torch.empty((n_periods,) + tuple(o.shape),
-                                          dtype=o.dtype, device=o.device),
-                    obs)
-            tree_map(lambda b, o: b[i].copy_(o), bufs, obs)
+            with span("mc.advance"):
+                ds = advance(ds, masks, first_dt if i == 0 else stride)
+            ds = refresh(ds)
+            with span("mc.observe"):
+                obs = observe(ds)
+                if bufs is None:
+                    bufs = tree_map(
+                        lambda o: torch.empty(
+                            (n_periods,) + tuple(o.shape), dtype=o.dtype,
+                            device=o.device),
+                        obs)
+                tree_map(lambda b, o: b[i].copy_(o), bufs, obs)
+        count("periods", n_periods)
         return ds, bufs
 
     return run_chunk
@@ -311,7 +345,8 @@ def _make_advance(device_algos, always_on=None):
             ds = {**ds, "t": t}
             for alg, mask, always in zip(device_algos, masks, always_on):
                 if always or mask[t]:
-                    ds = alg.step(ds, t)
+                    with span("mc.step"):
+                        ds = alg.step(ds, t)
         return ds
 
     return advance
@@ -339,7 +374,8 @@ def _make_hybrid_advance(met, sparse_algos, event_times):
             ds = met.fused_advance(ds, t_next - ds["t"])
             for alg, m in zip(sparse_algos, masks[1:]):
                 if m[ds["t"]]:
-                    ds = alg.step(ds, ds["t"])
+                    with span("mc.step"):
+                        ds = alg.step(ds, ds["t"])
         return ds
 
     return advance
@@ -409,7 +445,35 @@ def _execute(sim: Simulation):
 
 
 def _execute_inner(sim: Simulation):
-    advance = _select_advance(sim)
+    with span("mc.schedule"):
+        advance = _select_advance(sim)
+        masks = []
+        for a in sim.device_algos:
+            i = sim.algorithms.index(a)
+            m = np.zeros(sim.steps + 1, dtype=bool)
+            sched = sim.schedulers[i]
+            m[sched[(sched > 0) & (sched <= sim.steps)]] = True
+            masks.append(m)
+        masks = tuple(masks)
+
+        # sync events: (obs recorder indices, host algorithm indices) per
+        # time
+        events: Dict[int, tuple] = {}
+        for i, (alg, sched) in enumerate(zip(sim.algorithms,
+                                             sim.schedulers)):
+            if isinstance(alg, (ObservableRecorder, HostAlgorithm)):
+                for t in sched[(sched > 0) & (sched <= sim.steps)]:
+                    events.setdefault(int(t), ([], []))
+                    if isinstance(alg, ObservableRecorder):
+                        events[int(t)][0].append(i)
+                    else:
+                        events[int(t)][1].append(i)
+
+        # on resume (sim.t > 0) skip past events
+        sync_ts = sorted(t for t in events if t > sim.t)
+        # group sync times into uniform runs (same signature, constant
+        # stride)
+        groups = _group_events(sync_ts, events)
 
     def check_state(ds):
         # surface latched device-side flags (an invalid cell bind) at every
@@ -422,35 +486,15 @@ def _execute_inner(sim: Simulation):
     # cache revalidation at observation points (SystemDef.refresh)
     if sim.system.refresh is not None:
         def refresh(ds):
-            return {**ds, "sys": sim.system.refresh(ds["sys"])}
+            with span("mc.refresh"):
+                return {**ds, "sys": sim.system.refresh(ds["sys"])}
     else:
         refresh = lambda ds: ds
 
     def advance_r(ds, masks, n_steps):
-        return refresh(advance(ds, masks, n_steps))
-
-    masks = []
-    for a in sim.device_algos:
-        i = sim.algorithms.index(a)
-        m = np.zeros(sim.steps + 1, dtype=bool)
-        sched = sim.schedulers[i]
-        m[sched[(sched > 0) & (sched <= sim.steps)]] = True
-        masks.append(m)
-    masks = tuple(masks)
-
-    # sync events: (obs recorder indices, host algorithm indices) per time
-    events: Dict[int, tuple] = {}
-    for i, (alg, sched) in enumerate(zip(sim.algorithms, sim.schedulers)):
-        if isinstance(alg, (ObservableRecorder, HostAlgorithm)):
-            for t in sched[(sched > 0) & (sched <= sim.steps)]:
-                events.setdefault(int(t), ([], []))
-                if isinstance(alg, ObservableRecorder):
-                    events[int(t)][0].append(i)
-                else:
-                    events[int(t)][1].append(i)
-
-    # on resume (sim.t > 0) skip past events
-    sync_ts = sorted(t for t in events if t > sim.t)
+        with span("mc.advance"):
+            ds = advance(ds, masks, n_steps)
+        return refresh(ds)
 
     def make_observe(obs_ids):
         recs = [sim.algorithms[i] for i in obs_ids]
@@ -463,8 +507,6 @@ def _execute_inner(sim: Simulation):
 
     ds = sim.device_state
 
-    # group sync times into uniform runs (same signature, constant stride)
-    groups = _group_events(sync_ts, events)
     for times, obs_ids, host_ids in groups:
         bufferable = (not host_ids
                       and len(times) >= _MIN_BUFFERED
@@ -480,12 +522,18 @@ def _execute_inner(sim: Simulation):
                 # commit a chunk: check its state, copy its buffer to the
                 # host (by now the next chunk is already enqueued) and write
                 # it out; a chunk whose state fails the check is dropped
-                check_state(ds_after)
-                vals = to_numpy(bufs)
-                for r, v in zip(recs, vals):
-                    r.write_batch(sim, ts, v)
-                sim.t = int(ts[-1])
-                sim.device_state = ds_after
+                with span("mc.flush"):
+                    with span("mc.flush.check"):
+                        check_state(ds_after)
+                    with span("mc.flush.to_host"):
+                        vals = _to_host(bufs)
+                    with span("mc.flush.write"):
+                        for r, v in zip(recs, vals):
+                            r.write_batch(sim, ts, v)
+                    sim.t = int(ts[-1])
+                    sim.device_state = ds_after
+                    count("chunks")
+                    count("records", len(ts) * len(recs))
 
             pos = 0
             t_disp = sim.t          # end time of the last enqueued chunk
@@ -507,26 +555,35 @@ def _execute_inner(sim: Simulation):
             for t in times:
                 if t > sim.t:
                     ds = advance_r(ds, masks, t - sim.t)
-                    check_state(ds)
-                    sim.t = t
-                    sim.device_state = ds
-                if obs_ids:
-                    vals = to_numpy(observe(ds))
-                    # unbuffered recorders (the backups) write last, so a
-                    # checkpoint at t finds the other records at t on disk
-                    for i, v in sorted(
-                            zip(obs_ids, vals), key=lambda iv: not getattr(
-                                sim.algorithms[iv[0]], "buffered_ok", True)):
-                        sim.algorithms[i].write(sim, t, v)
+                with span("mc.record"):
+                    if t > sim.t:
+                        check_state(ds)
+                        sim.t = t
+                        sim.device_state = ds
+                    if obs_ids:
+                        vals = _to_host(observe(ds))
+                        # unbuffered recorders (the backups) write last, so
+                        # a checkpoint at t finds the other records at t on
+                        # disk
+                        for i, v in sorted(
+                                zip(obs_ids, vals),
+                                key=lambda iv: not getattr(
+                                    sim.algorithms[iv[0]], "buffered_ok",
+                                    True)):
+                            sim.algorithms[i].write(sim, t, v)
+                        count("periods")
+                        count("records", len(obs_ids))
                 for i in host_ids:
-                    sim.algorithms[i].make_step(sim, t)
+                    with span("mc.host_algorithm"):
+                        sim.algorithms[i].make_step(sim, t)
                 if host_ids:
                     # host algorithms may replace sim.device_state
                     ds = sim.device_state
 
     if sim.t < sim.steps:
         ds = advance_r(ds, masks, sim.steps - sim.t)
-        check_state(ds)
+        with span("mc.record"):
+            check_state(ds)
         sim.t = sim.steps
     sim.device_state = ds
 
@@ -610,3 +667,16 @@ def _finalise_summary(sim: Simulation):
     with open(os.path.join(sim.path, "summary.log"), "a") as f:
         f.write(f"\tSimulation size: {total / 1024 ** 2} MB\n")
         f.write(f"\tStatus: Completed on {datetime.datetime.now()}\n")
+
+
+def _write_counters(sim: Simulation):
+    """The run's counts, closing the report (the port's own lines)."""
+    if not _io_host(sim):
+        return
+    c = dataclasses.asdict(sim.counters)
+    launches = c.pop("launches")
+    with open(os.path.join(sim.path, "summary.log"), "a") as f:
+        f.write("\tCounters: " + ", ".join(
+            f"{k} {v}" for k, v in c.items()) + "\n")
+        f.write("\tKernel launches: " + (", ".join(
+            f"{k} {v}" for k, v in launches.items()) or "none") + "\n")

@@ -19,7 +19,7 @@ import subprocess
 import tempfile
 import time
 
-__all__ = ["CudaKernel"]
+__all__ = ["CudaKernel", "KERNELS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -40,13 +40,17 @@ def _nvcc() -> str:
             "toolkit is needed to build the package's kernels")
     return found
 
+#: every :class:`CudaKernel` made in this process
+KERNELS: list = []
+
 
 class CudaKernel:
     """One C entry point of one ``.cu`` source: lazy build, launch, count.
 
     ``launches`` counts the launches made through :meth:`launch` and nothing
     else, so a run can show that it went through the kernel.  Entry points
-    of one source share its library.
+    of one source share its library.  Every instance is listed in
+    :data:`KERNELS`, where a run's counters read the launches it made.
     """
 
     def __init__(self, source: str, symbol: str, argtypes):
@@ -56,6 +60,7 @@ class CudaKernel:
         self.launches = 0
         self.build_seconds = None     # wall time of the nvcc call, if any
         self._fn = None
+        KERNELS.append(self)
 
     def library_path(self) -> str:
         h = hashlib.sha256()

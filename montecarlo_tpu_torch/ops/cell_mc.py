@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..utils import prng
+from ..utils.observability import count, span
 
 __all__ = ["CellGrid", "plan_grid", "bind_cells", "unbind_cells",
            "cell_total_energy", "cell_mc_segment", "KeyDraws"]
@@ -654,15 +655,19 @@ def cell_mc_segment(grid: CellGrid, pair_energy, rcut2_of, pos, attr, beta,
     acc = torch.zeros((m, 3), dtype=torch.int32, device=dev)
     h = grid.nc // 2
     for i, (kind, color) in enumerate(seq.tolist()):
-        if kind == 2:
-            bx, e, n_att, n_acc = variants[2][0](
-                P, bx, e, dlnv, beta, *draws.volume(i, m, dev))
-        else:
-            d = draws.substep(i, kind, m, h, grid.cap, dim, proposal, dev)
-            d_e, n_att, n_acc = variants[kind][color](P, bx, sigma, beta, *d)
-            e = e + d_e
-        att[:, kind] += n_att.to(torch.int32)
-        acc[:, kind] += n_acc.to(torch.int32)
+        with span("mc.cell.substep"):
+            if kind == 2:
+                bx, e, n_att, n_acc = variants[2][0](
+                    P, bx, e, dlnv, beta, *draws.volume(i, m, dev))
+            else:
+                d = draws.substep(i, kind, m, h, grid.cap, dim, proposal,
+                                  dev)
+                d_e, n_att, n_acc = variants[kind][color](P, bx, sigma,
+                                                          beta, *d)
+                e = e + d_e
+            att[:, kind] += n_att.to(torch.int32)
+            acc[:, kind] += n_acc.to(torch.int32)
+    count("cell_substeps", len(seq))
     s_out, attr_out = unbind_cells(
         {"crd": P[:, :dim], "attr": P[:, dim], "idx": cells["idx"]}, n)
     frac = torch.remainder(s_out - shift[:, None, :], 1.0)

@@ -21,7 +21,10 @@ reproduces those draws bit for bit, on any device, from the same keys:
   ``gumbel`` (``_gumbel``, mode ``'low'``) and ``categorical`` (with
   replacement).
 
-The block function and each draw's finish run in one call of
+Each public draw is one ``mc.prng`` span
+(:func:`~montecarlo_tpu_torch.utils.observability.span`) and one of the
+run's ``prng_draws``.  The block function and each draw's finish run in
+one call of
 :func:`~montecarlo_tpu_torch.ops.threefry.threefry`: the CUDA kernel on
 the card, its plain version on the CPU.  ``uniform``, ``random_bits``,
 ``randint``, ``bernoulli``, ``split`` and ``fold_in`` equal ``jax.random``
@@ -32,6 +35,7 @@ differ from the reference only where two of its sums tie to an ulp.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -39,6 +43,7 @@ import torch
 
 from ..ops.threefry import draw
 from .device import resolve_device
+from .observability import count, span
 
 __all__ = ["key", "key_data", "fold_in", "split", "random_bits", "uniform",
            "split_uniform", "normal", "randint", "bernoulli", "gumbel",
@@ -62,6 +67,18 @@ def key(seed: int, device=None) -> torch.Tensor:
                             f"key refuses it")
     return torch.tensor([0, seed & _MASK], dtype=torch.uint32,
                         device=resolve_device(device))
+
+
+def _public(fn):
+    """A public draw: one ``mc.prng`` span and one counted draw.  Draws
+    call each other's undecorated bodies (``__wrapped__``), so a draw is
+    one span."""
+    @functools.wraps(fn)
+    def drawn(*args, **kwargs):
+        count("prng_draws")
+        with span("mc.prng"):
+            return fn(*args, **kwargs)
+    return drawn
 
 
 def key_data(keys) -> torch.Tensor:
@@ -92,6 +109,7 @@ def _flat(keys):
     return keys.reshape(-1, 2), batch
 
 
+@_public
 def fold_in(keys, data) -> torch.Tensor:
     """``jax.random.fold_in`` of each key with ``data`` (an int, or an
     integer tensor broadcast against ``keys.shape[:-1]``, taken mod 2**32):
@@ -116,6 +134,7 @@ def fold_in(keys, data) -> torch.Tensor:
     return draw(kf, 1, "words", data=d.reshape(-1)).reshape(batch + (2,))
 
 
+@_public
 def split(keys, num=2) -> torch.Tensor:
     """``jax.random.split``: ``num`` keys (an int, or a shape) from each
     key, ``keys.shape[:-1] + shape + (2,)``; the new keys are the block's
@@ -126,6 +145,7 @@ def split(keys, num=2) -> torch.Tensor:
     return out.reshape(batch + shape + (2,))
 
 
+@_public
 def random_bits(keys, shape=()) -> torch.Tensor:
     """32 random bits per value (``jax.random.bits`` at uint32): the xor
     of the block's two words at the row-major counts of ``shape``."""
@@ -134,6 +154,7 @@ def random_bits(keys, shape=()) -> torch.Tensor:
     return draw(kf, math.prod(shape), "bits").reshape(batch + shape)
 
 
+@_public
 def uniform(keys, shape=(), dtype=torch.float32, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in ``[minval, maxval)``; ``minval`` and
@@ -155,6 +176,7 @@ def uniform(keys, shape=(), dtype=torch.float32, minval: float = 0.0,
     return torch.maximum(lo, f * (hi - lo) + lo).reshape(batch + shape)
 
 
+@_public
 def split_uniform(keys, shape=(), minval: float = 0.0,
                   maxval: float = 1.0):
     """``k, kthr = split(keys)`` and ``uniform(kthr, shape, float32,
@@ -168,6 +190,7 @@ def split_uniform(keys, shape=(), minval: float = 0.0,
     return nxt.reshape(batch + (2,)), out.reshape(batch + shape)
 
 
+@_public
 def normal(keys, shape=(), dtype=torch.float32) -> torch.Tensor:
     """``jax.random.normal`` in float32: ``sqrt(2) * erf_inv(u)`` with
     XLA's float32 ``erf_inv`` polynomial, ``u`` uniform in
@@ -179,6 +202,7 @@ def normal(keys, shape=(), dtype=torch.float32) -> torch.Tensor:
     return draw(kf, math.prod(shape), "normal").reshape(batch + shape)
 
 
+@_public
 def randint(keys, shape, minval, maxval,
             dtype=torch.int32) -> torch.Tensor:
     """``jax.random.randint`` in ``[minval, maxval)`` (an empty range gives
@@ -201,28 +225,31 @@ def randint(keys, shape, minval, maxval,
     return out.reshape(batch + shape).to(dtype)
 
 
+@_public
 def bernoulli(keys, p=0.5, shape=()) -> torch.Tensor:
     """``jax.random.bernoulli``: ``uniform(keys, shape) < p``, ``p`` a
     number or a float tensor broadcast against ``keys.shape[:-1] +
     shape``, drawn in ``p``'s dtype."""
     dtype = p.dtype if torch.is_tensor(p) else torch.float32
-    return uniform(keys, shape, dtype) < p
+    return uniform.__wrapped__(keys, shape, dtype) < p
 
 
+@_public
 def gumbel(keys, shape=(), dtype=torch.float32) -> torch.Tensor:
     """``jax.random.gumbel`` (mode ``'low'``): ``-log(-log(u))`` with
     ``u`` uniform in ``[tiny, 1)``."""
     if dtype != torch.float32:
         raise TypeError(f"gumbel draws float32, not {dtype}")
-    return -torch.log(-torch.log(uniform(keys, shape, dtype,
-                                         minval=_TINY32)))
+    return -torch.log(-torch.log(uniform.__wrapped__(keys, shape, dtype,
+                                               minval=_TINY32)))
 
 
+@_public
 def categorical(keys, logits) -> torch.Tensor:
     """``jax.random.categorical`` over the last axis of ``logits``, shared
     by every key (``jax.vmap(categorical, (0, None))``): the argmax of
     Gumbel noise of ``logits.shape`` plus the logits, an int64 index per
     key, ``keys.shape[:-1] + logits.shape[:-1]``."""
     logits = torch.as_tensor(logits, device=keys.device)
-    g = gumbel(keys, tuple(logits.shape), torch.float32)
+    g = gumbel.__wrapped__(keys, tuple(logits.shape), torch.float32)
     return torch.argmax(g + logits, dim=-1)
