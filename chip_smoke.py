@@ -7,8 +7,8 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit (``nvidia-smi``);
 2. build: compiles ``csrc/fused_sweep.cu``, ``csrc/lj_sweep.cu``,
-   ``csrc/poly_sweep.cu`` and ``csrc/threefry.cu`` with one nvcc each,
-   started together;
+   ``csrc/poly_sweep.cu``, ``csrc/threefry.cu`` and ``csrc/lj_energy.cu``
+   with one nvcc each, started together;
 3. the Gaussian sweep kernel vs its plain version, harmonic and double
    well, at M = 10, 10^4 and 10^6 (one M for each lane-group width T that
    ``group_lanes`` picks on an H100: 32, 8, 1; the T used is printed), even
@@ -30,6 +30,16 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
    warps): bit for bit, with the cache against an O(N^2) recompute,
    positions in [0, box) and each chain's diameters conserved;
    segmentation invariance;
+4c. the 2-D LJ energy kernel (``ops/lj_energy.py``, the cache refresh's on
+   the card) against the plain ``total_energy`` at the ka2d cell's shape
+   (64 x N 1024, rho 1.2, A65 B35, one mixed sweep off the lattice), 4 x N
+   4648 and 2 x N 2049 (two passes over the columns), N 1000, 20 and 2:
+   within 1e-5 relative of the float64 energy a chain, bit-equal from call
+   to call and for a chain alone; timed at 64 x N 1024 beside the plain
+   float32 ``total_energy`` (64 rows a pass) and its bound by operations
+   (pair terms and those inside the cutoff counted from the inputs).  The
+   cache gates of phases 4, 5 and 9 recompute with the plain
+   ``_energies``, never with this kernel;
 5. the main paths, ``Simulation.run`` on CUDA, each with every launch count
    set to 0 just before and read just after: config 1 (the README example,
    10 chains, per-chain DAT files), run as the README writes it, with no
@@ -38,7 +48,8 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
    acceptance callbacks, chain-major BIN trajectories), config 4 (2-D LJ,
    256 chains x N 256, displacement, energy per particle + acceptance) and
    the config-5 pool of ``examples/lj_2d.py`` without PGMC (64 chains x
-   N 1024, displacement + swap, callbacks and ``StoreLastFrames``) and the
+   N 1024, displacement + swap, callbacks and ``StoreLastFrames``), in both
+   one LJ energy launch a refresh and one for ``init_chains``, and the
    polydisperse swap-MC path (``tools/bench_lj.py``'s poly configuration:
    64 chains x N 256, rho 0.9, beta 2, displacement + diameter swap, 100
    sweeps, with ``examples/swap_mc_glass.py``'s recorders), with physics
@@ -209,7 +220,9 @@ phase 10c's segments, kernel #2's phase 10d's MH runs; the threefry row's
 ``launches`` are phase 13b's, 13d's and 14c's, its times at the generic
 path's shape of one uniform for each of 10^4 chains; the
 ``threefry_split_uniform`` row is the kernel's new mode, its launches 14c's,
-its times at the LJ event loop's shape), and as the last line
+its times at the LJ event loop's shape; the ``lj_total_energy`` row's
+``launches`` are phase 5's two LJ main paths', its times phase 4c's at 64
+x N 1024), and as the last line
 ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero without the last
 line.
@@ -217,7 +230,7 @@ line.
 Usage: python3 chip_smoke.py [--parent CSRC_DIR] [--parent-tree TREE]
 [--kernels-only] [--cell-only] [--npt-only] [--mesh-only] [--ecmc-only]
 [--lattice-only] [--spins-only] [--streams-only] [--samplers-only]
-[--nccl-pair]
+[--energy-only] [--nccl-pair]
 
 ``--parent CSRC_DIR`` names a directory with an earlier version of
 ``fused_sweep.cu``, ``lj_sweep.cu`` and ``poly_sweep.cu`` (and their
@@ -232,7 +245,8 @@ order).  ``--kernels-only`` stops after phase 4b (and the comparison with
 ``--parent``); ``--cell-only`` runs phase 7 alone after the build,
 ``--npt-only`` phase 8, ``--mesh-only`` phase 9, ``--ecmc-only`` phase
 10, ``--lattice-only`` phase 11, ``--spins-only`` phase 12,
-``--streams-only`` phase 13, ``--samplers-only`` phase 14.
+``--streams-only`` phase 13, ``--samplers-only`` phase 14,
+``--energy-only`` phase 4c.
 ``--parent-tree TREE`` names a checkout of an earlier commit (``git
 archive``) whose generic path (13b) and keyed samplers (14c) are timed
 beside this one's.
@@ -423,6 +437,24 @@ LJ_INSTR_PER_TERM = (57, 44)      # loops of 455 and 352 for 8 terms
 LJ_INSTR_PER_PICK = 48            # a swap-pick uniform a slot: 191 for 4 slots
 POLY_INSTR_PER_TERM = (52, 43)    # loops of 419 for 8 and 687 for 16 terms
 INSTR_PER_STEP_DRAWS = 300        # kind, pick, Box-Muller, log u: once a step
+# The 2-D LJ energy (csrc/lj_energy.cu) counted from the function's own
+# operations, not the compiled loop: a pair term is two differences, two
+# minimum images (a multiply, a rounding, a multiply, a subtraction each),
+# r2 (two multiplies, an add), the species compare and the cutoff test; a
+# term inside the cutoff adds a max, a division, four multiplies, two
+# subtractions and the add.
+LJ_ENERGY_OPS_PER_TERM = 15
+LJ_ENERGY_OPS_INSIDE = 9
+# phase 4c: (label, M, N); the ka2d cell's mixture at rho 1.2, A65 B35
+LJ_ENERGY_CASES = (
+    ("the ka2d cell's shape", 64, 1024),
+    ("two column passes, N no multiple of 128", 4, 4648),
+    ("one column past a pass", 2, 2049),
+    ("N no multiple of 32", 2, 1000),
+    ("N < 32", 3, 20),
+    ("N 2", 1, 2),
+)
+LJ_ENERGY_RTOL = 1e-5     # against the float64 energy, a chain
 
 
 def bound(n_bytes, operations):
@@ -699,6 +731,14 @@ def lj_call(st, n_steps, mixed, t0=LJ_T0, interpret=False, block_chains=256,
     return pos, st.species, e, acc, None
 
 
+def plain_energy(mod, params, st):
+    """The O(N^2) energy of every chain by the model's plain torch ops
+    (``_energies``: 256 rows a pass, ~1.7e7 pair terms a chain batch): the
+    gates' recompute, which never runs the LJ energy kernel that the LJ
+    refresh runs on the card."""
+    return mod._energies(st, params, 256, 2 ** 24)
+
+
 def lj_cache_check(st, out, what):
     """The kernel's cached energies against an O(N^2) recompute, positions
     in [0, box), species composition conserved."""
@@ -706,7 +746,7 @@ def lj_cache_check(st, out, what):
     from montecarlo_tpu_torch.models import lennard_jones as lj
     pos, spc, e = out[:3]
     new = dataclasses.replace(st, pos=pos, species=spc, energy=e)
-    full = lj.make_system().refresh(new).energy
+    full = plain_energy(lj, lj.LJParams(), new)
     err = float(((e - full).abs()
                  - LJ_CACHE["rtol"] * full.abs()).max())
     box = float(st.box[0])
@@ -816,6 +856,104 @@ def lj_segmentation(device):
               f"M={m} N={n}: one call of {LJ_STEPS} steps vs "
               f"{'+'.join(map(str, parts))}: bit-equal {ok}")
         check(ok, "segmented LJ sweep differs from one sweep")
+
+
+def lj_dense(m, n, device, seed):
+    """Chains of the ka2d cell's mixture (rho 1.2, A65 B35, T 0.45), moved
+    off the lattice by one mixed sweep of the particles."""
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.ops.lj_sweep import fused_lj_mixed_sweep
+    st = lj.init_chains(m, n, 1.2, 1 / 0.45, frac_b=0.35, seed=seed,
+                        device=device)
+    pos, spc, e, _, _ = fused_lj_mixed_sweep(
+        st.pos, st.species, st.beta, st.energy, float(st.box[0]), 0.08, 0.8,
+        seed, 0, n, params=lj.LJParams())
+    return dataclasses.replace(st, pos=pos, species=spc, energy=e)
+
+
+def lj_pairs_inside(st, params, rows=64):
+    """Ordered pairs ``i != j`` within their pair's cutoff ``rcut sig``
+    (the terms that add more than the geometry), summed over the chains."""
+    import torch
+    pos, spc, box = st.pos, st.species, st.box
+    n = pos.shape[1]
+    cols = torch.arange(n, device=pos.device)
+    inside = 0
+    for start in range(0, n, rows):
+        idx = cols[start:start + rows]
+        d = pos[:, None, :, :] - pos[:, idx, None, :]
+        b = box[:, None, None, None]
+        d = d - b * torch.round(d / b)
+        r2 = torch.sum(d * d, dim=-1)
+        _, sig = params.coeffs(spc[:, idx, None], spc[:, None, :])
+        near = (r2 < (params.rcut * sig) ** 2) & (idx[:, None] != cols)
+        inside += int(near.sum())
+    return inside
+
+
+def lj_energy_vs_plain(device, card):
+    """Phase 4c.  The LJ energy kernel (``ops/lj_energy.py``) on the card
+    against the plain ``total_energy`` at each of LJ_ENERGY_CASES: within
+    LJ_ENERGY_RTOL of the float64 energy a chain, bit-equal from call to
+    call and for a chain called alone, one launch a call; at the ka2d
+    cell's shape timed beside the plain float32 ``total_energy`` at 64
+    rows a pass (the refresh's plain path) and beside its bound by
+    operations.  Returns the kernels row's figures."""
+    import torch
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.ops.lj_energy import (LJ_ENERGY_KERNEL,
+                                                    lj_total_energy)
+    params = lj.LJParams()
+    out = {"err": 0.0, "rel64": 0.0}
+    for label, m, n in LJ_ENERGY_CASES:
+        st = lj_dense(m, n, device, seed=SEED + m + n)
+        before = LJ_ENERGY_KERNEL.launches
+        got = lj_total_energy(st.pos, st.species, st.box, params)
+        check(LJ_ENERGY_KERNEL.launches == before + 1,
+              f"4c {label}: {LJ_ENERGY_KERNEL.launches - before} launches "
+              f"for one call")
+        wide = dataclasses.replace(st, pos=st.pos.double(),
+                                   box=st.box.double())
+        want = plain_energy(lj, params, wide)
+        plain = plain_energy(lj, params, st)
+        rel = float(((got.double() - want).abs() / want.abs()).max())
+        err = float((got - plain).abs().max())
+        again = lj_total_energy(st.pos, st.species, st.box, params)
+        alone = lj_total_energy(st.pos[-1:], st.species[-1:], st.box[-1:],
+                                params)
+        print(f"4c: lj_total_energy {label} (M {m}, N {n}): max relative "
+              f"gap to the float64 energy {rel!r}, max |kernel - plain "
+              f"float32| {err!r}, energy per particle "
+              f"{float(got.mean()) / n!r}")
+        check(bool(torch.isfinite(got).all()) and rel <= LJ_ENERGY_RTOL,
+              f"4c {label}: {rel} off the float64 energy")
+        check(torch.equal(again, got) and torch.equal(alone, got[-1:]),
+              f"4c {label}: the kernel's bits moved between calls")
+        out["err"] = max(out["err"], err)
+        out["rel64"] = max(out["rel64"], rel)
+        if (m, n) == LJ_ENERGY_CASES[0][1:]:
+            pairs = m * n * (n - 1)
+            inside = lj_pairs_inside(st, params)
+            k_ms = cuda_time(
+                lambda: lj_total_energy(st.pos, st.species, st.box, params),
+                50)
+            p_ms = cuda_time(
+                lambda: lj.total_energy(st, params, row_batch=64), 5)
+            b_ms, by = bound(m * (12 * n + 8),
+                             pairs * LJ_ENERGY_OPS_PER_TERM
+                             + inside * LJ_ENERGY_OPS_INSIDE)
+            out.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                       shape=[m, n])
+            print(f"bound: lj_total_energy at M {m} x N {n}: {pairs} pair "
+                  f"terms, {inside} inside the cutoff "
+                  f"({100 * inside / pairs!r} %); {k_ms!r} ms a call against "
+                  f"a bound of {b_ms!r} ms (by {by}, "
+                  f"{LJ_ENERGY_OPS_PER_TERM} operations a term and "
+                  f"{LJ_ENERGY_OPS_INSIDE} more inside, at "
+                  f"{LANE_INSTR_PER_S!r} a second): {100 * b_ms / k_ms!r} % "
+                  f"of the bound's rate; plain total_energy (row_batch 64) "
+                  f"{p_ms!r} ms [{card}]")
+    return out
 
 
 def lj_main(tmc, device, path, cfg, mixed):
@@ -1415,7 +1553,7 @@ def pgmc5_checks(sim, path, wall, wall_plain, card):
     per_chain = cnt[..., 1].sum(1)
     tot = cnt.sum(0).double()
     rates = (tot[:, 0] / tot[:, 1]).tolist()
-    full = lj.make_system().refresh(st).energy
+    full = plain_energy(lj, lj.LJParams(), st)
     err = float(((st.energy - full).abs() - LJ_CACHE["rtol"] * full.abs())
                 .max())
     e = np.loadtxt(os.path.join(path, "energy_per_particle.dat"))
@@ -1620,8 +1758,10 @@ def pgmc_pool_checks(sim, kind, path, wall, card):
     cnt = sim.device_state["metropolis"]["counters"]
     tot = cnt.sum(0).double()
     rates = (tot[:, 0] / tot[:, 1]).tolist()
-    model, bounds = (poly, POLY_CACHE) if kind == "poly" else (lj, LJ_CACHE)
-    full = model.make_system().refresh(st).energy
+    model, params, bounds = ((poly, poly.PolyParams(), POLY_CACHE)
+                             if kind == "poly"
+                             else (lj, lj.LJParams(), LJ_CACHE))
+    full = plain_energy(model, params, st)
     err = float(((st.energy - full).abs() - bounds["rtol"] * full.abs())
                 .max())
     moves = m * n * sweeps
@@ -3113,14 +3253,15 @@ def mesh_cache_checks(root, device):
     import torch
     from montecarlo_tpu_torch.models import lennard_jones as lj
     from montecarlo_tpu_torch.models import polydisperse as poly
-    for name, mod, cls, cache, cfg in (
-            ("config4", lj, lj.LJState, LJ_CACHE, CONFIG4),
-            ("pgmc5", lj, lj.LJState, LJ_CACHE, PGMC5),
-            ("poly", poly, poly.PolyState, POLY_CACHE, POLY)):
+    for name, mod, params, cls, cache, cfg in (
+            ("config4", lj, lj.LJParams(), lj.LJState, LJ_CACHE, CONFIG4),
+            ("pgmc5", lj, lj.LJParams(), lj.LJState, LJ_CACHE, PGMC5),
+            ("poly", poly, poly.PolyParams(), poly.PolyState, POLY_CACHE,
+             POLY)):
         whole = _load(root, 0, name + "_whole")
         st = cls(**{k.split("/", 1)[1]: torch.as_tensor(v, device=device)
                     for k, v in whole.items() if k.startswith("sys/")})
-        full = mod.make_system().refresh(st).energy
+        full = plain_energy(mod, params, st)
         err = float(((st.energy - full).abs()
                      - cache["rtol"] * full.abs()).max())
         att = whole["metropolis/counters"][..., 1].sum(1)
@@ -5077,6 +5218,9 @@ def main():
     parser.add_argument("--samplers-only", action="store_true",
                         help="after the build, run only phase 14 (every "
                              "sampler on per-chain keys)")
+    parser.add_argument("--energy-only", action="store_true",
+                        help="after the build, run only phase 4c (the LJ "
+                             "energy kernel)")
     parser.add_argument("--parent-tree", metavar="TREE", default=None,
                         help="a checkout of an earlier commit whose generic "
                              "path (phase 13b) and keyed samplers (14c) are "
@@ -5134,6 +5278,7 @@ def main():
     from montecarlo_tpu_torch.core.simulation import _select_advance
     from montecarlo_tpu_torch.models import particle1d as p1d
     from montecarlo_tpu_torch.ops.fused_sweep import SWEEP_KERNEL
+    from montecarlo_tpu_torch.ops.lj_energy import LJ_ENERGY_KERNEL
     from montecarlo_tpu_torch.ops.lj_sweep import LJ_KERNEL, LJ_MIXED_KERNEL
     from montecarlo_tpu_torch.ops.poly_sweep import POLY_KERNEL
     from montecarlo_tpu_torch.ops.threefry import THREEFRY_KERNEL
@@ -5155,11 +5300,11 @@ def main():
 
     # 2. build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         list(pool.map(lambda k: k.build(),
                       (SWEEP_KERNEL, LJ_KERNEL, POLY_KERNEL,
-                       THREEFRY_KERNEL)))
-    for k in kernels + (THREEFRY_KERNEL,):
+                       THREEFRY_KERNEL, LJ_ENERGY_KERNEL)))
+    for k in kernels + (THREEFRY_KERNEL, LJ_ENERGY_KERNEL):
         k.build()
         print(f"build: {k.symbol} from {k.library_path()} "
               f"(nvcc wall {k.build_seconds!r} s)")
@@ -5200,6 +5345,10 @@ def main():
     if opts.nccl_pair:
         nccl_pair(card)
         return 0
+    if opts.energy_only:
+        lj_energy_vs_plain(device, card)
+        print("chip_smoke: --energy-only: stopping after phase 4c")
+        return 0
 
     parent = None
     if opts.parent is not None:
@@ -5222,6 +5371,9 @@ def main():
     poly_err = poly_kernel_vs_plain(device, parent)
     poly_segmentation(device)
 
+    # 4c. the LJ energy kernel against the plain O(N^2) energy
+    energy = lj_energy_vs_plain(device, card)
+
     if parent is not None:
         earlier_vs_present(parent, device, card)
     if opts.kernels_only:
@@ -5230,7 +5382,7 @@ def main():
 
     # 5. the main paths; each reads only its own launches
     def zero_counts():
-        for k in kernels:
+        for k in kernels + (LJ_ENERGY_KERNEL,):
             k.launches = 0
 
     launches, walls = {}, {}
@@ -5257,6 +5409,17 @@ def main():
                   f"launches {counts}")
             check(kernel.launches > 0, f"the main path did not launch {name}")
             launches[name] = kernel.launches
+            # init_chains' energies, then one launch a refresh
+            n_energy = sim.counters.launches.get(LJ_ENERGY_KERNEL.symbol)
+            print(f"main path: {LJ_ENERGY_KERNEL.symbol} launched "
+                  f"{LJ_ENERGY_KERNEL.launches} times, {n_energy} in the run "
+                  f"of {sim.counters.periods} refreshes")
+            check(n_energy == sim.counters.periods > 0
+                  and LJ_ENERGY_KERNEL.launches == n_energy + 1,
+                  f"{name}: {LJ_ENERGY_KERNEL.launches} energy launches, "
+                  f"{n_energy} in the run, {sim.counters.periods} refreshes")
+            launches["lj_total_energy"] = (launches.get("lj_total_energy", 0)
+                                           + LJ_ENERGY_KERNEL.launches)
             walls[name] = (wall, kernel.launches)
             lj_main_checks(sim, device, path, cfg, mixed, wall)
         path = os.path.join(tmp, "poly")
@@ -5468,6 +5631,17 @@ def main():
         "shape": list(SPLIT_UNIFORM["loop"]),
         "entry_points": ["threefry(mode='split_uniform')",
                          "prng.split_uniform"]})
+    rows.append({
+        "name": "lj_total_energy", "route": "cuda",
+        "source": "montecarlo_tpu_torch/csrc/lj_energy.cu",
+        "replaces": "montecarlo_tpu/models/lennard_jones.py:115 (jnp "
+                    "total_energy, fused by XLA; no Pallas kernel)",
+        "launches": launches["lj_total_energy"],
+        "max_abs_err": energy["err"], "max_rel_err_float64": energy["rel64"],
+        "ms": energy["ms"], "plain_ms": energy["plain_ms"],
+        "bound_ms": energy["bound_ms"], "bound_by": energy["bound_by"],
+        "library_ms": None, "shape": energy["shape"],
+        "entry_points": ["lj_total_energy", "lennard_jones._lj_energies"]})
     print(f"bound: threefry split_uniform at the LJ event loop's shape "
           f"({SPLIT_UNIFORM['loop'][0]} keys x {SPLIT_UNIFORM['loop'][1]}): "
           f"{samplers['ms']!r} ms a launch against a bound of "

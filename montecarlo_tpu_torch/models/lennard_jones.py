@@ -26,6 +26,7 @@ from ..core.ecmc import (CHECK_EVERY, EventChainModel, StraightChain,
                          run_chain, squared_norm)
 from ..core.moves import Move, MoveDef, Policy
 from ..core.system import SystemDef
+from ..ops.lj_energy import lj_total_energy
 from ..utils import prng
 from ..utils.device import resolve_device
 
@@ -164,6 +165,17 @@ def _energies(state, params, row_batch, pair_budget, total=total_energy):
         for s in range(0, m, batch)])
 
 
+def _lj_energies(state, params, row_batch, pair_budget):
+    """:func:`total_energy` of every chain.  A 2-D float32 state on the card
+    takes the CUDA kernel (``ops/lj_energy.py``): every chain in one call,
+    with no pair tensors, so neither bound applies; any other state takes
+    :func:`_energies`."""
+    pos = state.pos
+    if pos.is_cuda and pos.dtype == torch.float32 and pos.shape[-1] == 2:
+        return lj_total_energy(pos, state.species, state.box, params)
+    return _energies(state, params, row_batch, pair_budget)
+
+
 def make_system(params: LJParams = LJParams()) -> SystemDef:
     def log_target(state: LJState):
         return -state.beta * state.energy
@@ -182,12 +194,13 @@ def make_system(params: LJParams = LJParams()) -> SystemDef:
         return "\n".join(lines)
 
     def refresh(state: LJState):
-        # revalidate the incremental-ΔE energy cache (float drift bound);
-        # row- and chain-batched so many chains at large N stay bounded
+        # revalidate the incremental-ΔE energy cache (float drift bound); off
+        # the kernel's path row- and chain-batched so many chains at large N
+        # stay bounded
         n = state.pos.shape[-2]
         rb = None if n <= 256 else 64
         return dataclasses.replace(
-            state, energy=_energies(state, params, rb, 2 ** 24))
+            state, energy=_lj_energies(state, params, rb, 2 ** 24))
 
     return SystemDef(name="LennardJones2D", log_target=log_target,
                      frame=frame, format_frame=format_frame,
@@ -253,7 +266,8 @@ def init_chains(n_chains: int, n_particles: int, rho: float, beta: float,
         box=torch.full((n_chains,), box, dtype=torch.float32, device=device),
     )
     return dataclasses.replace(
-        state, energy=_energies(state, params, *_full_batching(n_particles)))
+        state, energy=_lj_energies(state, params,
+                                   *_full_batching(n_particles)))
 
 
 # ---------------------------------------------------------------------------
@@ -480,9 +494,9 @@ class UniformLogVolume(Policy):
         return (-torch.log(2.0 * params["dlnv"])).expand(action.shape)
 
 
-def _volume_move(name, kind, total, dlnv, pressure, weight, params):
-    """An isotropic ln-V move whose full energy is ``total(state, params,
-    row_batch)``: the box edge and every position scale by
+def _volume_move(name, kind, energies, dlnv, pressure, weight, params):
+    """An isotropic ln-V move whose full energy is ``energies(state, params,
+    row_batch, pair_budget)``: the box edge and every position scale by
     ``exp(delta / dim)``, the energy is recomputed in full (O(N^2): volume
     moves are scheduled rarely), and
 
@@ -496,7 +510,7 @@ def _volume_move(name, kind, total, dlnv, pressure, weight, params):
         scale = torch.exp(delta / dim)
         new = dataclasses.replace(state, pos=state.pos * scale[:, None, None],
                                   box=state.box * scale)
-        e_new = _energies(new, params, *_full_batching(n), total=total)
+        e_new = energies(new, params, *_full_batching(n))
         d_e = e_new - state.energy
         d_v = state.box ** dim * (torch.exp(delta) - 1.0)
         dlogp = -state.beta * (d_e + pressure * d_v) + (n + 1) * delta
@@ -521,7 +535,7 @@ def lj_volume_move(dlnv: float, pressure: float, weight: float = 1.0,
     """Isotropic volume-scaling move: the NPT ensemble (``_volume_move``).
     In the ideal-gas limit (eps = 0) ``<V> = (N + 1) / (beta P)``
     exactly."""
-    return _volume_move("LJVolume", "lj_volume", total_energy, dlnv,
+    return _volume_move("LJVolume", "lj_volume", _lj_energies, dlnv,
                         pressure, weight, params)
 
 

@@ -322,7 +322,7 @@ def volume_move(dlnv: float, pressure: float, weight: float = 1.0,
                 params: PolyParams = PolyParams()) -> Move:
     """Isotropic ln-V volume move: NPT swap MC, the constant-pressure glass
     protocol, with the acceptance of ``lennard_jones.lj_volume_move``."""
-    return _lj._volume_move("PolyVolume", "poly_volume", total_energy, dlnv,
+    return _lj._volume_move("PolyVolume", "poly_volume", _energies, dlnv,
                             pressure, weight, params)
 
 

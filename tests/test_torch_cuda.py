@@ -6,7 +6,9 @@ the machine has no JAX, without the repository's conftest):
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
 Tolerance: the Gaussian sweep atol 1e-5 on x and e and equal accept counts;
-the LJ and polydisperse sweeps and every threefry mode bit for bit; the
+the LJ and polydisperse sweeps and every threefry mode bit for bit; the LJ
+energy kernel within 1e-5 relative of the float64 energy (float32 pair
+terms, summed in another order), and bit for bit from call to call; the
 keyed samplers' card runs against the CPU's within 1e-5, counters equal.
 Each kernel and its plain version use the same CUDA math functions and,
 for the particle rows, the same summation order.
@@ -29,6 +31,8 @@ from montecarlo_tpu_torch.ops.lj_sweep import (LJ_KERNEL, LJ_MIXED_KERNEL,
                                                MAX_PARTICLES,
                                                fused_lj_mixed_sweep,
                                                fused_lj_sweep)
+from montecarlo_tpu_torch.ops.lj_energy import (COLUMN_TILE, LJ_ENERGY_KERNEL,
+                                                lj_total_energy)
 from montecarlo_tpu_torch.ops.poly_sweep import (POLY_KERNEL,
                                                  fused_poly_mixed_sweep,
                                                  poly_block_warps)
@@ -243,6 +247,85 @@ def test_simulation_runs_through_lj_kernels(cuda, mixed, tmp_path):
     acc = np.loadtxt(tmp_path / "acceptance.dat")
     assert 0.05 < acc[-1, 1] < 0.98
     assert (tmp_path / "trajectories" / "32" / "lastframe.dat").exists()
+
+
+# -- the 2-D LJ energy kernel (the cache refresh) ------------------------------------
+
+def _lj_dense(m, n, device, seed):
+    """Chains of the ka2d cell's mixture at rho 1.2, A65 B35, moved off the
+    lattice by one mixed sweep of the particles."""
+    st = lj.init_chains(m, n, 1.2, 1 / 0.45, frac_b=0.35, seed=seed,
+                        device=device)
+    pos, spc, e, _, _ = fused_lj_mixed_sweep(
+        st.pos, st.species, st.beta, st.energy, float(st.box[0]), 0.08, 0.8,
+        seed, 0, n, params=lj.LJParams())
+    return dataclasses.replace(st, pos=pos, species=spc, energy=e)
+
+
+def _energy64(st):
+    wide = dataclasses.replace(st, pos=st.pos.double(), box=st.box.double())
+    return lj.total_energy(wide, lj.LJParams(), row_batch=256)
+
+
+@pytest.mark.parametrize("m,n", [(64, 1024), (1, 2), (3, 20), (2, 1000),
+                                 (4, 4648), (2, COLUMN_TILE + 1)])
+def test_lj_energy_kernel_matches_float64(cuda, m, n):
+    """Within 1e-5 relative per particle of the float64 O(N^2) energy; two
+    calls give the same bits, and a chain's energy is the same in any
+    batch.  N 4648 and COLUMN_TILE + 1 take two passes over the columns."""
+    st = _lj_dense(m, n, cuda, seed=m + n)
+    before = LJ_ENERGY_KERNEL.launches
+    got = lj._lj_energies(st, lj.LJParams(), None, 2 ** 24)
+    assert LJ_ENERGY_KERNEL.launches == before + 1
+    assert got.is_cuda and got.dtype == torch.float32 and got.shape == (m,)
+    want = _energy64(st)
+    gap = torch.abs(got.double() - want) / n
+    assert torch.all(gap <= 1e-5 * torch.abs(want) / n), (gap, want / n)
+    again = lj_total_energy(st.pos, st.species, st.box, lj.LJParams())
+    assert torch.equal(again, got)
+    one = lj_total_energy(st.pos[-1:], st.species[-1:], st.box[-1:],
+                          lj.LJParams())
+    assert torch.equal(one, got[-1:])
+
+
+def test_lj_energy_kernel_raises_instead_of_falling_back(cuda):
+    st = _lj(4, 32, cuda)
+    p = lj.LJParams()
+    with pytest.raises(TypeError):
+        lj._lj_energies(dataclasses.replace(st, species=st.species.long()),
+                        p, None, 2 ** 24)
+    with pytest.raises(ValueError):
+        lj_total_energy(st.pos, st.species, st.box.cpu(), p)
+
+
+def test_simulation_refreshes_through_the_lj_energy_kernel(cuda, tmp_path):
+    """One kernel call a refresh, in ``sim.counters`` and ``summary.log``;
+    the refreshed cache within 1e-5 relative of the float64 energy."""
+    system = lj.make_system()
+    calls = []
+
+    def refresh(state):
+        calls.append(state.pos.shape)
+        return system.refresh(state)
+
+    pool = (lj.lj_displacement_move(0.1, weight=0.8),
+            lj.lj_swap_move(weight=0.2))
+    sched = np.arange(2, 21, 2)
+    sim = tmc.Simulation(dataclasses.replace(system, refresh=refresh),
+                         _lj(32, 64, cuda), [
+        dict(algorithm=tmc.Metropolis, pool=pool, sweepstep=64, seed=3),
+        dict(algorithm=tmc.StoreCallbacks,
+             callbacks=(lj.callback_energy_per_particle,), scheduler=sched),
+    ], 20, path=str(tmp_path))
+    sim.run()
+    assert len(calls) == len(sched)
+    assert sim.counters.launches["mc_lj_energy"] == len(calls)
+    assert f"mc_lj_energy {len(calls)}" in (
+        tmp_path / "summary.log").read_text()
+    final = sim.device_state["sys"]
+    want = _energy64(final)
+    assert torch.all(torch.abs(final.energy.double() - want)
+                     <= 1e-5 * torch.abs(want))
 
 
 def _poly(m, n, device, seed=0):
