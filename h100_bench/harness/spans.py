@@ -144,3 +144,16 @@ def readings(summary, counters, periods, window_s):
         unspanned_us=((window_s - summary["top_s"]) / periods * 1e6
                       if s else None),
         host_syncs_per_period=None if syncs is None else syncs / periods)
+
+
+def reading(ctx, key):
+    """One key of :func:`readings` for a per-layer metric's reader, from
+    the traced run's ``ctx`` (``spans``: :func:`summarize` of its events,
+    ``program_counters``: the program's ``Simulation.counters`` as a
+    dict): None where the trace holds no span of the program or the
+    program keeps no counters, as a program from before them."""
+    summary, counters = ctx.get("spans"), ctx.get("program_counters")
+    if not summary or not summary["spans"] or counters is None:
+        return None
+    return readings(summary, counters, ctx["periods"],
+                    ctx["trace"]["window_s"])[key]

@@ -20,6 +20,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import dataclasses  # noqa: E402
 import hashlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -33,7 +34,7 @@ ROOT = os.path.dirname(HERE)
 sys.path.insert(0, ROOT)
 sys.path.insert(0, HERE)
 
-from harness import cell, guard, spec  # noqa: E402
+from harness import cell, guard, spans, spec  # noqa: E402
 from harness import trace as tracing  # noqa: E402
 
 #: build and kernel caches at fixed paths inside the checkout
@@ -154,6 +155,10 @@ def run_cell(name, seed, seconds, trace, *, device=None, fused="auto",
             pre_refresh=(_numpy_tree(tap.pre_refresh)
                          if tap.pre_refresh is not None else None))
         refresh_ms = tap.refresh_ms() if tap.timing else []
+        # the traced run's readers take the program's own counters; None
+        # where the program keeps none
+        program_counters = (dataclasses.asdict(sim.counters)
+                            if trace and hasattr(sim, "counters") else None)
         del sim, fin, made, tap
         if on_card:
             torch.cuda.empty_cache()
@@ -187,12 +192,17 @@ def run_cell(name, seed, seconds, trace, *, device=None, fused="auto",
                                       "unit": m["unit"]}
         else:
             summary = tracing.summarize(events, wall)
+            program_spans = spans.summarize(events)
             del events
             result["device"].update(busy_s=summary["busy_s"],
                                     window_s=summary["window_s"])
             result["breakdown"] = summary["breakdown"]
+            result["program"] = dict(spans=program_spans,
+                                     counters=program_counters)
             ctx = dict(trace=summary, periods=periods, wl=wl, cfg=cfg,
                        counters=final["counters"], refresh_ms=refresh_ms,
+                       spans=program_spans,
+                       program_counters=program_counters,
                        count=lambda k: spec.module("counts", k))
             for m in spec.metrics_of(bench, name, "per_layer"):
                 value = spec.module("layer_metrics", m["name"]).read(ctx)

@@ -28,16 +28,17 @@ def test_a_run_loads_neither_jax_nor_the_jax_package():
     # a fresh process: drive one small cell of each configuration and
     # every per-layer reader, then list what it holds
     code = f"""
-import json, sys
+import json, os, sys
 sys.path[:0] = [{HERE!r}, {ROOT!r}, {os.path.join(HERE, 'tests')!r}]
 import bench_helpers
 from harness import spec
-for cell in bench_helpers.SMALL:
-    bench_helpers.run_small(cell)
+for w in spec.benchmark()["workloads"]:
+    bench_helpers.run_small(w["name"])
 for m in spec.benchmark()["per_layer"]:
     spec.module("layer_metrics", m["name"])
-for k in ("gaussian_sweep", "lj_mixed_sweep"):
-    spec.module("counts", k)
+for f in os.listdir(os.path.join({HERE!r}, "counts")):
+    if f.endswith(".py"):
+        spec.module("counts", f[:-3])
 print(json.dumps(sorted(sys.modules)))
 """
     env = dict(os.environ, OMP_NUM_THREADS="1")

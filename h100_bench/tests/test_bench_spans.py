@@ -3,10 +3,13 @@ time, the partition of the window into top-level spans and the Python
 outside them, kernels' device time put down to the span their launch was
 made in by the profiler's correlation id, and the device's idle stretches
 named by the top-level span the host was in; then on a real CPU trace of
-the program's spans, and ``trace_spans.py`` on a small cell on the CPU."""
+the program's spans, and ``trace_spans.py`` on a small cell on the CPU
+and in a process that holds JAX."""
 
 import json
+import sys
 import time
+import types
 from types import SimpleNamespace
 
 import pytest
@@ -122,11 +125,12 @@ def test_trace_spans_reports_a_small_cell(monkeypatch, capsys):
     """The tool's line for a few periods of ``harmonic1d.fine`` on the CPU
     (the row kernel's plain version): the spans, the counters and the
     readings that the CPU can give (no device rows: no idle gaps)."""
-    overrides, periods = SMALL["harmonic1d.fine"]
+    s = SMALL["harmonic1d.fine"]
+    periods = s["periods"]
     real = run.run_cell
     monkeypatch.setattr(run, "run_cell", lambda name, seed, seconds, trace:
                         real(name, seed, seconds, trace, device="cpu",
-                             fused="interpret", overrides=overrides,
+                             fused=s["fused"], overrides=s["overrides"],
                              periods=periods, t_start=time.perf_counter()))
     assert trace_spans.main(["--workload", "harmonic1d.fine", "--seed",
                              str(2 ** 40 + 3), "--seconds", "1"]) == 0
@@ -141,3 +145,17 @@ def test_trace_spans_reports_a_small_cell(monkeypatch, capsys):
     assert r["refresh_device_ms"] is None          # no refresh, no card
     assert 0 <= r["unspanned_us"] * periods * 1e-6 < line["wall"]
     assert line["idle_gaps"] == []
+
+
+@pytest.mark.parametrize("name", ["jax", "jaxlib.xla_client", "flax",
+                                  "montecarlo_tpu.core"])
+def test_trace_spans_gives_no_line_where_jax_is_loaded(name, monkeypatch,
+                                                        capsys):
+    """As ``run.py``: a process that holds JAX or the JAX package once the
+    window has closed prints no line, exits non-zero and names it."""
+    monkeypatch.setattr(run, "run_cell", lambda *a, **kw: {})
+    monkeypatch.setitem(sys.modules, name, types.ModuleType(name))
+    assert trace_spans.main(["--workload", "harmonic1d.fine", "--seed",
+                             "1", "--seconds", "1"]) != 0
+    out = capsys.readouterr()
+    assert out.out == "" and name in out.err

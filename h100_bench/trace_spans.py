@@ -11,13 +11,15 @@ output is one JSON object: the run's per-layer metrics, ``correct`` and
 seconds (``harness/spans.py``), the ten longest idle stretches of the
 card named by the top-level span the host was in, the program's counters
 (``Simulation.counters``) and the per-period readings of
-``spans.readings``.  A program without spans or counters gives empty
-ones."""
+``spans.readings``, the same numbers as the run's per-layer metrics
+that read them.  A program without spans gives empty ones; one without
+counters, none.  As ``run.py``, it prints no line and exits non-zero
+where no card is found or where the process holds JAX or the JAX
+package once the window has closed."""
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import sys
@@ -26,7 +28,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 import run  # noqa: E402
-from harness import cell, spans, spec  # noqa: E402
+from harness import guard, spans, spec  # noqa: E402
 
 
 def main(argv=None):
@@ -35,21 +37,19 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     args = ap.parse_args(argv)
-    kept = {}
-    window = cell.window
-
-    def keep(sim, device, trace):
-        wall, events, caught = window(sim, device, trace)
-        c = getattr(sim, "counters", None)
-        kept.update(events=events, counters=None if c is None
-                    else dataclasses.asdict(c))
-        return wall, events, caught
-
-    cell.window = keep
-    result = run.run_cell(args.workload, args.seed, args.seconds, 1)
+    try:
+        result = run.run_cell(args.workload, args.seed, args.seconds, 1)
+    except run.NoCard as e:
+        print(f"trace_spans: {e}; no result", file=sys.stderr)
+        return 2
+    bad = guard.forbidden_loaded(sys.modules)
+    if bad:
+        print(f"trace_spans: the process holds {bad}; no result",
+              file=sys.stderr)
+        return 3
     limits = spec.workload(args.workload).get("limits", {})
     correct, _, _ = run.judge(result, limits)
-    summary = spans.summarize(kept.pop("events"))
+    summary, counters = (result["program"][k] for k in ("spans", "counters"))
     line = dict(
         workload=args.workload, seed=args.seed, correct=correct,
         periods=result["periods"], wall=result["wall"],
@@ -57,9 +57,9 @@ def main(argv=None):
         device=result["device"], breakdown=result["breakdown"],
         spans=summary["spans"], top_s=summary["top_s"],
         top_sum_s=summary["top_sum_s"], idle_gaps=summary["idle_gaps"],
-        counters=kept["counters"],
-        readings=spans.readings(summary, kept["counters"],
-                                result["periods"], result["wall"]))
+        counters=counters,
+        readings=spans.readings(summary, counters, result["periods"],
+                                result["wall"]))
     print(json.dumps(line))
     return 0
 
