@@ -39,6 +39,38 @@ the segment's threefry key as the reference does (``utils/prng.py``), so a
 segment gives the JAX package's numbers from the same key; a test can
 feed any other draws.
 
+**Sum order.**  Three sums decide what a segment computes: a move's energy
+over its 3^dim neighbourhood (the pair terms against every slot, about
+``9 cap`` of them in 2-D), a chain's accepted energy changes over its
+active cells in a substep, and the all-cells total energy of a volume
+substep.  Each takes its float32 terms, accumulates them in float64
+(:data:`ACCUMULATE`) in whatever order the device reduces, and rounds the
+sum to float32 once.  An addition is exact while the term's lowest bit
+lies within the partial sum's 53 significant bits (a term below about
+2^-29 of the partial sum loses bits), so a sum of ``n`` terms is exact in every order while the
+terms span less than about 2^(29 - log2 n) in magnitude: 2^21 for a 2-D
+neighbourhood's 288.  Past that (LJ terms just inside the cutoff, beside a
+close contact) the float64 sums of two orders may differ in their last
+bits, and the float32 results then differ only where the sum lies within
+that difference of a float32 rounding midpoint.  So the float32 bits that
+decide a move, and each chain's energy, do not depend on the reduction's
+order but with that small chance, and an independent replay that sums the
+same terms in float64 and rounds once reproduces the path bit for bit.
+The reference's float32 sums follow XLA's order, so against the JAX package
+energies agree to float32 rounding, not bit for bit.
+
+A displacement substep evaluates its pair terms at the new and the old
+position in one pass (the probes stacked on a leading axis), a swap its
+four rows in one pass; each row is summed on its own, so the stacking
+changes no bit and spares the launches of the passes it merges (the
+eager substep is bound by the host's launch work).
+
+**Spans and counters** (``utils/observability.py``), under ``mc.advance``:
+``mc.cell.bind`` (a segment's grid shift, binning and packing),
+``mc.cell.substep`` (one substep) and ``mc.cell.unbind`` (the particles
+back in their order, the positions in real units); the run's counters
+``cell_binds`` (segments bound) and ``cell_substeps``.
+
 This is plain PyTorch on the chains' device; there is no hand-written kernel
 here, as the reference has no Pallas kernel here.
 """
@@ -57,6 +89,16 @@ from ..utils.observability import count, span
 
 __all__ = ["CellGrid", "plan_grid", "bind_cells", "unbind_cells",
            "cell_total_energy", "cell_mc_segment", "KeyDraws"]
+
+#: the dtype every sum of float32 terms accumulates in before its one
+#: rounding to float32 (the module's "Sum order")
+ACCUMULATE = torch.float64
+
+
+def _sum32(x, dim):
+    """float32 ``x`` summed over ``dim`` in :data:`ACCUMULATE`, rounded to
+    float32 once."""
+    return torch.sum(x, dim=dim, dtype=ACCUMULATE).to(torch.float32)
 
 
 class CellGrid:
@@ -281,20 +323,25 @@ def _make_substep(grid: CellGrid, pair_energy, rcut2_of, swap_mode=None,
         return occ9
 
     def dist2(pc, crd9, box2):
-        """Squared min-image distances from probes ``pc`` (M, dim, h.., 1)
-        to the neighbourhood, scaled to real units once after the sum."""
+        """Squared min-image distances from probes ``pc`` (..., M, dim, h..,
+        1; leading axes stack a substep's probes) to the neighbourhood,
+        scaled to real units once after the sum."""
         d = crd9 - pc
         d = d - torch.round(d)
         d = d * d
-        r2 = d[:, 0]
+        axis = -(dim + 2)
+        r2 = d.select(axis, 0)
         for a in range(1, dim):
-            r2 = r2 + d[:, a]
+            r2 = r2 + d.select(axis, a)
         return r2 * box2
 
     def energy(r2, pa, as9, ok9):
+        """Each probe's neighbourhood energy; ``r2`` and ``pa`` may stack
+        several probes on a leading axis, so that one pass of the pair
+        terms serves them all."""
         u = pair_energy(r2, pa, as9)
         ok = ok9 & (r2 < rcut2_of(pa, as9))
-        return torch.sum(torch.where(ok, u, 0.0), dim=-1)
+        return _sum32(torch.where(ok, u, 0.0), -1)
 
     def pick(sel_idx, act):
         """The fields of each active cell's picked slot: (M, F, h.., 1)."""
@@ -329,19 +376,18 @@ def _make_substep(grid: CellGrid, pair_energy, rcut2_of, swap_mode=None,
             pn = pi + torch.movedim(delta, -1, 1)[..., None]
             d_cap_f = chain_view(torch.full_like(box, d_cap) / (
                 box if vol is None else torch.full_like(box, grid.box_min)))
-            inbox = None
-            for a in range(dim):
-                lo = origin[a] - d_cap_f
-                hi = (origin[a] + w_f) + d_cap_f
-                x = pn[:, a, ..., 0]
-                ok = (x >= lo) & (x < hi)
-                inbox = ok if inbox is None else inbox & ok
+            d_cap_f = d_cap_f[:, None]                # (M, 1, 1..)
+            x = pn[..., 0]                            # (M, dim, h..)
+            inbox = torch.all((x >= origin - d_cap_f)
+                              & (x < (origin + w_f) + d_cap_f), dim=1)
             nb = neighbourhood(P, parity)
             crd9, as9 = nb[:, :dim], nb[:, dim]
             ok9 = excl_centre(nb[:, dim + 1] > 0.5, sel)
             box2 = chain_view(box * box)[..., None]
-            d_e = (energy(dist2(pn, crd9, box2), ai, as9, ok9)
-                   - energy(dist2(pi, crd9, box2), ai, as9, ok9))
+            # the new and the old position in one pass
+            e = energy(dist2(torch.stack([pn, pi]), crd9, box2), ai, as9,
+                       ok9)
+            d_e = e[0] - e[1]
             accept = has & inbox & (torch.log(u_acc)
                                     < chain_view(-beta) * d_e)
             upd = (sel & accept[..., None]).unsqueeze(1)
@@ -371,12 +417,12 @@ def _make_substep(grid: CellGrid, pair_energy, rcut2_of, swap_mode=None,
             # the exchange and cancels in dE
             ok9 = excl_centre(nb[:, dim + 1] > 0.5, sel_i | sel_j)
             box2 = chain_view(box * box)[..., None]
-            r2_i = dist2(p_i[:, :dim], crd9, box2)
-            r2_j = dist2(p_j[:, :dim], crd9, box2)
+            r2 = dist2(torch.stack([p_i[:, :dim], p_j[:, :dim]]), crd9, box2)
             ai, aj = p_i[:, dim], p_j[:, dim]
-            e_old = energy(r2_i, ai, as9, ok9) + energy(r2_j, aj, as9, ok9)
-            e_new = energy(r2_i, aj, as9, ok9) + energy(r2_j, ai, as9, ok9)
-            d_e = e_new - e_old
+            # four rows in one pass: i and j as they are, then exchanged
+            e = energy(torch.cat([r2, r2]), torch.stack([ai, aj, aj, ai]),
+                       as9, ok9)
+            d_e = (e[2] + e[3]) - (e[0] + e[1])
             accept = valid & (torch.log(u_acc) < chain_view(-beta) * d_e)
             upd_i = sel_i & accept[..., None]
             upd_j = sel_j & accept[..., None]
@@ -412,9 +458,10 @@ def _make_substep(grid: CellGrid, pair_energy, rcut2_of, swap_mode=None,
             if off == (0,) * dim:
                 ok = ok & ~torch.eye(cap, dtype=torch.bool, device=P.device)
             u = pair_energy(r2, a_i, a_j)
-            s = torch.sum(torch.where(ok, u, 0.0).reshape(m, -1), dim=1)
+            s = torch.sum(torch.where(ok, u, 0.0).reshape(m, -1), dim=1,
+                          dtype=ACCUMULATE)
             e = s if e is None else e + s
-        return 0.5 * e
+        return (0.5 * e).to(torch.float32)
 
     def make_volume():
         n_particles, pressure = vol
@@ -449,8 +496,9 @@ def _make_substep(grid: CellGrid, pair_energy, rcut2_of, swap_mode=None,
 def _chain_sums(d_e, attempted, accept):
     """Per-chain (accepted dE, attempts, accepts) of one substep."""
     axes = tuple(range(1, d_e.dim()))
-    return (torch.sum(torch.where(accept, d_e, 0.0), dim=axes),
-            torch.sum(attempted, dim=axes), torch.sum(accept, dim=axes))
+    return (_sum32(torch.where(accept, d_e, 0.0), axes),
+            torch.sum(attempted, dim=axes, dtype=torch.int32),
+            torch.sum(accept, dim=axes, dtype=torch.int32))
 
 
 def _pack(cells):
@@ -644,12 +692,15 @@ def cell_mc_segment(grid: CellGrid, pair_energy, rcut2_of, pos, attr, beta,
     dlnv = torch.as_tensor(dlnv, dtype=torch.float32, device=dev)
     seq = draws.variants(int(n_substeps), 2 ** dim, w_disp, w_swap,
                          swap_mode is not None, vol is not None)
-    shift = draws.shift(m, dim, dev)                      # (M, dim)
-    s = torch.remainder(pos / box[:, None, None] + shift[:, None, :], 1.0)
-    s = torch.where(s >= 1.0, 0.0, s)   # f32 mod of -eps can return 1.0
-    cells = bind_cells(grid, s, attr)
-    invalid = cells["overflow"] | (box < grid.box_min)
-    P = _pack(cells)
+    count("cell_binds")
+    with span("mc.cell.bind"):
+        shift = draws.shift(m, dim, dev)                  # (M, dim)
+        s = torch.remainder(pos / box[:, None, None] + shift[:, None, :],
+                            1.0)
+        s = torch.where(s >= 1.0, 0.0, s)   # f32 mod of -eps can return 1.0
+        cells = bind_cells(grid, s, attr)
+        invalid = cells["overflow"] | (box < grid.box_min)
+        P = _pack(cells)
     e, bx = energy, box
     att = torch.zeros((m, 3), dtype=torch.int32, device=dev)
     acc = torch.zeros((m, 3), dtype=torch.int32, device=dev)
@@ -668,18 +719,20 @@ def cell_mc_segment(grid: CellGrid, pair_energy, rcut2_of, pos, attr, beta,
             att[:, kind] += n_att.to(torch.int32)
             acc[:, kind] += n_acc.to(torch.int32)
     count("cell_substeps", len(seq))
-    s_out, attr_out = unbind_cells(
-        {"crd": P[:, :dim], "attr": P[:, dim], "idx": cells["idx"]}, n)
-    frac = torch.remainder(s_out - shift[:, None, :], 1.0)
-    frac = torch.where(frac >= 1.0, 0.0, frac)  # keep pos strictly in [0, box)
-    pos_out = frac * bx[:, None, None]
-    # invalid chains: the whole segment is a no-op (their bind dropped
-    # particles), counters zeroed so the corruption cannot leak
-    pos_out = torch.where(invalid[:, None, None], pos, pos_out)
-    attr_out = torch.where(invalid[:, None], attr.to(torch.float32),
-                           attr_out)
-    e = torch.where(invalid, energy, e)
-    bx = torch.where(invalid, box, bx)
-    att = torch.where(invalid[:, None], 0, att)
-    acc = torch.where(invalid[:, None], 0, acc)
+    with span("mc.cell.unbind"):
+        s_out, attr_out = unbind_cells(
+            {"crd": P[:, :dim], "attr": P[:, dim], "idx": cells["idx"]}, n)
+        frac = torch.remainder(s_out - shift[:, None, :], 1.0)
+        # keep pos strictly in [0, box)
+        frac = torch.where(frac >= 1.0, 0.0, frac)
+        pos_out = frac * bx[:, None, None]
+        # invalid chains: the whole segment is a no-op (their bind dropped
+        # particles), counters zeroed so the corruption cannot leak
+        pos_out = torch.where(invalid[:, None, None], pos, pos_out)
+        attr_out = torch.where(invalid[:, None], attr.to(torch.float32),
+                               attr_out)
+        e = torch.where(invalid, energy, e)
+        bx = torch.where(invalid, box, bx)
+        att = torch.where(invalid[:, None], 0, att)
+        acc = torch.where(invalid[:, None], 0, acc)
     return pos_out, attr_out, e, bx, att, acc, invalid

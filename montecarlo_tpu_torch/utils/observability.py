@@ -13,9 +13,10 @@ Port of ``montecarlo_tpu/utils/observability.py``, with what the port adds:
   ``mc.flush`` (children ``mc.flush.check``, ``mc.flush.to_host``,
   ``mc.flush.write``), ``mc.record``, ``mc.host_algorithm`` and
   ``mc.finalise``.  Under ``mc.advance``: ``mc.step`` (a device
-  algorithm's step on the generic and hybrid paths), ``mc.cell.substep``,
-  ``mc.prng`` (a public draw of :mod:`~montecarlo_tpu_torch.utils.prng`)
-  and ``mc.ecmc.iteration``.
+  algorithm's step on the generic and hybrid paths), ``mc.cell.bind``,
+  ``mc.cell.substep``, ``mc.cell.unbind`` (a cell-path segment's binding,
+  substeps and unbinding), ``mc.prng`` (a public draw of
+  :mod:`~montecarlo_tpu_torch.utils.prng`) and ``mc.ecmc.iteration``.
 - :class:`Counters`: the plain integer counts of a run
   (``Simulation.counters``), always kept, listed in ``summary.log``.
 
@@ -73,6 +74,7 @@ class Counters:
       (``validate_state``, ECMC's loop condition), a :func:`device_sync`;
       on the CPU the same points, waiting for nothing;
     - ``bytes_to_host``: the bytes of those pulls;
+    - ``cell_binds``: segments of the cell path (one bind each);
     - ``cell_substeps``: substeps of the cell path;
     - ``prng_draws``: public draws of
       :mod:`~montecarlo_tpu_torch.utils.prng`;
@@ -87,6 +89,7 @@ class Counters:
     records: int = 0
     host_syncs: int = 0
     bytes_to_host: int = 0
+    cell_binds: int = 0
     cell_substeps: int = 0
     prng_draws: int = 0
     launches: dict = dataclasses.field(default_factory=dict)

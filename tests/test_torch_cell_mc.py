@@ -6,8 +6,8 @@ cell energy, one substep of every variant and whole segments, each fed the
 reference's own ``jax.random`` draws (:class:`ReferenceDraws`, derived as
 the reference's ``cell_mc_segment`` derives them).  Positions agree within
 1e-5 (1e-6 after one substep), attributes, counters and flags exactly,
-energies within rtol 1e-5 (the neighbourhood sums run in torch's order, not
-XLA's); the keys are ones where no accept decision sits within an ulp of
+energies within rtol 1e-5 (the port's neighbourhood sums accumulate in
+float64, XLA's in float32); the keys are ones where no accept decision sits within an ulp of
 its threshold.  Then the reference's own gates (``tests/test_cell_mc.py``) by
 statistics and invariants on the port's own stream, and the port's
 :class:`KeyDraws` against :class:`ReferenceDraws`.

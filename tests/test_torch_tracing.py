@@ -149,6 +149,26 @@ def test_other_paths_spans(tmp_path, case):
     assert all(s[0] != s[3] for s in spans)
 
 
+def test_cell_segment_bind_spans_and_counter(tmp_path):
+    """Each cell-path segment binds once and unbinds once, in spans under
+    ``mc.advance`` around its substeps, and the run counts its binds (off,
+    the spans enter no ``record_function``:
+    ``test_no_record_function_without_a_profiler``)."""
+    sim = _cell(tmp_path, 2)
+    spans = _profiled(sim.run)
+    kids = [s for s in spans if s[3] == "mc.advance"]
+    binds = [s for s in kids if s[0] == "mc.cell.bind"]
+    unbinds = [s for s in kids if s[0] == "mc.cell.unbind"]
+    assert len(binds) == len(unbinds) == 2
+    for b, u in zip(binds, unbinds):
+        inside = [s[0] for s in kids if b[2] <= s[1] and s[2] <= u[1]]
+        assert inside and set(inside) == {"mc.cell.substep"}
+    assert sim.counters.cell_binds == 2
+    assert sim.counters.cell_substeps > 0
+    report = open(tmp_path / "summary.log").read().split("Report:\n")[1]
+    assert "cell_binds 2, cell_substeps " in report
+
+
 def test_ecmc_iteration_spans():
     def body(carry, i):
         return (carry[0] + 1,)
