@@ -82,12 +82,14 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
    and the poly path, and where config 5's wall goes with PGMC; the poly
    kernel at every block width W (64 x N 256 and N 1024); each printed
    beside the card's name and power limit;
-7. the checkerboard cell-MC path (plain torch, no kernel of its own):
-   7a. ``examples/cell_mc_large_n.py``'s LJ run at full width (32 chains x
-   N 32768, above what the row kernel holds; rho 1.2, beta 1/0.45, 20 % B,
-   sigma 0.08, sweepstep N/4, 40 steps, energy and acceptance every 10)
-   through ``Simulation.run`` with ``fused='auto'`` and no ``device=``: the
-   cell route taken (no row kernel launched), no overflow, acceptance, the
+7. the checkerboard cell-MC path (the substep kernel
+   ``csrc/cell_substep.cu`` for 2-D LJ on the card, its torch twin
+   elsewhere): 7a. ``examples/cell_mc_large_n.py``'s LJ run at full width
+   (32 chains x N 32768, above what the row kernel holds; rho 1.2, beta
+   1/0.45, 20 % B, sigma 0.08, sweepstep N/4, 40 steps, energy and
+   acceptance every 10) through ``Simulation.run`` with ``fused='auto'``
+   and no ``device=``: the cell route taken (no row kernel launched, the
+   substep kernel once a substep), no overflow, acceptance, the
    cache of 4 chains against an O(N^2) recompute, the ``Cell MC: enabled``
    line; a segment and a refresh timed apart; 7b. the LJ species pool and the poly pair pool at 64 x
    N 4096 with ``fused='cell'``, hard disks at 16 x N 16384 (eta 0.70):
@@ -97,7 +99,10 @@ holds each hand-written CUDA kernel to its plain PyTorch version:
    takes the pool), with the route ``'auto'`` picks at each N, the cell
    path's launches per substep under ``torch.profiler``, and its two
    neighbourhood layouts; 7d. one segment on the card and on the CPU from
-   the same draws, substep by substep;
+   the same draws, substep by substep; 7e. the substep kernel
+   (``csrc/cell_substep.cu``) against its torch twin at the ka2d_large
+   cell's shape, bit for bit, each timed by CUDA events beside the bound of
+   ``h100_bench/counts/cell_substep.py``;
 8. NPT and 3-D (plain torch on the cell and generic paths, no kernel of
    their own, every row kernel's launches read and held at 0): 8a.
    ``tools/bench_cell3d_npt.py``'s 3-D LJ (16 x N 4096) on the generic
@@ -222,7 +227,10 @@ path's shape of one uniform for each of 10^4 chains; the
 ``threefry_split_uniform`` row is the kernel's new mode, its launches 14c's,
 its times at the LJ event loop's shape; the ``lj_total_energy`` row's
 ``launches`` are phase 5's two LJ main paths', its times phase 4c's at 64
-x N 1024), and as the last line
+x N 1024; the ``cell_substep`` row's ``launches`` are phase 7a's, its
+times phase 7e's a substep at the ka2d_large cell's shape, ``ms``,
+``plain_ms`` and ``bound_ms`` a displacement substep, the ``swap_``
+keys a swap substep), and as the last line
 ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero without the last
 line.
@@ -332,6 +340,10 @@ CROSSOVER_CHAINS = (64, 32)
 PROFILED_N = (2048, 16384)      # the cell path profiled, layouts timed
 # phase 7d: one segment on the card and on the CPU from the same draws
 CELL_TWIN = dict(chains=8, n=4096, w_disp=0.7, substeps=60, seed=5)
+# phase 7e: the substep kernel against its twin at the ka2d_large cell's
+# shape (h100_bench/configs/ka2d_large.json): launches timed a colour
+CELL_KERNEL = dict(chains=32, n=32768, rho=1.2, beta=1.0 / 0.45,
+                   frac_b=0.35, sigma=0.08, kernel_reps=50, twin_reps=5)
 # phase 8: NPT and 3-D.  8a and 8b: tools/bench_cell3d_npt.py's two
 # configurations, each path with its (sweepstep, steps)
 NPT_LJ3D = dict(chains=16, n=4096, rho=1.0, beta=1.0 / 0.45, frac_b=0.2,
@@ -2275,23 +2287,124 @@ def card_vs_cpu(device, card):
     return dpos
 
 
+def substep_kernel(device, card):
+    """Phase 7e: the cell path's substep kernel (``csrc/cell_substep.cu``)
+    against its torch twin (``ops/cell_mc.py: _make_substep``) at the
+    ka2d_large cell's shape: one substep of each kind and colour from the
+    same cells and draws, equal bit for bit; then each side's time a
+    substep by CUDA events (the kernel's two launches; the twin's ~110),
+    the colours in turn on a working copy of the cells, beside the least
+    time of the substep by ``h100_bench/counts/cell_substep.py`` (the
+    draws' operations included, as the benchmark's roofline counts them).
+    Returns {kind: (kernel ms, twin ms, bound ms, what bounds it)}."""
+    import torch
+    from montecarlo_tpu_torch.models import lennard_jones as lj
+    from montecarlo_tpu_torch.ops import cell_mc
+    sys.path.insert(0, os.path.join(ROOT, "h100_bench"))
+    from counts import cell_substep as counts
+    from harness.peaks import BYTES_PER_S, FLOAT32_OPS_PER_S, least_seconds
+    cfg = CELL_KERNEL
+    m, n = cfg["chains"], cfg["n"]
+    params = lj.LJParams()
+    pe, rc2, rcut = lj.cell_closures(params)
+    st = lj.init_chains(m, n, rho=cfg["rho"], beta=cfg["beta"],
+                        frac_b=cfg["frac_b"], seed=48, device=device)
+    grid = cell_mc.plan_grid(n, float(st.box[0]), rcut)
+    ids = torch.arange(m, device=device)
+    s = torch.remainder(st.pos / st.box[:, None, None] + cell_mc.KeyDraws(
+        3, 0, ids).shift(m, 2, device)[:, None, :], 1.0)
+    P0 = cell_mc._pack(cell_mc.bind_cells(grid, s, st.species.float()))
+    sigma = torch.tensor(cfg["sigma"], device=device)
+    args = cell_mc._kernel_args(grid, sigma, st.box, st.beta, None)
+    h = grid.nc // 2
+    out = {}
+    for kind in (0, 1):
+        variants, _ = cell_mc._make_substep(
+            grid, pe, rc2, "species" if kind else None)
+        draws = [cell_mc.KeyDraws(3, 0, ids).substep(
+            c, kind, m, h, grid.cap, 2, "gaussian", device) for c in range(4)]
+
+        def kernel_side(P):
+            e = st.energy.clone()
+            att = torch.zeros((m, 3), dtype=torch.int32, device=device)
+            launch = cell_mc._kernel_substeps(grid, P, params, e, att,
+                                              torch.zeros_like(att))
+            return (lambda c: launch(kind, c, args, *draws[c])), e, att
+
+        def twin_side(P):
+            return lambda c: variants[kind][c](P, st.box, sigma, st.beta,
+                                               *draws[c])
+
+        attempts = 0
+        for c in range(4):
+            P_k, P_t = P0.clone(), P0.clone()
+            run, e, att = kernel_side(P_k)
+            run(c)
+            d_e, n_att, _ = twin_side(P_t)(c)
+            check(torch.equal(P_k, P_t) and torch.equal(e, st.energy + d_e)
+                  and torch.equal(att[:, kind], n_att),
+                  f"the substep kernel differs from its twin (kind {kind}, "
+                  f"colour {c})")
+            attempts += int(n_att.sum())
+
+        def timed(step, reps):
+            for c in range(4):
+                step(c)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                for c in range(4):
+                    step(c)
+            b.record()
+            torch.cuda.synchronize()
+            return a.elapsed_time(b) / (4 * reps)
+
+        ms_k = timed(kernel_side(P0.clone())[0], cfg["kernel_reps"])
+        ms_t = timed(twin_side(P0.clone()), cfg["twin_reps"])
+        ops, nbytes = counts.count(m, n, grid.nc, attempts // 4 * (kind == 0),
+                                   attempts // 4 * (kind == 1), 1)
+        bound = least_seconds(ops, nbytes) * 1e3
+        by = ("bytes" if nbytes / BYTES_PER_S >= ops / FLOAT32_OPS_PER_S
+              else "float32 operations")
+        out[kind] = (ms_k, ms_t, bound, by)
+        print(f"substep kernel, {('displacement', 'swap')[kind]}: "
+              f"{ms_k!r} ms a substep (twin {ms_t!r} ms, {ms_t / ms_k!r}x); "
+              f"bound {bound!r} ms by {by} ({100 * bound / ms_k!r} % of "
+              f"it) at {m} chains x N {n}, {grid!r}, {attempts // 4} "
+              f"attempts a "
+              f"substep; equal to the twin in every colour [{card}]")
+    return out
+
+
 def cell_phases(tmc, device, kernels, card):
     """Phase 7: the cell path's main path (7a, reading every kernel's
-    launches: the cell route launches none), its other routes (7b), the
-    crossover with the row kernel (7c) and the card against the CPU
-    (7d)."""
+    launches: the cell route launches no row kernel and the substep kernel
+    once a substep), its other routes (7b), the crossover with the row
+    kernel (7c), the card against the CPU (7d) and the substep kernel
+    against its twin (7e).  Returns 7a's launches of the substep kernel
+    and 7e's times."""
+    from montecarlo_tpu_torch.ops.cell_mc import CELL_SUBSTEP_KERNEL
     with tempfile.TemporaryDirectory(prefix=".chip_smoke-", dir=ROOT) as tmp:
         path = os.path.join(tmp, "cell_main")
         (sim, wall), counts = counted(
-            kernels, lambda: cell_main(tmc, device, path, card))
-        print(f"main path: the cell path's run launches {counts}")
+            kernels + (CELL_SUBSTEP_KERNEL,),
+            lambda: cell_main(tmc, device, path, card))
+        n_sub = counts.pop(CELL_SUBSTEP_KERNEL.symbol)
+        print(f"main path: the cell path's run launches {counts} and the "
+              f"substep kernel {n_sub} times in {sim.counters.cell_substeps}"
+              f" substeps (every one a displacement)")
         check(sum(counts.values()) == 0,
               "the cell path's run launched a row kernel")
+        check(n_sub == sim.counters.cell_substeps > 0,
+              "the substep kernel's launches differ from the run's "
+              "displacement substeps")
         cell_main_checks(sim, path, wall, card)
         del sim
         cell_routes(tmc, tmp, card)
     crossover(tmc, device, card)
     card_vs_cpu(device, card)
+    return n_sub, substep_kernel(device, card)
 
 
 # ---------------------------------------------------------------------------
@@ -5278,6 +5391,7 @@ def main():
     from montecarlo_tpu_torch.core.simulation import _select_advance
     from montecarlo_tpu_torch.models import particle1d as p1d
     from montecarlo_tpu_torch.ops.fused_sweep import SWEEP_KERNEL
+    from montecarlo_tpu_torch.ops.cell_mc import CELL_SUBSTEP_KERNEL
     from montecarlo_tpu_torch.ops.lj_energy import LJ_ENERGY_KERNEL
     from montecarlo_tpu_torch.ops.lj_sweep import LJ_KERNEL, LJ_MIXED_KERNEL
     from montecarlo_tpu_torch.ops.poly_sweep import POLY_KERNEL
@@ -5300,11 +5414,13 @@ def main():
 
     # 2. build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=6) as pool:
         list(pool.map(lambda k: k.build(),
                       (SWEEP_KERNEL, LJ_KERNEL, POLY_KERNEL,
-                       THREEFRY_KERNEL, LJ_ENERGY_KERNEL)))
-    for k in kernels + (THREEFRY_KERNEL, LJ_ENERGY_KERNEL):
+                       THREEFRY_KERNEL, LJ_ENERGY_KERNEL,
+                       CELL_SUBSTEP_KERNEL)))
+    for k in kernels + (THREEFRY_KERNEL, LJ_ENERGY_KERNEL,
+                        CELL_SUBSTEP_KERNEL):
         k.build()
         print(f"build: {k.symbol} from {k.library_path()} "
               f"(nvcc wall {k.build_seconds!r} s)")
@@ -5531,8 +5647,8 @@ def main():
           f"{POLY['chains'] * POLY['n'] * POLY['sweeps'] / wall_poly!r}"
           f" moves/s with recorders [{card}]")
     elapsed("phases 1-6")
-    # 7. the cell path: no kernel of its own, the row kernels not launched
-    cell_phases(tmc, device, kernels, card)
+    # 7. the cell path: the substep kernel, the row kernels not launched
+    n_cell, cell_ms = cell_phases(tmc, device, kernels, card)
     elapsed("phase 7")
     # 8. NPT and 3-D: the cell and generic paths, no kernel launched
     npt_phases(tmc, device, kernels, card)
@@ -5642,6 +5758,18 @@ def main():
         "bound_ms": energy["bound_ms"], "bound_by": energy["bound_by"],
         "library_ms": None, "shape": energy["shape"],
         "entry_points": ["lj_total_energy", "lennard_jones._lj_energies"]})
+    (k_ms, p_ms, b_ms, by), (ks_ms, ps_ms, bs_ms, _) = cell_ms[0], cell_ms[1]
+    rows.append({
+        "name": "cell_substep", "route": "cuda",
+        "source": "montecarlo_tpu_torch/csrc/cell_substep.cu",
+        "replaces": "montecarlo_tpu/ops/cell_mc.py:225 (jnp _make_substep, "
+                    "fused by XLA; no Pallas kernel)",
+        "launches": n_cell, "max_abs_err": 0.0, "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+        "swap_ms": ks_ms, "swap_plain_ms": ps_ms, "swap_bound_ms": bs_ms,
+        "library_ms": None, "shape": [CELL_KERNEL["chains"],
+                                      CELL_KERNEL["n"]],
+        "entry_points": ["mc_cell_substep", "cell_mc._kernel_substeps"]})
     print(f"bound: threefry split_uniform at the LJ event loop's shape "
           f"({SPLIT_UNIFORM['loop'][0]} keys x {SPLIT_UNIFORM['loop'][1]}): "
           f"{samplers['ms']!r} ms a launch against a bound of "

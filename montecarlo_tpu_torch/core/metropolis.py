@@ -673,7 +673,8 @@ class Metropolis(DeviceAlgorithm):
             plan, pe, rc2, sys.pos, attr, beta, energy, sigma, draws,
             substeps, w_disp=(w[0] / a_att) / z, w_swap=(w[1] / a_att) / z,
             swap_mode=swap_mode, box=sys.box, proposal=proposal, vol=vol,
-            dlnv=dlnv)
+            dlnv=dlnv, lj_params=(self.pool[disp_idx].move.aux
+                                  if family == "lj" else None))
         upd = {"pos": pos}
         if vol_idx is not None:
             upd["box"] = box   # an NVT pool keeps the box as given (0-d too)

@@ -46,15 +46,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-// The species-pair constants, each indexed AA, AB, BB: 4 eps, sig^2,
-// (rcut sig)^2 and the shift 4 eps ((1 / rcut)^12 - (1 / rcut)^6), rounded
-// to float32 as the twin rounds them.
-struct PairTable {
-  float e4[3];
-  float s2[3];
-  float rc2[3];
-  float sh[3];
-};
+#include "lj_pair_table.cuh"
 
 namespace {
 

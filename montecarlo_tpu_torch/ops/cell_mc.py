@@ -71,12 +71,23 @@ eager substep is bound by the host's launch work).
 back in their order, the positions in real units); the run's counters
 ``cell_binds`` (segments bound) and ``cell_substeps``.
 
-This is plain PyTorch on the chains' device; there is no hand-written kernel
-here, as the reference has no Pallas kernel here.
+**The substep kernel.**  The displacement and species-swap substeps of
+2-D Lennard-Jones chains with float32 state on a CUDA device run in the
+hand-written kernel ``csrc/cell_substep.cu`` (:data:`CELL_SUBSTEP_KERNEL`,
+entry point ``mc_cell_substep``): one call a substep, every chain and every
+active cell of the colour, the packed cells updated in place and the
+chains' sums added to the segment's accumulators.  The torch substeps of
+:func:`_make_substep` are its plain twin, with the same float32 terms and
+float64 sums; they run everything the kernel does not take (the CPU,
+float64, 3-D, the polydisperse and hard-disk models, the volume substep).
+:func:`cell_mc_segment` decides from what it is given (:func:`_kernel_takes`);
+the reference has no Pallas kernel here.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import functools
 import itertools
 import math
@@ -86,6 +97,8 @@ import torch
 
 from ..utils import prng
 from ..utils.observability import count, span
+from ._cuda import CudaKernel
+from .lj_energy import _PairTable, _pair_table
 
 __all__ = ["CellGrid", "plan_grid", "bind_cells", "unbind_cells",
            "cell_total_energy", "cell_mc_segment", "KeyDraws"]
@@ -526,6 +539,90 @@ def cell_total_energy(grid: CellGrid, pair_energy, rcut2_of, pos, attr,
 
 
 # ---------------------------------------------------------------------------
+# The substep kernel
+# ---------------------------------------------------------------------------
+
+CELL_SUBSTEP_KERNEL = CudaKernel(
+    "cell_substep.cu", "mc_cell_substep",
+    [ctypes.c_void_p] * 5 + [_PairTable] + [ctypes.c_void_p] * 5
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
+def _kernel_takes(lj_params, dim, device, *tensors) -> bool:
+    """Whether :data:`CELL_SUBSTEP_KERNEL` runs a segment's displacement and
+    swap substeps: the pair model is Lennard-Jones (``lj_params`` given),
+    2-D, on a CUDA device, and ``tensors`` (the packed cells, beta, the
+    energies) are float32."""
+    return (lj_params is not None and dim == 2 and device.type == "cuda"
+            and all(t.dtype == torch.float32 for t in tensors))
+
+
+def _kernel_args(grid: CellGrid, sigma, box, beta, vol):
+    """The kernel's per-chain arguments, (4, M) float32, each computed as
+    the twin computes it: ``sigma / box`` (a displacement's step per unit
+    draw), the halo as a fraction of the box (``d_cap / box``, or ``d_cap /
+    box_min`` with volume substeps), ``-beta`` and ``box * box``.  They
+    change with the box, so a volume substep asks for them anew."""
+    m = box.shape[0]
+    halo = torch.full_like(box, grid.d_cap) / (
+        box if vol is None else torch.full_like(box, grid.box_min))
+    return torch.stack([torch.broadcast_to(sigma / box, (m,)), halo,
+                        torch.broadcast_to(-beta, (m,)), box * box])
+
+
+def _kernel_substeps(grid: CellGrid, P, lj_params, e, att, acc):
+    """A segment's launcher of :data:`CELL_SUBSTEP_KERNEL` on its packed
+    cells ``P`` (M, 4, nc, nc, C) float32 on the card: ``launch(kind,
+    color, args, *draws)`` runs one displacement (kind 0) or swap (kind 1)
+    substep, updates ``P`` in place and adds its chain sums to ``e`` (M,)
+    float32 and column ``kind`` of ``att``, ``acc`` (M, 3) int32, as the
+    twin's ``e + d_e`` and ``att[:, kind] += n_att`` do.  ``args`` is
+    :func:`_kernel_args`; the draws are the twin's.  The buffers are checked
+    here and the draws at the first launch of each kind (a segment's draws
+    keep their shapes), raising on what the kernel does not take.  The
+    caller makes ``P``'s device the current one."""
+    m, nc, cap = P.shape[0], grid.nc, grid.cap
+    h = nc // 2
+
+    def check(name, t, dtype, shape):
+        if (t.dtype != dtype or tuple(t.shape) != shape
+                or t.device != P.device or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} must be a contiguous {dtype} {shape} tensor on "
+                f"{P.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+    for name, t, dtype, shape in (
+            ("P", P, torch.float32, (m, 4, nc, nc, cap)),
+            ("e", e, torch.float32, (m,)),
+            ("att", att, torch.int32, (m, 3)),
+            ("acc", acc, torch.int32, (m, 3))):
+        check(name, t, dtype, shape)
+    cell_de = torch.empty((m * h * h,), dtype=torch.float32, device=P.device)
+    flags = torch.empty((m * h * h,), dtype=torch.uint8, device=P.device)
+    table = _pair_table(lj_params)
+    with torch.cuda.device(P.device):
+        stream = torch.cuda.current_stream().cuda_stream
+    cells = (m, h, h)
+    shapes = {0: (cells + (cap,), cells + (2,), cells),
+              1: (cells + (cap,), cells + (cap,), cells)}
+    checked = set()
+
+    def launch(kind, color, args, *draws):
+        if kind not in checked:
+            for t, shape in zip((args,) + draws, ((4, m),) + shapes[kind]):
+                check("a substep kernel draw", t, torch.float32, shape)
+            checked.add(kind)
+        CELL_SUBSTEP_KERNEL.launch(
+            P.data_ptr(), draws[0].data_ptr(), draws[1].data_ptr(),
+            draws[2].data_ptr(), args.data_ptr(), table, e.data_ptr(),
+            att.data_ptr(), acc.data_ptr(), cell_de.data_ptr(),
+            flags.data_ptr(), m, nc, cap, kind, color >> 1, color & 1,
+            stream)
+
+    return launch
+
+
+# ---------------------------------------------------------------------------
 # Draws
 # ---------------------------------------------------------------------------
 
@@ -655,7 +752,7 @@ def cell_mc_segment(grid: CellGrid, pair_energy, rcut2_of, pos, attr, beta,
                     energy, sigma, draws, n_substeps: int,
                     w_disp: float = 1.0, w_swap: float = 0.0, swap_mode=None,
                     box=None, proposal: str = "gaussian", vol=None,
-                    dlnv=0.0):
+                    dlnv=0.0, lj_params=None):
     """Run ``n_substeps`` checkerboard substeps on chain-stacked state.
 
     Args:
@@ -674,6 +771,11 @@ def cell_mc_segment(grid: CellGrid, pair_energy, rcut2_of, pos, attr, beta,
       proposal: ``"gaussian"`` or ``"square"`` (the hard-disk convention).
       vol: None, or ``(n_particles, pressure)``: volume substeps with the
         ln-V half-width ``dlnv`` (a float or a 0-d tensor).
+      lj_params: the ``lennard_jones.LJParams`` the closures compute, when
+        they are ``lennard_jones.cell_closures``'s; with 2-D float32 state
+        on a CUDA device the displacement and swap substeps then run in
+        :data:`CELL_SUBSTEP_KERNEL` (:func:`_kernel_takes`), the same
+        numbers as the twin's.
 
     Returns ``(pos', attr', energy', box', attempts, accepts, invalid)``
     with box' (M,), attempts/accepts (M, 3) int32 (columns: displacement,
@@ -705,19 +807,35 @@ def cell_mc_segment(grid: CellGrid, pair_energy, rcut2_of, pos, attr, beta,
     att = torch.zeros((m, 3), dtype=torch.int32, device=dev)
     acc = torch.zeros((m, 3), dtype=torch.int32, device=dev)
     h = grid.nc // 2
-    for i, (kind, color) in enumerate(seq.tolist()):
-        with span("mc.cell.substep"):
-            if kind == 2:
-                bx, e, n_att, n_acc = variants[2][0](
-                    P, bx, e, dlnv, beta, *draws.volume(i, m, dev))
-            else:
-                d = draws.substep(i, kind, m, h, grid.cap, dim, proposal,
-                                  dev)
-                d_e, n_att, n_acc = variants[kind][color](P, bx, sigma,
-                                                          beta, *d)
-                e = e + d_e
-            att[:, kind] += n_att.to(torch.int32)
-            acc[:, kind] += n_acc.to(torch.int32)
+    kernel = None
+    if _kernel_takes(lj_params, dim, dev, P, beta, energy):
+        # the kernel adds each substep's chain sums to e, att, acc in place
+        e = energy.clone(memory_format=torch.contiguous_format)
+        kernel = _kernel_substeps(grid, P, lj_params, e, att, acc)
+        args = _kernel_args(grid, sigma, bx, beta, vol)
+    with (contextlib.nullcontext() if kernel is None
+          else torch.cuda.device(dev)):
+        for i, (kind, color) in enumerate(seq.tolist()):
+            with span("mc.cell.substep"):
+                if kind == 2:
+                    bx, e_vol, n_att, n_acc = variants[2][0](
+                        P, bx, e, dlnv, beta, *draws.volume(i, m, dev))
+                    if kernel is None:
+                        e = e_vol
+                    else:
+                        e.copy_(e_vol)
+                        args = _kernel_args(grid, sigma, bx, beta, vol)
+                else:
+                    d = draws.substep(i, kind, m, h, grid.cap, dim, proposal,
+                                      dev)
+                    if kernel is not None:
+                        kernel(kind, color, args, *d)
+                        continue
+                    d_e, n_att, n_acc = variants[kind][color](P, bx, sigma,
+                                                              beta, *d)
+                    e = e + d_e
+                att[:, kind] += n_att.to(torch.int32)
+                acc[:, kind] += n_acc.to(torch.int32)
     count("cell_substeps", len(seq))
     with span("mc.cell.unbind"):
         s_out, attr_out = unbind_cells(

@@ -35,7 +35,7 @@ COLUMN_TILE = 2048
 
 
 class _PairTable(ctypes.Structure):
-    """``csrc/lj_energy.cu: PairTable``, passed by value."""
+    """``csrc/lj_pair_table.cuh: PairTable``, passed by value."""
     _fields_ = [(f, ctypes.c_float * 3) for f in ("e4", "s2", "rc2", "sh")]
 
 

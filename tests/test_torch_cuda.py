@@ -9,6 +9,8 @@ Tolerance: the Gaussian sweep atol 1e-5 on x and e and equal accept counts;
 the LJ and polydisperse sweeps and every threefry mode bit for bit; the LJ
 energy kernel within 1e-5 relative of the float64 energy (float32 pair
 terms, summed in another order), and bit for bit from call to call; the
+cell path's substep kernel bit for bit against its twin (the same float32
+terms, float64 sums rounded once); the
 keyed samplers' card runs against the CPU's within 1e-5, counters equal.
 Each kernel and its plain version use the same CUDA math functions and,
 for the particle rows, the same summation order.
@@ -31,6 +33,8 @@ from montecarlo_tpu_torch.ops.lj_sweep import (LJ_KERNEL, LJ_MIXED_KERNEL,
                                                MAX_PARTICLES,
                                                fused_lj_mixed_sweep,
                                                fused_lj_sweep)
+from montecarlo_tpu_torch.ops import cell_mc
+from montecarlo_tpu_torch.ops.cell_mc import CELL_SUBSTEP_KERNEL
 from montecarlo_tpu_torch.ops.lj_energy import (COLUMN_TILE, LJ_ENERGY_KERNEL,
                                                 lj_total_energy)
 from montecarlo_tpu_torch.ops.poly_sweep import (POLY_KERNEL,
@@ -326,6 +330,171 @@ def test_simulation_refreshes_through_the_lj_energy_kernel(cuda, tmp_path):
     want = _energy64(final)
     assert torch.all(torch.abs(final.energy.double() - want)
                      <= 1e-5 * torch.abs(want))
+
+
+# -- the cell path's substep kernel -------------------------------------------
+
+def _cell_case(name, device, m=3, seed=5):
+    """``(grid, P, chains, vol)``: LJ chains of the ka2d mixture bound to
+    cells on ``device``; the last chain (but at the ``large`` size) holds
+    no B, so its swaps have nothing to pick.  ``dense``: 3 x N 2048 at rho
+    1.2, cap 32; ``sparse``: rho 0.05, most cells empty; ``cap40``: a
+    capacity above a warp's 32 slots; ``overflow``: a capacity of 8 at a
+    mean occupancy of ~14, every chain's bind overflowed; ``npt``: the halo
+    fixed at d_cap / box_min; ``large``: the ka2d_large cell's 32 x N 32768
+    (nc 48, cap 32)."""
+    n, rho = {"sparse": (256, 0.05), "large": (32768, 1.2)}.get(
+        name, (2048, 1.2))
+    m = 32 if name == "large" else m
+    st = lj.init_chains(m, n, rho=rho, beta=1.0 / 0.45, frac_b=0.35,
+                        seed=seed, device=device)
+    species = st.species.clone()
+    if name != "large":
+        species[-1] = 0
+    _, _, rcut = lj.cell_closures(lj.LJParams())
+    grid = cell_mc.plan_grid(n, float(st.box[0]), rcut)
+    if name in ("cap40", "overflow"):
+        grid = cell_mc.CellGrid(grid.nc, 40 if name == "cap40" else 8,
+                                grid.box, grid.d_cap, grid.rcut)
+    ids = torch.arange(m, device=device)
+    s = torch.remainder(st.pos / st.box[:, None, None] + cell_mc.KeyDraws(
+        seed, 77, ids).shift(m, 2, device)[:, None, :], 1.0)
+    cells = cell_mc.bind_cells(grid, s, species.float())
+    assert bool(cells["overflow"].all()) == (name == "overflow")
+    vol = (n, 1.0) if name == "npt" else None
+    return grid, cell_mc._pack(cells), st, vol
+
+
+@pytest.mark.parametrize("case", ["dense", "sparse", "cap40", "overflow",
+                                  "npt", "ties", "large"])
+@pytest.mark.parametrize("kind,color", [(k, c) for k in (0, 1)
+                                        for c in range(4)])
+def test_cell_substep_kernel_matches_twin(cuda, case, kind, color):
+    """One displacement or swap substep of every colour from the same cells
+    and draws: the kernel's cells, chain energies, attempts and accepts
+    equal the twin's on the card bit for bit, one launch counted (``ties``:
+    the pick uniforms rounded to quarters, so most picks are ties)."""
+    grid, P, st, vol = _cell_case("dense" if case == "ties" else case, cuda)
+    m, h = P.shape[0], grid.nc // 2
+    pe, rc2, _ = lj.cell_closures(lj.LJParams())
+    sigma = torch.tensor(0.08, device=cuda)
+    draws = cell_mc.KeyDraws(11, 5, torch.arange(m, device=cuda)).substep(
+        3, kind, m, h, grid.cap, 2, "gaussian", cuda)
+    if case == "ties":
+        draws = tuple(torch.floor(d * 4) / 4 if k < 1 + kind else d
+                      for k, d in enumerate(draws))
+    variants, _ = cell_mc._make_substep(grid, pe, rc2,
+                                        "species" if kind else None, vol)
+    P_twin = P.clone()
+    d_e, n_att, n_acc = variants[kind][color](P_twin, st.box, sigma,
+                                              st.beta, *draws)
+    e = st.energy.clone()
+    att = torch.zeros((m, 3), dtype=torch.int32, device=cuda)
+    acc = torch.zeros_like(att)
+    args = cell_mc._kernel_args(grid, sigma, st.box, st.beta, vol)
+    before = CELL_SUBSTEP_KERNEL.launches
+    cell_mc._kernel_substeps(grid, P, lj.LJParams(), e, att, acc)(
+        kind, color, args, *draws)
+    torch.cuda.synchronize()
+    assert CELL_SUBSTEP_KERNEL.launches == before + 1
+    assert torch.equal(P, P_twin)
+    assert torch.equal(e, st.energy + d_e)
+    assert torch.equal(att[:, kind], n_att)
+    assert torch.equal(acc[:, kind], n_acc)
+    assert int(att[:, 1 - kind].abs().sum() + acc[:, 2].abs().sum()) == 0
+    if case != "sparse":
+        assert int(n_acc.sum()) > 0
+    if kind == 1 and case != "large":
+        assert int(n_att[-1]) == 0
+
+
+def test_cell_substep_kernel_raises_instead_of_falling_back(cuda):
+    grid, P, st, _ = _cell_case("dense", cuda)
+    m, h = P.shape[0], grid.nc // 2
+    att = torch.zeros((m, 3), dtype=torch.int32, device=cuda)
+    draws = cell_mc.KeyDraws(1, 0, torch.arange(m, device=cuda)).substep(
+        0, 0, m, h, grid.cap, 2, "gaussian", cuda)
+    args = cell_mc._kernel_args(grid, torch.tensor(0.08, device=cuda),
+                                st.box, st.beta, None)
+    with pytest.raises(ValueError):
+        cell_mc._kernel_substeps(grid, P.double(), lj.LJParams(),
+                                 st.energy.clone(), att, att.clone())
+    launch = cell_mc._kernel_substeps(grid, P, lj.LJParams(),
+                                      st.energy.clone(), att, att.clone())
+    before = CELL_SUBSTEP_KERNEL.launches
+    with pytest.raises(ValueError):
+        launch(0, 0, args, draws[0].cpu(), *draws[1:])
+    with pytest.raises(ValueError):
+        launch(1, 0, args, *draws)      # a swap's draws are (M, h, h, C)
+    assert CELL_SUBSTEP_KERNEL.launches == before
+
+
+@pytest.mark.parametrize("pool", ["species", "one_move", "npt"])
+def test_cell_segments_through_the_kernel_equal_the_twin(cuda, pool):
+    """Three ``cell_mc_segment`` calls in a row on 2-D LJ (8 x N 4096), the
+    kernel's path against the twin's on the card: every output bit for bit,
+    and one kernel launch a displacement or swap substep."""
+    st = lj.init_chains(8, 4096, rho=1.2, beta=1.0 / 0.45, frac_b=0.35,
+                        seed=7, device=cuda)
+    m, n = st.pos.shape[:2]
+    pe, rc2, rcut = lj.cell_closures(lj.LJParams())
+    vol = (n, 2.0) if pool == "npt" else None
+    grid = cell_mc.plan_grid(n, float(st.box[0]), rcut,
+                             box_margin=0.15 if vol else 0.0)
+    w_disp, w_swap = {"species": (0.8, 0.2), "one_move": (1.0, 0.0),
+                      "npt": (0.75, 0.2)}[pool]
+    swap_mode = None if pool == "one_move" else "species"
+    ids = torch.arange(m, device=cuda)
+
+    def run(lj_params):
+        pos, attr, e, box = st.pos, st.species.float(), st.energy, st.box
+        for k in range(3):
+            pos, attr, e, box, att, acc, inv = cell_mc.cell_mc_segment(
+                grid, pe, rc2, pos, attr, st.beta, e, 0.08,
+                cell_mc.KeyDraws(9, 1000 * k, ids), 40, w_disp=w_disp,
+                w_swap=w_swap, swap_mode=swap_mode, box=box, vol=vol,
+                dlnv=0.01, lj_params=lj_params)
+        return pos, attr, e, box, att, acc, inv
+
+    want = run(None)
+    before = CELL_SUBSTEP_KERNEL.launches
+    got = run(lj.LJParams())
+    torch.cuda.synchronize()
+    kinds = np.concatenate([cell_mc.KeyDraws(9, 1000 * k, ids).variants(
+        40, 4, w_disp, w_swap, swap_mode is not None, vol is not None)[:, 0]
+        for k in range(3)])
+    assert CELL_SUBSTEP_KERNEL.launches - before == int(np.sum(kinds < 2))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(want[4][:, 0].min()) > 0
+    if pool == "npt":
+        assert int(np.sum(kinds == 2)) > 0
+
+
+@pytest.mark.parametrize("npt", [False, True])
+def test_simulation_cell_path_launches_the_substep_kernel(cuda, tmp_path,
+                                                          npt):
+    """``Metropolis(fused='cell')`` on 2-D LJ: one ``mc_cell_substep`` a
+    displacement or swap substep in ``sim.counters``; a volume substep
+    (one attempt a chain) launches none."""
+    pool = (lj.lj_displacement_move(0.08, weight=0.75),
+            lj.lj_swap_move(weight=0.2))
+    if npt:
+        pool += (lj.lj_volume_move(0.002, 2.0, weight=0.05),)
+    sim = tmc.Simulation(lj.make_system(), lj.init_chains(
+        4, 1024, rho=1.0, beta=1.0 / 0.45, frac_b=0.35, seed=6,
+        device=cuda), [
+        dict(algorithm=tmc.Metropolis, pool=pool, seed=3, sweepstep=256,
+             fused="cell")], 8, path=str(tmp_path))
+    sim.run()
+    assert sim.device_algos[0]._use_cell
+    vol_substeps = 0
+    if npt:
+        counters = sim.device_state["metropolis"]["counters"]
+        vol_substeps = int(counters[0, 2, 1])
+        assert vol_substeps > 0
+    assert sim.counters.launches["mc_cell_substep"] == \
+        sim.counters.cell_substeps - vol_substeps
 
 
 def _poly(m, n, device, seed=0):
