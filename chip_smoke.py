@@ -2079,9 +2079,10 @@ def crossover(tmc, device, card):
 
             def cell():
                 res = cell_mc.cell_mc_segment(
-                    grid, pe, rc2, st.pos, st.species.float(), st.beta,
-                    st.energy, sigma, cell_mc.KeyDraws(1, 0, torch.arange(m)),
-                    n_sub, box=st.box)
+                    grid, cell_mc.CellModel(pe, rc2, rcut),
+                    cell_mc.KeyDraws(1, 0, torch.arange(m)), st.pos,
+                    st.species.float(), st.beta, st.energy, sigma, n_sub,
+                    box=st.box)
                 attempts.append(res[4])
                 return res
 
@@ -2136,18 +2137,18 @@ def cell_profile(grid, pe, rc2, st, sigma, card, n_sub=20):
     from torch.profiler import ProfilerActivity, profile
     from montecarlo_tpu_torch.ops import cell_mc
     ids = torch.arange(st.pos.shape[0])
-    args = (grid, pe, rc2, st.pos, st.species.float(), st.beta, st.energy,
-            sigma)
-    cell_mc.cell_mc_segment(*args, cell_mc.KeyDraws(2, 0, ids), n_sub,
-                            box=st.box)
+    model = cell_mc.CellModel(pe, rc2, grid.rcut)
+    args = (st.pos, st.species.float(), st.beta, st.energy, sigma)
+    cell_mc.cell_mc_segment(grid, model, cell_mc.KeyDraws(2, 0, ids), *args,
+                            n_sub, box=st.box)
     torch.cuda.synchronize()
     counts = {}
     for k in (0, n_sub):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            cell_mc.cell_mc_segment(*args, cell_mc.KeyDraws(2, 0, ids), k,
-                                    box=st.box)
+            cell_mc.cell_mc_segment(grid, model, cell_mc.KeyDraws(2, 0, ids),
+                                    *args, k, box=st.box)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launches, busy = _launches_and_busy(prof)
@@ -2515,7 +2516,7 @@ def poly_npt_generic_vs_auto(tmc, kernels, root, card):
         rates[mode] = att / walls[1]
         out[mode] = sim
         if mode == "auto":
-            check(met._use_cell and met._cell_model[6] == 2,
+            check(met._use_cell and met._cell_model.vol == 2,
                   "8b: 'auto' did not take the cell path with volume "
                   "substeps")
             print(f"8b: NPT plan {met._cell_plan!r}")
@@ -2713,7 +2714,8 @@ def npt_card_vs_cpu(device, card):
                                  max_occupancy=int(np.ceil(
                                      occ * (box / plan0.box_min) ** dim)))
         attr = getattr(st, field).to(torch.float32)
-        args = (grid, pe, rc2)
+        model = cell_mc.CellModel(pe, rc2, rcut,
+                                  swap_mode=kw.pop("swap_mode"))
         res = {}
         for where in ("cpu", "card"):
             draws = cell_mc.KeyDraws(cfg["seed"], 0, torch.arange(m))
@@ -2724,8 +2726,8 @@ def npt_card_vs_cpu(device, card):
                 x = tuple(t.to(device) for t in (st.pos, attr, st.beta,
                                                  st.energy, st.box))
             out = cell_mc.cell_mc_segment(
-                *args, *x[:4], torch.tensor(0.08), draws, cfg["substeps"],
-                box=x[4], **kw)
+                grid, model, draws, *x[:4], torch.tensor(0.08),
+                cfg["substeps"], box=x[4], **kw)
             res[where] = [t.cpu() for t in out]
         c, g = res["cpu"], res["card"]
         flips = int((c[5] - g[5]).abs().sum())
@@ -2786,10 +2788,11 @@ def substep_times(lj3d_sim, poly_sim, card):
             ("poly NPT volume substep", poly_sim, "diam", 2)):
         met = sim.device_algos[0]
         grid = met._cell_plan
-        pe, rc2 = met._cell_model[:2]
+        pe, rc2 = met._cell_model.model.pair_energy, \
+            met._cell_model.model.rcut2_of
         st = sim.device_state["sys"]
         m, n, dim = st.pos.shape
-        vol = (n, met._cell_model[7]) if kind == 2 else None
+        vol = (n, met._cell_model.pressure) if kind == 2 else None
         variants, _ = cell_mc._make_substep(grid, pe, rc2, None, vol)
         s = torch.remainder(st.pos / st.box[:, None, None], 1.0)
         P = cell_mc._pack(cell_mc.bind_cells(

@@ -29,11 +29,12 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..ops import cell_mc
 from ..utils import prng
 from ..utils.observability import count
 from ..utils.tree import tree_leaves, tree_map
@@ -55,8 +56,10 @@ __all__ = [
 #: The smallest N at which ``fused='auto'`` takes the cell path for a
 #: plannable pool, the reference's.  The port's divergence: a pool that a
 #: row kernel takes on the card stays with the row kernel at every N the
-#: kernel holds, where the eager cell path was slower on an H100
-#: (``chip_smoke.py`` phase 7c; ``ROADMAP.md`` queue 3).
+#: kernel holds.  That rule rests on the crossover with the eager cell
+#: path in plain torch (``chip_smoke.py`` phase 7c), measured before the
+#: substep kernel ``csrc/cell_substep.cu``; the cell ``ka2d.n4096.cell``
+#: is queued to measure it again.
 CELL_AUTO_MIN_N = 2048
 
 
@@ -277,56 +280,19 @@ class Metropolis(DeviceAlgorithm):
         # spatial dimension of particle states (None for other systems)
         pos0 = getattr(sim.chains0, "pos", None)
         self._pos_dim = None if pos0 is None else int(pos0.shape[-1])
-        self._n_particles = None if pos0 is None else int(pos0.shape[-2])
-        self._fused_pool = self._recognise_pool()
-        self._box = None
-        if self._fused_pool in ("lj", "lj_mixed", "poly_mixed"):
-            # the kernels take one box for all chains, as the reference
-            # passes sys.box[0]; read once here, never per segment
-            self._box = float(sim.chains0.box.reshape(-1)[0])
+        # the fast paths are those of the family every move carries
+        family = self.movedefs[0].family
+        if any(md.family is not family for md in self.movedefs):
+            family = None
+        # on a mesh, the row sweep's sharded entry point: this rank's
+        # chains, the rank folded into the seed
+        mesh = () if self.mesh is None else (self.mesh, self.mesh.axis)
+        self._row = family and family.row and family.row(
+            self.pool, sim.chains0, mesh, fused == "interpret")
         self._cell_disabled = False
-        self._plan_cell_mc(sim, cell_opts or {})
+        self._plan_cell_mc(sim, cell_opts or {}, family)
 
-    def _recognise_pool(self):
-        """Which fused sweep the pool's structure maps onto: ``'gaussian'``
-        (one Gaussian displacement of a 1-D particle), ``'lj'`` (one 2-D LJ
-        displacement), ``'lj_mixed'`` (2-D LJ displacement + swap sharing
-        one interaction table), ``'poly_mixed'`` (2-D polydisperse
-        displacement + diameter swap sharing one ``PolyParams``, N >= 2), or
-        None.  A lone polydisperse displacement has no kernel, in the
-        reference as here."""
-        kinds = tuple(m.move.kind for m in self.pool)
-        if kinds == ("gaussian_displacement_1d",):
-            return "gaussian"
-        if self._pos_dim != 2:
-            return None       # the particle row kernels are 2-D
-        if kinds == ("lj_displacement_2d",):
-            return "lj"
-        if len(kinds) != 2 or self.pool[0].move.aux != self.pool[1].move.aux:
-            return None
-        if set(kinds) == {"lj_displacement_2d", "lj_swap"}:
-            return "lj_mixed"
-        if set(kinds) == {"poly_displacement_2d", "poly_swap"}:
-            # a swap needs two particles; the reference's kernel draws
-            # j = -1 at N = 1, the port leaves that pool to the generic path
-            return "poly_mixed" if self._n_particles >= 2 else None
-        return None
-
-    #: kind tag -> (family, role): a pool maps onto the cell path when it is
-    #: one displacement move of a single family, optionally + the matching
-    #: swap and/or volume move
-    _CELL_KINDS = {
-        "lj_displacement_2d": ("lj", "disp"),
-        "lj_swap": ("lj", "swap"),
-        "lj_volume": ("lj", "vol"),
-        "poly_displacement_2d": ("poly", "disp"),
-        "poly_swap": ("poly", "swap"),
-        "poly_volume": ("poly", "vol"),
-        "hard_disk_displacement_2d": ("hd", "disp"),
-        "hard_disk_volume": ("hd", "vol"),
-    }
-
-    def _plan_cell_mc(self, sim, opts):
+    def _plan_cell_mc(self, sim, opts, family):
         """Plan the checkerboard cell-MC decomposition (``ops/cell_mc.py``):
         per-move cost O(3^dim C) instead of O(N), ~N/2^dim moves in parallel
         per substep, 2-D and 3-D.  ``opts`` is ``cell_opts``."""
@@ -346,73 +312,58 @@ class Metropolis(DeviceAlgorithm):
                 f"the cell decomposition is 2-D/3-D only (state has "
                 f"{self._pos_dim}-D positions)")
         kinds = tuple(m.move.kind for m in self.pool)
-        if not kinds or any(k not in self._CELL_KINDS for k in kinds):
+        roles = [md.family.roles.get(md.kind) if md.family else None
+                 for md in self.movedefs]
+        if None in roles:
             return unsupported(
                 f"the pool kinds {kinds} have no cell-MC mapping (need a "
                 f"single LJ/poly/hard-disk displacement move, optionally + "
                 f"the matching swap and/or volume move)")
-        families = {self._CELL_KINDS[k][0] for k in kinds}
-        roles = [self._CELL_KINDS[k][1] for k in kinds]
-        if len(families) != 1 or roles.count("disp") != 1 \
+        if family is None or roles.count("disp") != 1 \
                 or roles.count("swap") > 1 or roles.count("vol") > 1:
             return unsupported(
                 f"the pool kinds {kinds} have no cell-MC mapping (need "
                 f"one family with one displacement move, at most one swap "
                 f"and one volume move)")
-        family = families.pop()
-        disp_idx = roles.index("disp")
-        swap_idx = roles.index("swap") if "swap" in roles else None
-        vol_idx = roles.index("vol") if "vol" in roles else None
-        swap_mode = {"lj": "species", "poly": "pair", "hd": None}[family] \
-            if swap_idx is not None else None
-        proposal = "square" if family == "hd" else "gaussian"
-        if swap_idx is not None and (
-                self.pool[disp_idx].move.aux != self.pool[swap_idx].move.aux):
+        disp, swap, vol = (roles.index(r) if r in roles else None
+                           for r in ("disp", "swap", "vol"))
+        aux = self.pool[disp].move.aux
+        if swap is not None and self.pool[swap].move.aux != aux:
             return unsupported(
                 "the displacement and swap moves carry different "
                 "interaction tables (no shared cell geometry)")
         pressure = None
-        if vol_idx is not None:
-            vaux = self.pool[vol_idx].move.aux
+        if vol is not None:
+            vaux = self.pool[vol].move.aux
             if (not isinstance(vaux, tuple) or len(vaux) != 2
-                    or vaux[0] != self.pool[disp_idx].move.aux):
+                    or vaux[0] != aux):
                 return unsupported(
                     "the volume move carries a different interaction table "
                     "than the displacement move (no shared cell geometry)")
             pressure = float(vaux[1])
         try:
-            from ..ops.cell_mc import plan_grid
+            model = family.cell(aux)
+            if swap is None:
+                model = dataclasses.replace(model, swap_mode=None)
             state0 = sim.chains0
             box0 = float(state0.box.reshape(-1)[0])
             n_particles = int(state0.pos.shape[-2])
-            if family == "lj":
-                from ..models.lennard_jones import cell_closures
-                pe, rc2, rcut_max = cell_closures(
-                    self.pool[disp_idx].move.aux)
-            elif family == "poly":
-                from ..models.polydisperse import cell_closures
-                pe, rc2, rcut_max = cell_closures(
-                    self.pool[disp_idx].move.aux)
-            else:
-                from ..models.hard_disks import cell_closures
-                pe, rc2, rcut_max = cell_closures()
             dim = self._pos_dim
             kw = dict(d_cap=float(opts.get("d_cap", 0.45)),
                       cap_slack=float(opts.get("cap_slack", 2.0)), dim=dim,
                       box_margin=float(opts.get(
-                          "box_margin", 0.15 if vol_idx is not None else 0.0)))
-            plan0 = plan_grid(n_particles, box0, rcut_max, **kw)
+                          "box_margin", 0.15 if vol is not None else 0.0)))
+            plan0 = cell_mc.plan_grid(n_particles, box0, model.rcut_max, **kw)
             # capacity from the initial configuration's observed maximum
             # per-cell occupancy (a mean multiple under-sizes clustered
             # states), scaled for the compression volume moves may bring
             max_occ = _max_cell_occupancy(state0, plan0.nc, dim)
-            if vol_idx is not None:
+            if vol is not None:
                 max_occ = int(np.ceil(
                     max_occ * (box0 / plan0.box_min) ** dim))
-            self._cell_plan = plan_grid(n_particles, box0, rcut_max,
-                                        max_occupancy=max_occ, **kw)
-            self._cell_model = (pe, rc2, family, swap_mode, disp_idx,
-                                swap_idx, vol_idx, pressure, proposal)
+            self._cell_plan = cell_mc.plan_grid(
+                n_particles, box0, model.rcut_max, max_occupancy=max_occ, **kw)
+            self._cell_model = CellPool(model, disp, swap, vol, pressure)
             self._cell_n = n_particles
         except (ValueError, AttributeError) as e:
             self._cell_plan = None  # box too small / no geometry
@@ -438,7 +389,7 @@ class Metropolis(DeviceAlgorithm):
         if self.fused == "cell":
             return True   # explicit opt-in (validate_state surfaces misuse)
         return (self.fused == "auto" and self._cell_n >= CELL_AUTO_MIN_N
-                and not self._row_kernel_takes())
+                and not self._row_takes)
 
     class CellBindInvalid(RuntimeError):
         """An auto-selected cell bind overflowed; the orchestrator catches
@@ -521,122 +472,44 @@ class Metropolis(DeviceAlgorithm):
     # -- fused fast path -----------------------------------------------------
     @property
     def supports_fused(self) -> bool:
-        """True when the fused path runs this pool: one Gaussian
-        displacement move of a 1-D particle, one 2-D LJ displacement move,
-        the 2-D LJ displacement + swap pool, or the 2-D polydisperse
-        displacement + diameter-swap pool (N >= 2); or the cell path
-        (:attr:`_use_cell`, any device).  Under ``'auto'`` the
-        chains must be on a CUDA device, with a potential the Gaussian kernel
-        knows or at most
-        :data:`~montecarlo_tpu_torch.ops.lj_sweep.MAX_PARTICLES` particles;
-        under ``'interpret'`` any device and any elementwise potential.  Any
-        other pool takes the generic path."""
+        """True when the fused path runs this pool: its family's row sweep
+        (on a CUDA device; under ``'interpret'`` its plain version on any
+        device) or the cell path (:attr:`_use_cell`, any device)."""
         if self.fused == "off":
             return False
         if self.fused == "cell":
             return self._cell_plan is not None
-        return self._use_cell or self._row_kernel_takes()
+        return self._use_cell or self._row_takes
 
-    def _row_kernel_takes(self) -> bool:
-        """True when a sweep kernel (or, under ``'interpret'``, its plain
-        version) runs this pool on its device."""
-        if self._fused_pool is None:
-            return False
-        if self.fused == "interpret":
-            return True
-        if self.device.type != "cuda":
-            return False
-        if self._fused_pool == "gaussian":
-            from ..ops.fused_sweep import kernel_potential
-            return kernel_potential(self.pool[0].move.aux) is not None
-        from ..ops.lj_sweep import MAX_PARTICLES
-        return self._n_particles <= MAX_PARTICLES
+    @property
+    def _row_takes(self) -> bool:
+        return self._row is not None and (self.fused == "interpret"
+                                          or self.device.type == "cuda")
 
     def fused_advance(self, dstate, n_steps: int):
         """Advance all chains ``n_steps * sweepstep`` MH steps in one sweep
         call; counters and cached energies as :meth:`step` keeps them."""
-        if self._use_cell:
-            return self._cell_advance(dstate, n_steps)
         slc = dstate[self.state_key]
-        sys = dstate["sys"]
-        params = dstate[self.params_key]
-        t0 = dstate["t"]
-        total = int(n_steps) * self.sweepstep
+        t0, n = dstate["t"], int(n_steps)
         # seeding off the absolute micro-step keeps results invariant to how
         # recorder schedules cut the run into segments
-        micro_t0 = t0 * self.sweepstep
-        interp = self.fused == "interpret"
-        # on a mesh, each sweep's sharded entry point: this rank's chains,
-        # the rank folded into the seed
-        mesh = () if self.mesh is None else (self.mesh, self.mesh.axis)
-        from ..ops import fused_sweep, lj_sweep, poly_sweep
-        if self._fused_pool == "gaussian":
-            sweep = (fused_sweep.sharded_gaussian_sweep if mesh
-                     else fused_sweep.fused_gaussian_sweep)
-            sigma = tree_leaves(params[0])[0]
-            x, e, acc = sweep(
-                *mesh, sys.x, sys.beta, sigma, self.seed, micro_t0, total,
-                potential=self.pool[0].move.aux, interpret=interp)
-            new_sys = dataclasses.replace(sys, x=x, e=e)
+        args = (dstate["sys"], dstate[self.params_key], self.seed,
+                t0 * self.sweepstep, n * self.sweepstep)
+        if self._use_cell:
+            sys, inc, slc = self._cell_segment(slc, *args)
         else:
-            kinds = tuple(m.move.kind for m in self.pool)
-            disp = kinds.index("poly_displacement_2d"
-                               if self._fused_pool == "poly_mixed"
-                               else "lj_displacement_2d")
-            sigma = tree_leaves(params[disp])[0]
-            aux = self.pool[disp].move.aux
-            w_disp = float(self.weights[disp] / self.weights.sum())
-            kw = dict(params=aux, interpret=interp)
-            if self._fused_pool == "poly_mixed":
-                sweep = (poly_sweep.sharded_poly_mixed_sweep if mesh
-                         else poly_sweep.fused_poly_mixed_sweep)
-                pos, diam, energy, acc, tot = sweep(
-                    *mesh, sys.pos, sys.diam, sys.beta, sys.energy, self._box,
-                    sigma, w_disp, self.seed, micro_t0, total, **kw)
-                new_sys = dataclasses.replace(sys, pos=pos, diam=diam,
-                                              energy=energy)
-            else:
-                args = (*mesh, sys.pos, sys.species, sys.beta, sys.energy,
-                        self._box, sigma)
-                if self._fused_pool == "lj":
-                    sweep = (lj_sweep.sharded_lj_sweep if mesh
-                             else lj_sweep.fused_lj_sweep)
-                    pos, energy, acc = sweep(
-                        *args, self.seed, micro_t0, total, **kw)
-                    new_sys = dataclasses.replace(sys, pos=pos, energy=energy)
-                else:
-                    sweep = (lj_sweep.sharded_lj_mixed_sweep if mesh
-                             else lj_sweep.fused_lj_mixed_sweep)
-                    pos, species, energy, acc, tot = sweep(
-                        *args, w_disp, self.seed, micro_t0, total, **kw)
-                    new_sys = dataclasses.replace(
-                        sys, pos=pos, species=species, energy=energy)
-        if self._fused_pool in ("lj_mixed", "poly_mixed"):
-            # (M, kind, [accepted, attempted]), kinds in the pool's order
-            inc = torch.stack([acc, tot], dim=-1)
-            if disp == 1:
-                inc = inc.flip(1)
-        else:
-            inc = torch.stack([acc, torch.full_like(acc, total)],
-                              dim=-1)[:, None, :]
-        return {**dstate, "sys": new_sys, "t": t0 + int(n_steps),
+            sys, inc = self._row(*args)
+        return {**dstate, "sys": sys, "t": t0 + n,
                 self.state_key: {**slc, "counters": slc["counters"] + inc}}
 
-    def _cell_advance(self, dstate, n_steps: int):
-        """The checkerboard cell-MC segment for ``n_steps * sweepstep``
-        requested moves per chain (``ops/cell_mc.py``)."""
-        from ..ops.cell_mc import KeyDraws, cell_mc_segment
-        slc = dstate[self.state_key]
-        sys = dstate["sys"]
-        params = dstate[self.params_key]
-        t0 = dstate["t"]
-        plan = self._cell_plan
-        (pe, rc2, family, swap_mode, disp_idx, swap_idx, vol_idx, pressure,
-         proposal) = self._cell_model
-        sigma = tree_leaves(params[disp_idx])[0]
+    def _cell_segment(self, slc, sys, params, seed, micro_t0, n_moves):
+        """The checkerboard cell-MC segment for ``n_moves`` requested moves
+        per chain (``ops/cell_mc.py``): the new state, the counters'
+        increment and the device-state slot's new debt and flag."""
+        plan, pool = self._cell_plan, self._cell_model
         wsum = float(self.weights.sum())
         w = [float(self.weights[i]) / wsum if i is not None else 0.0
-             for i in (disp_idx, swap_idx, vol_idx)]
+             for i in (pool.disp, pool.swap, pool.vol)]
         # a displacement or swap substep delivers ~a_att attempts per chain,
         # a volume substep one; z substeps per requested move, the
         # fractional remainder carried in cell_debt (float32, as the
@@ -644,54 +517,31 @@ class Metropolis(DeviceAlgorithm):
         # every segment up to a whole substep
         a_att = plan.nc ** plan.dim // 2 ** plan.dim
         z = (w[0] + w[1]) / a_att + w[2]
-        want = (np.float32(int(n_steps) * self.sweepstep) * np.float32(z)
-                + slc["cell_debt"].numpy())
+        want = np.float32(n_moves) * np.float32(z) + slc["cell_debt"].numpy()
         substeps = int(np.floor(want))
-        new_debt = want - np.float32(substeps)
-        if vol_idx is not None:
-            vol, dlnv = (self._cell_n, pressure), params[vol_idx]["dlnv"]
-        else:
-            vol, dlnv = None, 0.0
-        if family == "lj":
-            attr = sys.species.to(torch.float32)
-        elif family == "poly":
-            attr = sys.diam
-        else:                    # hard disks: no attributes, no energy
-            attr = torch.zeros(sys.pos.shape[:-1], dtype=torch.float32,
-                               device=sys.pos.device)
+        vol, dlnv = None, 0.0
+        if pool.vol is not None:
+            vol, dlnv = (self._cell_n, pool.pressure), params[pool.vol]["dlnv"]
         m = sys.pos.shape[0]
-        beta = getattr(sys, "beta", None)
-        energy = getattr(sys, "energy", None)
-        if beta is None:
-            beta = torch.ones(m, dtype=torch.float32, device=sys.pos.device)
-            energy = torch.zeros_like(beta)
         # the global ids of this rank's chains (the mesh's contiguous slice)
         lo = 0 if self.mesh is None else self.mesh.rank * m
-        draws = KeyDraws(self.seed, t0 * self.sweepstep,
-                         torch.arange(lo, lo + m, device=sys.pos.device))
-        pos, attr_out, energy, box, att, acc, ovf = cell_mc_segment(
-            plan, pe, rc2, sys.pos, attr, beta, energy, sigma, draws,
-            substeps, w_disp=(w[0] / a_att) / z, w_swap=(w[1] / a_att) / z,
-            swap_mode=swap_mode, box=sys.box, proposal=proposal, vol=vol,
-            dlnv=dlnv, lj_params=(self.pool[disp_idx].move.aux
-                                  if family == "lj" else None))
-        upd = {"pos": pos}
-        if vol_idx is not None:
-            upd["box"] = box   # an NVT pool keeps the box as given (0-d too)
-        if family == "lj":
-            upd.update(species=attr_out.to(sys.species.dtype), energy=energy)
-        elif family == "poly":
-            upd.update(diam=attr_out, energy=energy)
-        new_sys = dataclasses.replace(sys, **upd)
+        draws = cell_mc.KeyDraws(
+            seed, micro_t0, torch.arange(lo, lo + m, device=sys.pos.device))
+        pos, attr, energy, box, att, acc, ovf = cell_mc.cell_mc_segment(
+            plan, pool.model, draws, sys.pos, *pool.model.leaves(sys),
+            tree_leaves(params[pool.disp])[0], substeps,
+            w_disp=(w[0] / a_att) / z, w_swap=(w[1] / a_att) / z,
+            box=sys.box, vol=vol, dlnv=dlnv)
+        # an NVT pool keeps the box as given (0-d too)
+        upd = {"pos": pos, **({} if vol is None else {"box": box})}
         inc = torch.zeros_like(slc["counters"])
-        for col, idx in enumerate((disp_idx, swap_idx, vol_idx)):
+        for col, idx in enumerate((pool.disp, pool.swap, pool.vol)):
             if idx is not None:
                 inc[:, idx] = torch.stack([acc[:, col], att[:, col]], dim=-1)
-        out_slc = {**slc, "counters": slc["counters"] + inc,
-                   "cell_debt": torch.tensor(new_debt, dtype=torch.float32),
-                   "cell_overflow": slc["cell_overflow"] | torch.any(ovf)}
-        return {**dstate, "sys": new_sys, "t": t0 + int(n_steps),
-                self.state_key: out_slc}
+        debt = torch.tensor(want - np.float32(substeps), dtype=torch.float32)
+        return (pool.model.update(sys, upd, attr, energy), inc,
+                {**slc, "cell_debt": debt,
+                 "cell_overflow": slc["cell_overflow"] | torch.any(ovf)})
 
     # -- summary -------------------------------------------------------------
     def write_summary(self, io, scheduler):
@@ -723,6 +573,19 @@ class Metropolis(DeviceAlgorithm):
             io.write(f"\t\t\t\tPolicy: {type(move.move.policy).__name__}\n")
             io.write(f"\t\t\t\tParameters: {_fmt_params(move.params)}\n")
             io.write(f"\t\t\t\tWeight: {move.weight}\n")
+
+
+@dataclasses.dataclass(frozen=True)
+class CellPool:
+    """A pool's cell-path plan: the cell model (``swap_mode`` None without
+    a swap), the indices of the displacement, swap and volume moves in the
+    pool (None: absent) and the volume move's pressure."""
+
+    model: cell_mc.CellModel
+    disp: int
+    swap: Optional[int]
+    vol: Optional[int]
+    pressure: Optional[float]
 
 
 def _n_devices(mesh, device) -> int:

@@ -20,6 +20,7 @@ from ..utils.tree import tree_map
 __all__ = [
     "Policy",
     "MoveDef",
+    "MoveFamily",
     "Move",
     "tree_select",
     "generic_apply",
@@ -73,9 +74,10 @@ class MoveDef:
     - ``apply(state, action) -> (new_state, delta_log_target)``.
     - ``invert(action, new_state) -> action``.
     - ``reward(action, new_state) -> tensor``: PGMC reward hook (optional).
-    - ``kind``: structural tag (e.g. ``"gaussian_displacement_1d"``) that
-      lets the engine pick a fused kernel for recognised move shapes.
+    - ``kind``: structural tag (e.g. ``"gaussian_displacement_1d"``) by
+      which the move's family recognises the pools its fast paths take.
     - ``aux``: static payload for fused kernels (e.g. the potential).
+    - ``family``: the :class:`MoveFamily` of the module that made it.
     """
 
     name: str
@@ -85,6 +87,25 @@ class MoveDef:
     reward: Optional[Callable[[Any, Any], Any]] = None
     kind: str = ""
     aux: Any = None
+    family: Optional["MoveFamily"] = None
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MoveFamily:
+    """A particle family's fast paths, declared once by the model module
+    whose moves carry it: ``roles`` maps its kind tags to ``"disp"``,
+    ``"swap"`` or ``"vol"`` (one displacement, at most one swap and one
+    volume move take the cell path); ``row(pool, state0, mesh, interpret)``
+    binds the row sweep of ``pool`` (``mesh``: ``(mesh, axis)`` or ``()``;
+    the entry point is looked up on its ``ops`` module at each call) as
+    ``run(sys, params, seed, micro_t0, n_steps) -> (sys', inc)``, ``inc``
+    the (M, K, 2) counter increment, or gives None where no kernel (under
+    ``interpret``, no plain version) takes it; ``cell(aux)`` gives the
+    ``ops.cell_mc.CellModel`` of the displacement move's ``aux``."""
+
+    roles: dict
+    row: Optional[Callable] = None
+    cell: Optional[Callable] = None
 
 
 @dataclasses.dataclass

@@ -21,8 +21,9 @@ import torch
 
 from ..core.ecmc import (CHECK_EVERY, EventChainModel, StraightChain,
                          run_chain, squared_norm)
-from ..core.moves import Move, MoveDef, Policy
+from ..core.moves import Move, MoveDef, MoveFamily, Policy
 from ..core.system import SystemDef
+from ..ops.cell_mc import CellModel
 from ..utils import prng
 from ..utils.device import resolve_device
 from .lennard_jones import UniformLogVolume, _jittered, _lattice
@@ -191,6 +192,12 @@ def cell_closures():
     return pair_energy, rcut2_of, _DIAM
 
 
+_CELL_MODEL = CellModel(*cell_closures(), proposal="square")
+FAMILY = MoveFamily(roles={"hard_disk_displacement_2d": "disp",
+                           "hard_disk_volume": "vol"},
+                    cell=lambda aux: _CELL_MODEL)
+
+
 # -- Metropolis displacement move ------------------------------------------
 
 class UniformSquare(Policy):
@@ -238,7 +245,7 @@ def displacement_move(delta: float, weight: float = 1.0) -> Move:
 
     md = MoveDef(name="HardDiskDisplacement", policy=UniformSquare(),
                  apply=apply, invert=invert, reward=reward,
-                 kind="hard_disk_displacement_2d")
+                 kind="hard_disk_displacement_2d", family=FAMILY)
     return Move(move=md,
                 params={"delta": torch.tensor(delta, dtype=torch.float32)},
                 weight=weight)
@@ -276,7 +283,8 @@ def volume_move(dlnv: float, beta_pressure: float,
 
     md = MoveDef(name="HardDiskVolume", policy=UniformLogVolume(),
                  apply=apply, invert=invert, reward=reward,
-                 kind="hard_disk_volume", aux=(None, float(beta_pressure)))
+                 kind="hard_disk_volume", aux=(None, float(beta_pressure)),
+                 family=FAMILY)
     return Move(move=md,
                 params={"dlnv": torch.tensor(dlnv, dtype=torch.float32)},
                 weight=weight)

@@ -24,11 +24,14 @@ import torch
 
 from ..core.ecmc import (CHECK_EVERY, EventChainModel, StraightChain,
                          run_chain, squared_norm)
-from ..core.moves import Move, MoveDef, Policy
+from ..core.moves import Move, MoveDef, MoveFamily, Policy
 from ..core.system import SystemDef
+from ..ops import lj_sweep
+from ..ops.cell_mc import CellModel
 from ..ops.lj_energy import lj_total_energy
 from ..utils import prng
 from ..utils.device import resolve_device
+from ..utils.tree import tree_leaves
 
 __all__ = [
     "LJState",
@@ -340,7 +343,7 @@ def lj_displacement_move(sigma: float, weight: float = 1.0,
 
     md = MoveDef(name="LJDisplacement", policy=GaussianDisplacement2D(),
                  apply=apply, invert=invert, reward=reward,
-                 kind="lj_displacement_2d", aux=params)
+                 kind="lj_displacement_2d", aux=params, family=FAMILY)
     return Move(move=md,
                 params={"sigma": torch.tensor(sigma, dtype=torch.float32)},
                 weight=weight)
@@ -411,7 +414,7 @@ def lj_swap_move(weight: float = 1.0,
 
     md = MoveDef(name="LJSwap", policy=UniformPairSwap(),
                  apply=apply, invert=invert, reward=reward,
-                 kind="lj_swap", aux=params)
+                 kind="lj_swap", aux=params, family=FAMILY)
     return Move(move=md, params={"dummy": torch.zeros(())}, weight=weight)
 
 
@@ -437,6 +440,59 @@ def cell_closures(params: LJParams):
 
     rcut_max = params.rcut * float(np.max(np.asarray(params.sig)))
     return pair_energy, rcut2_of, rcut_max
+
+
+def _pair_rows(pool, state0, mesh, interpret, module, attr, kinds, names,
+               min_n=1):
+    """``MoveFamily.row`` of 2-D pools of the displacement ``kinds[0]``, in
+    ``module``'s ``fused_<names[0]>``, or with the swap ``kinds[1]`` of the
+    ``attr`` leaf in ``fused_<names[1]>`` (``sharded_*`` on a mesh), from
+    ``min_n`` to ``MAX_PARTICLES`` particles.  One box for all chains, as
+    the reference passes ``sys.box[0]``: read here, once."""
+    tags = [m.move.kind for m in pool]
+    name = names[len(pool) - 1] if len(pool) <= 2 and sorted(tags) == \
+        sorted(kinds[:len(pool)]) else None
+    pos = getattr(state0, "pos", None)
+    if (name is None or pos is None or pos.shape[-1] != 2
+            or pos.shape[-2] < min_n
+            or any(m.move.aux != pool[0].move.aux for m in pool)
+            or not interpret and pos.shape[-2] > lj_sweep.MAX_PARTICLES):
+        return None
+    disp = tags.index(kinds[0])
+    aux = pool[disp].move.aux
+    weights = np.asarray([m.weight for m in pool], np.float32)
+    w_disp = (float(weights[disp] / weights.sum()),) if len(pool) == 2 else ()
+    box = float(state0.box.reshape(-1)[0])
+    name = ("sharded_" if mesh else "fused_") + name
+
+    def run(sys, params, seed, micro_t0, n_steps):
+        # the entry point looked up at each call, as a test may replace it
+        out = getattr(module, name)(
+            *mesh, sys.pos, getattr(sys, attr), sys.beta, sys.energy, box,
+            tree_leaves(params[disp])[0], *w_disp, seed, micro_t0, n_steps,
+            params=aux, interpret=interpret)
+        if not w_disp:                          # (pos, energy, accepted)
+            acc = out[2][:, None]
+            out = (out[0], getattr(sys, attr), out[1], acc,
+                   torch.full_like(acc, n_steps))
+        pos, a, energy, acc, tot = out
+        # (M, kind, [accepted, attempted]), kinds in the pool's order
+        inc = torch.stack([acc, tot], dim=-1)
+        return (dataclasses.replace(sys, pos=pos, energy=energy,
+                                    **{attr: a}),
+                inc.flip(1) if disp == 1 else inc)
+
+    return run
+
+
+FAMILY = MoveFamily(
+    roles={"lj_displacement_2d": "disp", "lj_swap": "swap",
+           "lj_volume": "vol"},
+    row=functools.partial(_pair_rows, module=lj_sweep, attr="species",
+                          kinds=("lj_displacement_2d", "lj_swap"),
+                          names=("lj_sweep", "lj_mixed_sweep")),
+    cell=lambda params: CellModel(*cell_closures(params), swap_mode="species",
+                                  attr="species", kernel_params=params))
 
 
 def virial_pressure(state: LJState, params: LJParams = LJParams(),
@@ -494,7 +550,8 @@ class UniformLogVolume(Policy):
         return (-torch.log(2.0 * params["dlnv"])).expand(action.shape)
 
 
-def _volume_move(name, kind, energies, dlnv, pressure, weight, params):
+def _volume_move(name, kind, energies, dlnv, pressure, weight, params,
+                 family):
     """An isotropic ln-V move whose full energy is ``energies(state, params,
     row_batch, pair_budget)``: the box edge and every position scale by
     ``exp(delta / dim)``, the energy is recomputed in full (O(N^2): volume
@@ -524,7 +581,7 @@ def _volume_move(name, kind, energies, dlnv, pressure, weight, params):
 
     md = MoveDef(name=name, policy=UniformLogVolume(), apply=apply,
                  invert=invert, reward=reward, kind=kind,
-                 aux=(params, float(pressure)))
+                 aux=(params, float(pressure)), family=family)
     return Move(move=md,
                 params={"dlnv": torch.tensor(dlnv, dtype=torch.float32)},
                 weight=weight)
@@ -536,7 +593,7 @@ def lj_volume_move(dlnv: float, pressure: float, weight: float = 1.0,
     In the ideal-gas limit (eps = 0) ``<V> = (N + 1) / (beta P)``
     exactly."""
     return _volume_move("LJVolume", "lj_volume", _lj_energies, dlnv,
-                        pressure, weight, params)
+                        pressure, weight, params, FAMILY)
 
 
 def callback_density(view):

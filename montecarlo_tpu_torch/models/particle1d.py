@@ -19,10 +19,12 @@ import dataclasses
 import torch
 
 from ..core.ecmc import EventChainModel
-from ..core.moves import Move, MoveDef, Policy
+from ..core.moves import Move, MoveDef, MoveFamily, Policy
 from ..core.system import SystemDef
+from ..ops import fused_sweep
 from ..utils import prng
 from ..utils.device import resolve_device
+from ..utils.tree import tree_leaves
 
 __all__ = [
     "Particle1DState",
@@ -126,10 +128,34 @@ def displacement_move(sigma: float, weight: float = 1.0,
 
     md = MoveDef(name="Displacement", policy=StandardGaussian(),
                  apply=apply, invert=invert, reward=reward,
-                 kind="gaussian_displacement_1d", aux=potential)
+                 kind="gaussian_displacement_1d", aux=potential,
+                 family=FAMILY)
     return Move(move=md,
                 params={"sigma": torch.tensor(sigma, dtype=torch.float32)},
                 weight=weight)
+
+
+def _row_sweep(pool, state0, mesh, interpret):
+    """``MoveFamily.row``: ``ops/fused_sweep.py``'s Gaussian sweep of one
+    displacement move in a potential ``kernel_potential`` knows."""
+    potential = pool[0].move.aux
+    if (tuple(m.move.kind for m in pool) != ("gaussian_displacement_1d",)
+            or not interpret
+            and fused_sweep.kernel_potential(potential) is None):
+        return None
+    name = "sharded_gaussian_sweep" if mesh else "fused_gaussian_sweep"
+
+    def run(sys, params, seed, micro_t0, n_steps):
+        x, e, acc = getattr(fused_sweep, name)(
+            *mesh, sys.x, sys.beta, tree_leaves(params[0])[0], seed,
+            micro_t0, n_steps, potential=potential, interpret=interpret)
+        inc = torch.stack([acc, torch.full_like(acc, n_steps)], dim=-1)
+        return dataclasses.replace(sys, x=x, e=e), inc[:, None, :]
+
+    return run
+
+
+FAMILY = MoveFamily(roles={}, row=_row_sweep)
 
 
 class LangevinGaussian(Policy):

@@ -27,8 +27,10 @@ import torch
 
 from ..core.ecmc import (CHECK_EVERY, EventChainModel, StraightChain,
                          run_chain, squared_norm)
-from ..core.moves import Move, MoveDef, Policy
+from ..core.moves import Move, MoveDef, MoveFamily, Policy
 from ..core.system import SystemDef
+from ..ops import poly_sweep
+from ..ops.cell_mc import CellModel
 from ..utils import prng
 from ..utils.device import resolve_device
 from . import lennard_jones as _lj
@@ -258,7 +260,7 @@ def displacement_move(sigma: float, weight: float = 1.0,
 
     md = MoveDef(name="PolyDisplacement", policy=GaussianDisplacement2D(),
                  apply=apply, invert=invert, reward=reward,
-                 kind="poly_displacement_2d", aux=params)
+                 kind="poly_displacement_2d", aux=params, family=FAMILY)
     return Move(move=md,
                 params={"sigma": torch.tensor(sigma, dtype=torch.float32)},
                 weight=weight)
@@ -314,7 +316,7 @@ def swap_move(weight: float = 1.0,
 
     md = MoveDef(name="PolySwap", policy=UniformPair(),
                  apply=apply, invert=invert, reward=reward,
-                 kind="poly_swap", aux=params)
+                 kind="poly_swap", aux=params, family=FAMILY)
     return Move(move=md, params={"dummy": torch.zeros(())}, weight=weight)
 
 
@@ -323,7 +325,7 @@ def volume_move(dlnv: float, pressure: float, weight: float = 1.0,
     """Isotropic ln-V volume move: NPT swap MC, the constant-pressure glass
     protocol, with the acceptance of ``lennard_jones.lj_volume_move``."""
     return _lj._volume_move("PolyVolume", "poly_volume", _energies, dlnv,
-                            pressure, weight, params)
+                            pressure, weight, params, FAMILY)
 
 
 def callback_energy_per_particle(view):
@@ -347,6 +349,19 @@ def cell_closures(params: PolyParams):
     # sigma_ij <= max(d_i, d_j): the non-additive term only shrinks it
     rcut_max = params.xc * params.d_max
     return pair_energy, rcut2_of, rcut_max
+
+
+#: the row sweep of a displacement and a diameter swap (a lone displacement
+#: has no kernel, in the reference as here; at N = 1 the reference's kernel
+#: draws j = -1, the port leaves that pool to the generic path), the cell path
+FAMILY = MoveFamily(
+    roles={"poly_displacement_2d": "disp", "poly_swap": "swap",
+           "poly_volume": "vol"},
+    row=functools.partial(_lj._pair_rows, module=poly_sweep, attr="diam",
+                          kinds=("poly_displacement_2d", "poly_swap"),
+                          names=(None, "poly_mixed_sweep"), min_n=2),
+    cell=lambda params: CellModel(*cell_closures(params), swap_mode="pair",
+                                  attr="diam"))
 
 
 # ---------------------------------------------------------------------------

@@ -80,17 +80,20 @@ chains' sums added to the segment's accumulators.  The torch substeps of
 :func:`_make_substep` are its plain twin, with the same float32 terms and
 float64 sums; they run everything the kernel does not take (the CPU,
 float64, 3-D, the polydisperse and hard-disk models, the volume substep).
-:func:`cell_mc_segment` decides from what it is given (:func:`_kernel_takes`);
-the reference has no Pallas kernel here.
+:func:`cell_mc_segment` decides from what it is given (:func:`_kernel_takes`:
+a :class:`CellModel` that carries the kernel's parameters); the reference
+has no Pallas kernel here.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import itertools
 import math
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -112,6 +115,41 @@ def _sum32(x, dim):
     """float32 ``x`` summed over ``dim`` in :data:`ACCUMULATE`, rounded to
     float32 once."""
     return torch.sum(x, dim=dim, dtype=ACCUMULATE).to(torch.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class CellModel:
+    """A particle family's model on the cell path (``MoveFamily.cell``):
+    the pair terms ``pair_energy(r2, a_i, a_j)`` and ``rcut2_of(a_i, a_j)``
+    on the particles' attributes, the largest cutoff ``rcut_max``, the swap
+    substep (:func:`_make_substep`), the ``proposal`` (``"gaussian"`` or
+    the hard-disk ``"square"``), the state field ``attr`` the attribute is
+    read from (None: no attribute, ``beta`` or ``energy``), and the
+    parameters :data:`CELL_SUBSTEP_KERNEL` takes, or None."""
+
+    pair_energy: Callable
+    rcut2_of: Callable
+    rcut_max: float
+    swap_mode: Optional[str] = None
+    proposal: str = "gaussian"
+    attr: Optional[str] = None
+    kernel_params: Any = None
+
+    def leaves(self, sys):
+        """A segment's ``(attr, beta, energy)`` of the state ``sys``."""
+        if self.attr is not None:
+            return (getattr(sys, self.attr).to(torch.float32), sys.beta,
+                    sys.energy)
+        f32, m = dict(dtype=torch.float32, device=sys.pos.device), len(sys.pos)
+        return (torch.zeros(sys.pos.shape[:-1], **f32), torch.ones(m, **f32),
+                torch.zeros(m, **f32))
+
+    def update(self, sys, upd, attr, energy):
+        """``sys`` with ``upd`` and a segment's ``attr`` and ``energy``."""
+        if self.attr is not None:
+            upd = {**upd, self.attr: attr.to(getattr(sys, self.attr).dtype),
+                   "energy": energy}
+        return dataclasses.replace(sys, **upd)
 
 
 class CellGrid:
@@ -548,12 +586,13 @@ CELL_SUBSTEP_KERNEL = CudaKernel(
     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
-def _kernel_takes(lj_params, dim, device, *tensors) -> bool:
+def _kernel_takes(model: CellModel, dim, device, *tensors) -> bool:
     """Whether :data:`CELL_SUBSTEP_KERNEL` runs a segment's displacement and
-    swap substeps: the pair model is Lennard-Jones (``lj_params`` given),
+    swap substeps: the model carries the kernel's parameters, the state is
     2-D, on a CUDA device, and ``tensors`` (the packed cells, beta, the
     energies) are float32."""
-    return (lj_params is not None and dim == 2 and device.type == "cuda"
+    return (model.kernel_params is not None and dim == 2
+            and device.type == "cuda"
             and all(t.dtype == torch.float32 for t in tensors))
 
 
@@ -570,7 +609,7 @@ def _kernel_args(grid: CellGrid, sigma, box, beta, vol):
                         torch.broadcast_to(-beta, (m,)), box * box])
 
 
-def _kernel_substeps(grid: CellGrid, P, lj_params, e, att, acc):
+def _kernel_substeps(grid: CellGrid, P, params, e, att, acc):
     """A segment's launcher of :data:`CELL_SUBSTEP_KERNEL` on its packed
     cells ``P`` (M, 4, nc, nc, C) float32 on the card: ``launch(kind,
     color, args, *draws)`` runs one displacement (kind 0) or swap (kind 1)
@@ -599,7 +638,7 @@ def _kernel_substeps(grid: CellGrid, P, lj_params, e, att, acc):
         check(name, t, dtype, shape)
     cell_de = torch.empty((m * h * h,), dtype=torch.float32, device=P.device)
     flags = torch.empty((m * h * h,), dtype=torch.uint8, device=P.device)
-    table = _pair_table(lj_params)
+    table = _pair_table(params)
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream().cuda_stream
     cells = (m, h, h)
@@ -748,34 +787,27 @@ def _kinds(u, w_disp, w_swap, swap, vol):
 # Segment driver
 # ---------------------------------------------------------------------------
 
-def cell_mc_segment(grid: CellGrid, pair_energy, rcut2_of, pos, attr, beta,
-                    energy, sigma, draws, n_substeps: int,
-                    w_disp: float = 1.0, w_swap: float = 0.0, swap_mode=None,
-                    box=None, proposal: str = "gaussian", vol=None,
-                    dlnv=0.0, lj_params=None):
+def cell_mc_segment(grid: CellGrid, model: CellModel, draws, pos, attr, beta,
+                    energy, sigma, n_substeps: int, w_disp: float = 1.0,
+                    w_swap: float = 0.0, box=None, vol=None, dlnv=0.0):
     """Run ``n_substeps`` checkerboard substeps on chain-stacked state.
 
     Args:
       grid: the :class:`CellGrid` plan.
-      pair_energy / rcut2_of: the model's closures on (r2, attr_i, attr_j).
+      model: the :class:`CellModel` (``swap_mode`` None without swaps);
+        :func:`_kernel_takes` says when its displacement and swap substeps
+        run in :data:`CELL_SUBSTEP_KERNEL`, the same numbers as the twin's.
+      draws: the segment's draws (:class:`KeyDraws`'s protocol).
       pos: (M, N, dim) real-space positions; attr: (M, N);
       beta, energy: (M,); box: (M,) per-chain box edges, or a scalar.
       sigma: proposal width (real units): a Gaussian's standard deviation,
         or the square proposal's half-width.
-      draws: the segment's draws (:class:`KeyDraws`'s protocol).
       n_substeps: host int; a displacement or swap substep attempts
         ~nc^dim / 2^dim moves per chain, a volume substep one.
       w_disp / w_swap: the probabilities that a substep is a displacement
         or a swap; the rest are volume substeps (swaps without ``vol``).
-      swap_mode: None, ``"species"`` or ``"pair"``.
-      proposal: ``"gaussian"`` or ``"square"`` (the hard-disk convention).
       vol: None, or ``(n_particles, pressure)``: volume substeps with the
         ln-V half-width ``dlnv`` (a float or a 0-d tensor).
-      lj_params: the ``lennard_jones.LJParams`` the closures compute, when
-        they are ``lennard_jones.cell_closures``'s; with 2-D float32 state
-        on a CUDA device the displacement and swap substeps then run in
-        :data:`CELL_SUBSTEP_KERNEL` (:func:`_kernel_takes`), the same
-        numbers as the twin's.
 
     Returns ``(pos', attr', energy', box', attempts, accepts, invalid)``
     with box' (M,), attempts/accepts (M, 3) int32 (columns: displacement,
@@ -788,7 +820,9 @@ def cell_mc_segment(grid: CellGrid, pair_energy, rcut2_of, pos, attr, beta,
     if dim != grid.dim:
         raise ValueError(f"grid is {grid.dim}-D but positions are {dim}-D")
     dev = pos.device
-    variants, _ = _make_substep(grid, pair_energy, rcut2_of, swap_mode, vol)
+    swap_mode = model.swap_mode
+    variants, _ = _make_substep(grid, model.pair_energy, model.rcut2_of,
+                                swap_mode, vol)
     box = _chain_box(box, m, dev, grid.box)
     sigma = torch.as_tensor(sigma, dtype=torch.float32, device=dev)
     dlnv = torch.as_tensor(dlnv, dtype=torch.float32, device=dev)
@@ -808,10 +842,10 @@ def cell_mc_segment(grid: CellGrid, pair_energy, rcut2_of, pos, attr, beta,
     acc = torch.zeros((m, 3), dtype=torch.int32, device=dev)
     h = grid.nc // 2
     kernel = None
-    if _kernel_takes(lj_params, dim, dev, P, beta, energy):
+    if _kernel_takes(model, dim, dev, P, beta, energy):
         # the kernel adds each substep's chain sums to e, att, acc in place
         e = energy.clone(memory_format=torch.contiguous_format)
-        kernel = _kernel_substeps(grid, P, lj_params, e, att, acc)
+        kernel = _kernel_substeps(grid, P, model.kernel_params, e, att, acc)
         args = _kernel_args(grid, sigma, bx, beta, vol)
     with (contextlib.nullcontext() if kernel is None
           else torch.cuda.device(dev)):
@@ -826,8 +860,8 @@ def cell_mc_segment(grid: CellGrid, pair_energy, rcut2_of, pos, attr, beta,
                         e.copy_(e_vol)
                         args = _kernel_args(grid, sigma, bx, beta, vol)
                 else:
-                    d = draws.substep(i, kind, m, h, grid.cap, dim, proposal,
-                                      dev)
+                    d = draws.substep(i, kind, m, h, grid.cap, dim,
+                                      model.proposal, dev)
                     if kernel is not None:
                         kernel(kind, color, args, *d)
                         continue

@@ -105,7 +105,7 @@ def test_engine_cell_mixed_pool(tmp_path):
     sim = _lj_sim(tmp_path, chains, 24, pool=pool, seed=3, fused="cell")
     met = sim.device_algos[0]
     assert met._use_cell and met.supports_fused
-    assert met._cell_model[3] == "species"
+    assert met._cell_model.model.swap_mode == "species"
     sim.run()
     slc = sim.device_state["metropolis"]
     assert not bool(slc["cell_overflow"])
@@ -158,7 +158,7 @@ def test_fused_cell_3d_and_volume_pools_plan(tmp_path):
                          dim=3)
     met = _lj_sim(tmp_path, st3, 4, fused="cell").device_algos[0]
     assert met._use_cell and met._cell_plan.dim == 3
-    assert met._cell_plan.nc == 4 and met._cell_model[6] is None
+    assert met._cell_plan.nc == 4 and met._cell_model.vol is None
     st = lj.init_chains(2, 512, rho=1.0, beta=1.0, seed=30, device="cpu")
     pool = (lj.lj_displacement_move(0.1, weight=0.9),
             lj.lj_volume_move(0.01, pressure=2.0, weight=0.1))
@@ -169,7 +169,7 @@ def test_fused_cell_3d_and_volume_pools_plan(tmp_path):
     occ = int(np.ceil(occ * (box / plan0.box_min) ** 2))
     assert met._cell_plan == cell_mc.plan_grid(
         512, box, 2.5, box_margin=0.15, max_occupancy=occ)
-    assert met._cell_model[6] == 1 and met._cell_model[7] == 2.0
+    assert met._cell_model.vol == 1 and met._cell_model.pressure == 2.0
     met = _lj_sim(tmp_path, st, 4, pool=pool, fused="cell",
                   cell_opts={"box_margin": 0.0}).device_algos[0]
     assert met._cell_plan.nc == cell_mc.plan_grid(512, box, 2.5).nc
@@ -270,11 +270,12 @@ def test_substeps_per_segment_match_reference(monkeypatch, tmp_path,
                 mod.lj_swap_move(weight=0.3))
 
     counts = {"ref": [], "port": []}
-    for name, mod in (("ref", ref_cell), ("port", cell_mc)):
+    # n_substeps: the reference's tenth argument, the port's ninth
+    for name, mod, at in (("ref", ref_cell, 9), ("port", cell_mc, 8)):
         orig = mod.cell_mc_segment
 
-        def spy(*args, _orig=orig, _name=name, **kw):
-            counts[_name].append(int(args[9]))
+        def spy(*args, _orig=orig, _name=name, _at=at, **kw):
+            counts[_name].append(int(args[_at]))
             return _orig(*args, **kw)
 
         monkeypatch.setattr(mod, "cell_mc_segment", spy)

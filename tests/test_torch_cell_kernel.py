@@ -105,19 +105,23 @@ def test_pair_table_gives_the_closures_pair_terms():
 
 # -- the dispatch -------------------------------------------------------------
 
-@pytest.mark.parametrize("lj_params,dim,device,dtype,takes", [
-    (LJP, 2, CUDA, torch.float32, True),
-    (None, 2, CUDA, torch.float32, False),     # poly, hard disks
-    (LJP, 3, CUDA, torch.float32, False),
-    (LJP, 2, CPU, torch.float32, False),
-    (LJP, 2, CUDA, torch.float64, False),
+@pytest.mark.parametrize("family,dim,device,dtype,takes", [
+    ("lj", 2, CUDA, torch.float32, True),
+    ("poly", 2, CUDA, torch.float32, False),
+    ("hd", 2, CUDA, torch.float32, False),
+    ("lj", 3, CUDA, torch.float32, False),
+    ("lj", 2, CPU, torch.float32, False),
+    ("lj", 2, CUDA, torch.float64, False),
 ])
-def test_kernel_takes_only_2d_lj_float32_on_cuda(lj_params, dim, device,
-                                                 dtype, takes):
+def test_kernel_takes_only_2d_lj_float32_on_cuda(family, dim, device, dtype,
+                                                 takes):
+    model = {"lj": lj.FAMILY.cell(LJP), "poly": poly.FAMILY.cell(
+        poly.PolyParams()), "hd": hd.FAMILY.cell(None)}[family]
+    assert (model.kernel_params is LJP) == (family == "lj")
     t = torch.zeros(2, dtype=dtype)
-    assert cell_mc._kernel_takes(lj_params, dim, device, t, t, t) is takes
+    assert cell_mc._kernel_takes(model, dim, device, t, t, t) is takes
     mixed = torch.zeros(2, dtype=torch.float64)
-    assert not cell_mc._kernel_takes(lj_params, dim, device, t, mixed, t)
+    assert not cell_mc._kernel_takes(model, dim, device, t, mixed, t)
 
 
 def _pool(family):
@@ -149,7 +153,7 @@ def _chains(family, dim=2):
                                         ("poly", 2), ("hd", 2)])
 def test_metropolis_hands_the_lj_table_and_the_cpu_launches_nothing(
         family, dim, tmp_path, monkeypatch):
-    """``_cell_advance`` hands the segment the LJ pool's parameters and
+    """``_cell_segment`` hands the segment the LJ pool's parameters and
     nothing for poly and hard disks; on the CPU every substep takes the
     twin: the kernel's launches stay 0 and ``sim.counters`` lists none."""
     seen = []
@@ -157,9 +161,9 @@ def test_metropolis_hands_the_lj_table_and_the_cpu_launches_nothing(
     taken = []
     real_takes = cell_mc._kernel_takes
 
-    def spy(*args, **kw):
-        seen.append(kw.get("lj_params"))
-        return real(*args, **kw)
+    def spy(grid, model, *args, **kw):
+        seen.append(model.kernel_params)
+        return real(grid, model, *args, **kw)
 
     def takes(*args):
         taken.append(real_takes(*args))
@@ -189,14 +193,15 @@ def test_kernel_is_counted_by_its_entry_point():
 
 # -- the segment through the kernel's path ------------------------------------
 
-def twin_in_kernel_place(grid, P, lj_params, e, att, acc):
+def twin_in_kernel_place(grid, P, params, e, att, acc):
     """A stand-in for ``cell_mc._kernel_substeps`` on any device: each
     launch runs the twin's substep with the box and ``beta`` read back from
     the kernel's arguments (``sqrt`` of a float32 square gives its root
     exactly) and adds the chain sums into ``e``, ``att`` and ``acc`` in
     place, as the kernel does.  Stale arguments give another box."""
-    pe, rc2, _ = lj.cell_closures(lj_params)
-    variants, _ = cell_mc._make_substep(grid, pe, rc2, "species")
+    model = lj.FAMILY.cell(params)
+    variants, _ = cell_mc._make_substep(grid, model.pair_energy,
+                                        model.rcut2_of, "species")
     sigma = torch.tensor(SEGMENT_SIGMA)
 
     def launch(kind, color, args, *draws):
@@ -227,9 +232,11 @@ def test_segment_through_the_kernel_path_equals_the_twin(pool, monkeypatch):
     vol = (n, 2.0) if pool == "npt" else None
     grid = cell_mc.plan_grid(n, float(st.box[0]), rcut,
                              box_margin=0.15 if vol else 0.0)
+    swap_mode = None if pool == "one_move" else "species"
+    model = cell_mc.CellModel(pe, rc2, rcut, swap_mode=swap_mode,
+                              kernel_params=LJP)
     kw = dict(w_disp={"species": 0.7, "one_move": 1.0, "npt": 0.6}[pool],
               w_swap=0.3 if pool != "one_move" else 0.0,
-              swap_mode=None if pool == "one_move" else "species",
               box=st.box, vol=vol, dlnv=0.01)
     if pool == "npt":
         kw["w_swap"] = 0.25
@@ -247,17 +254,16 @@ def test_segment_through_the_kernel_path_equals_the_twin(pool, monkeypatch):
                 mp.setattr(cell_mc.torch.cuda, "device",
                            lambda d: contextlib.nullcontext())
             return cell_mc.cell_mc_segment(
-                grid, pe, rc2, st.pos, st.species.float(), st.beta,
-                st.energy, SEGMENT_SIGMA,
-                cell_mc.KeyDraws(9, 2048, torch.arange(m)), 60,
-                lj_params=LJP, **kw)
+                grid, model, cell_mc.KeyDraws(9, 2048, torch.arange(m)),
+                st.pos, st.species.float(), st.beta, st.energy,
+                SEGMENT_SIGMA, 60, **kw)
 
     want, got = run(False), run(True)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
     att = want[4]
     seq = cell_mc.KeyDraws(9, 2048, torch.arange(m)).variants(
-        60, 4, kw["w_disp"], kw["w_swap"], kw["swap_mode"] is not None,
+        60, 4, kw["w_disp"], kw["w_swap"], swap_mode is not None,
         vol is not None)
     assert launched == [k for k, _ in seq.tolist() if k != 2]
     assert int(att[:, 0].min()) > 0

@@ -239,9 +239,10 @@ def test_segment_matches_reference(swap_mode, w_disp):
         grid, pe, rc2, ref.pos, attr, ref.beta, ref.energy, 0.08, key, 40,
         w_disp=w_disp, swap_mode=swap_mode, box=ref.box)
     got = cell_mc.cell_mc_segment(
-        cell_mc.plan_grid(512, box, rcut), pe2, rc22, st.pos,
-        st.species.float(), st.beta, st.energy, 0.08, ReferenceDraws(key),
-        40, w_disp=w_disp, swap_mode=swap_mode, box=st.box)
+        cell_mc.plan_grid(512, box, rcut),
+        cell_mc.CellModel(pe2, rc22, rcut, swap_mode=swap_mode),
+        ReferenceDraws(key), st.pos, st.species.float(), st.beta, st.energy,
+        0.08, 40, w_disp=w_disp, box=st.box)
     pos, attr_o, e, box_o, att, acc, inv = got
     np.testing.assert_allclose(pos.numpy(), np.asarray(want[0]), rtol=0,
                                atol=1e-5)
@@ -258,17 +259,16 @@ def test_segment_matches_reference(swap_mode, w_disp):
 
 # -- the reference's gates, on the port's stream ------------------------------
 
-def _segment(grid, closures, st, attr, sigma, n_sub, seed, **kw):
+def _segment(grid, closures, st, attr, sigma, n_sub, seed, swap_mode=None,
+             **kw):
     """An NVT segment on the port's stream: ``cell_mc_segment``'s outputs
     without the (unchanged) box."""
-    pe, rc2, _ = closures
     beta = getattr(st, "beta", torch.ones(st.pos.shape[0]))
     energy = getattr(st, "energy", torch.zeros(st.pos.shape[0]))
     pos, attr, e, _, att, acc, inv = cell_mc.cell_mc_segment(
-        grid, pe, rc2, st.pos, attr, beta, energy, sigma,
-        cell_mc.KeyDraws(seed, 0, torch.arange(st.pos.shape[0])), n_sub,
-        box=st.box,
-        **kw)
+        grid, cell_mc.CellModel(*closures, swap_mode=swap_mode),
+        cell_mc.KeyDraws(seed, 0, torch.arange(st.pos.shape[0])), st.pos,
+        attr, beta, energy, sigma, n_sub, box=st.box, **kw)
     return pos, attr, e, att, acc, inv
 
 

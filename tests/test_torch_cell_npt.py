@@ -175,15 +175,16 @@ def test_segment_3d_matches_reference():
     ref, st, rc, pc, attr = _family("lj", 3)
     grid, pgrid = _grids(ref, rc[2])
     key = jax.random.key(7)
-    kw = dict(w_disp=0.6, w_swap=0.4, swap_mode="species")
+    kw = dict(w_disp=0.6, w_swap=0.4)
     seq = ReferenceDraws(key).variants(48, 8, 0.6, 0.4, True, False)
     assert len({tuple(v) for v in seq.tolist()}) == 16
     want = ref_cell.cell_mc_segment(
         grid, *rc[:2], ref.pos, attr, ref.beta, ref.energy, 0.08, key, 48,
-        box=ref.box, **kw)
+        box=ref.box, swap_mode="species", **kw)
     got = cell_mc.cell_mc_segment(
-        pgrid, *pc[:2], st.pos, st.species.float(), st.beta, st.energy,
-        0.08, ReferenceDraws(key), 48, box=st.box, **kw)
+        pgrid, cell_mc.CellModel(*pc, swap_mode="species"),
+        ReferenceDraws(key), st.pos, st.species.float(), st.beta, st.energy,
+        0.08, 48, box=st.box, **kw)
     _same_segment(got, want)
     assert int(got[4][:, 0].min()) > 0 and int(got[5][:, 1].min()) > 0
 
@@ -217,14 +218,13 @@ def test_npt_segment_from_box_min_matches_reference():
     st = interop.chains_from_reference(ref, device="cpu")
     assert float(st.box[0]) == np.float32(grid.box_min)
     key = jax.random.key(23)
-    kw = dict(w_disp=0.5, w_swap=0.2, swap_mode="pair", vol=(512, 4.0),
-              dlnv=1e-4)
+    kw = dict(w_disp=0.5, w_swap=0.2, vol=(512, 4.0), dlnv=1e-4)
     want = ref_cell.cell_mc_segment(
         grid, *rc[:2], ref.pos, attr, ref.beta, ref.energy, 0.08, key, 40,
-        box=ref.box, **kw)
+        box=ref.box, swap_mode="pair", **kw)
     got = cell_mc.cell_mc_segment(
-        pgrid, *pc[:2], st.pos, st.diam, st.beta, st.energy, 0.08,
-        ReferenceDraws(key), 40, box=st.box, **kw)
+        pgrid, cell_mc.CellModel(*pc, swap_mode="pair"), ReferenceDraws(key),
+        st.pos, st.diam, st.beta, st.energy, 0.08, 40, box=st.box, **kw)
     _same_segment(got, want)
     att, acc = got[4], got[5]
     assert bool((att > 0).all()) and int(acc[:, 2].min()) > 0
@@ -294,14 +294,21 @@ def test_substeps_and_summary_match_reference(monkeypatch, tmp_path, case):
     family, dim = ("poly", 2) if case == "poly_npt" else ("lj", 3)
     ref, st = _family(family, dim)[:2]
     counts = {"ref": [], "port": []}
-    for name, mod, xp in (("ref", ref_cell, jnp), ("port", cell_mc, torch)):
-        def stub(grid, pe, rc2, pos, attr, beta, energy, sigma, key, n_sub,
-                 _name=name, _xp=xp, **kw):
-            counts[_name].append(int(n_sub))
-            z = _xp.zeros((pos.shape[0], 3), dtype=_xp.int32)
-            return (pos, attr, energy, kw["box"], z, z,
-                    _xp.zeros(pos.shape[0], dtype=bool))
-        monkeypatch.setattr(mod, "cell_mc_segment", stub)
+
+    def stub(name, xp, pos, attr, energy, n_sub, box):
+        counts[name].append(int(n_sub))
+        z = xp.zeros((pos.shape[0], 3), dtype=xp.int32)
+        return (pos, attr, energy, box, z, z,
+                xp.zeros(pos.shape[0], dtype=bool))
+
+    monkeypatch.setattr(
+        ref_cell, "cell_mc_segment",
+        lambda grid, pe, rc2, pos, attr, beta, energy, sigma, key, n_sub,
+        **kw: stub("ref", jnp, pos, attr, energy, n_sub, kw["box"]))
+    monkeypatch.setattr(
+        cell_mc, "cell_mc_segment",
+        lambda grid, model, draws, pos, attr, beta, energy, sigma, n_sub,
+        **kw: stub("port", torch, pos, attr, energy, n_sub, kw["box"]))
     ref_mod = {"poly": ref_poly, "lj": ref_lj}[family]
     mod = {"poly": poly, "lj": lj}[family]
     ref_sim = mc.Simulation(ref_mod.make_system(), ref, [
@@ -312,7 +319,8 @@ def test_substeps_and_summary_match_reference(monkeypatch, tmp_path, case):
              sweepstep=7, fused="cell")], 40, path=str(tmp_path / "port"))
     ref_met, met = ref_sim.device_algos[0], sim.device_algos[0]
     assert met._cell_plan == cell_mc.CellGrid(*ref_met._cell_plan._key())
-    assert met._cell_model[6:8] == ref_met._cell_model[6:8]
+    assert (met._cell_model.vol, met._cell_model.pressure) == \
+        ref_met._cell_model[6:8]
     ref_ds, ds = ref_sim.init_device_state(), sim.init_device_state()
     lengths = segment_lengths(40)
     for n in lengths:
@@ -347,7 +355,7 @@ def test_auto_takes_the_cell_path_for_3d_and_npt_pools(tmp_path):
             path=str(tmp_path)).device_algos[0]
         assert met._use_cell and met.supports_fused
         met.device = torch.device("cuda")           # as the card sees it
-        assert met._use_cell and not met._row_kernel_takes()
+        assert met._use_cell and met._row is None
 
 
 def test_hard_spheres_npt_cell_path(tmp_path):
@@ -365,7 +373,8 @@ def test_hard_spheres_npt_cell_path(tmp_path):
              fused="cell")], 4, path=str(tmp_path))
     met = sim.device_algos[0]
     assert met._use_cell and met._cell_plan.dim == 3
-    assert met._cell_model[2] == "hd" and met._cell_model[6] == 1
+    assert met._cell_model.model == hd.FAMILY.cell(None)
+    assert met._cell_model.vol == 1
     sim.run()
     slc = sim.device_state["metropolis"]
     assert not bool(slc["cell_overflow"])

@@ -446,14 +446,15 @@ def test_cell_segments_through_the_kernel_equal_the_twin(cuda, pool):
     swap_mode = None if pool == "one_move" else "species"
     ids = torch.arange(m, device=cuda)
 
-    def run(lj_params):
+    def run(kernel_params):
+        model = cell_mc.CellModel(pe, rc2, rcut, swap_mode=swap_mode,
+                                  kernel_params=kernel_params)
         pos, attr, e, box = st.pos, st.species.float(), st.energy, st.box
         for k in range(3):
             pos, attr, e, box, att, acc, inv = cell_mc.cell_mc_segment(
-                grid, pe, rc2, pos, attr, st.beta, e, 0.08,
-                cell_mc.KeyDraws(9, 1000 * k, ids), 40, w_disp=w_disp,
-                w_swap=w_swap, swap_mode=swap_mode, box=box, vol=vol,
-                dlnv=0.01, lj_params=lj_params)
+                grid, model, cell_mc.KeyDraws(9, 1000 * k, ids), pos, attr,
+                st.beta, e, 0.08, 40, w_disp=w_disp, w_swap=w_swap, box=box,
+                vol=vol, dlnv=0.01)
         return pos, attr, e, box, att, acc, inv
 
     want = run(None)

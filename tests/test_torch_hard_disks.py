@@ -7,6 +7,7 @@ path through ``Simulation.run`` (the reference's ``test_hard_disk_cell_path``
 gate: overlap-free, acceptance in (0.1, 0.99), psi6 in [0, 1]).
 """
 
+import dataclasses
 import os
 
 import jax
@@ -18,7 +19,10 @@ import montecarlo_tpu as mc
 import montecarlo_tpu_torch as tmc
 from montecarlo_tpu.models import hard_disks as ref_hd
 from montecarlo_tpu_torch import interop
+from montecarlo_tpu_torch.core.moves import MoveFamily
 from montecarlo_tpu_torch.models import hard_disks as hd
+from montecarlo_tpu_torch.ops.cell_mc import CellModel
+from torch_cell_helpers import assert_same_state
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -133,8 +137,8 @@ def test_hard_disk_cell_path(tmp_path):
              scheduler=np.arange(10, steps + 1, 10))],
         steps, path=str(tmp_path))
     met = sim.device_algos[0]
-    assert met._use_cell and met._cell_model[2] == "hd"
-    assert met._cell_model[-1] == "square"
+    assert met._use_cell and met._cell_model.model == hd.FAMILY.cell(None)
+    assert met._cell_model.model.proposal == "square"
     sim.run()
     slc = sim.device_state["metropolis"]
     assert not bool(slc["cell_overflow"])
@@ -145,3 +149,35 @@ def test_hard_disk_cell_path(tmp_path):
     p6 = np.loadtxt(os.path.join(sim.path, "psi6.dat"))
     assert p6.shape == (4, 2)
     assert np.all((p6[:, 1] >= 0) & (p6[:, 1] <= 1))
+
+
+def test_a_family_declared_outside_the_package_takes_the_cell_path(tmp_path):
+    """The seam: a move family declared here, hard disks' closures under a
+    kind tag the package does not know, plans and runs the cell path,
+    displacement and volume substeps, equal to ``hard_disks``' own run bit
+    for bit."""
+    family = MoveFamily(
+        roles={"my_disk_move": "disp", "my_disk_volume": "vol"},
+        cell=lambda aux: CellModel(*hd.cell_closures(), proposal="square"))
+
+    def mine(move, kind):
+        return dataclasses.replace(move, move=dataclasses.replace(
+            move.move, kind=kind, family=family))
+
+    pool = (hd.displacement_move(0.12, weight=0.9),
+            hd.volume_move(dlnv=0.002, beta_pressure=3.0, weight=0.1))
+    runs = []
+    for name, p in (("hd", pool), ("mine", (
+            mine(pool[0], "my_disk_move"), mine(pool[1], "my_disk_volume")))):
+        chains = hd.init_chains(2, 1024, eta=0.5, seed=7, device="cpu")
+        sim = tmc.Simulation(hd.make_system(), chains, [
+            dict(algorithm=tmc.Metropolis, pool=p, seed=3, sweepstep=64,
+                 fused="cell")], 6, path=str(tmp_path / name))
+        assert sim.device_algos[0]._use_cell
+        sim.run()
+        runs.append(sim)
+    assert runs[0].device_algos[0]._cell_plan == \
+        runs[1].device_algos[0]._cell_plan
+    assert_same_state(runs[0].device_state, runs[1].device_state)
+    cnt = runs[1].device_state["metropolis"]["counters"].numpy()
+    assert cnt[:, 0, 0].sum() > 0 and cnt[:, 1, 1].min() > 0

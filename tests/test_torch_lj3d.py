@@ -153,7 +153,7 @@ def test_3d_nvt_mixed_pool_cache_and_pressure(tmp_path):
         100, path=str(tmp_path))
     met = sim.device_algos[0]
     assert not met.supports_fused and met._cell_plan is None
-    assert met._fused_pool is None
+    assert met._row is None
     sim.run()
     st = sim.device_state["sys"]
     np.testing.assert_allclose(st.energy.numpy(),
